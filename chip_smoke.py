@@ -1,0 +1,379 @@
+"""Smoke run of the PyTorch/CUDA port (haff_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and exits non-zero):
+
+1. device: requires CUDA; prints the card (nvidia-smi name, power limit).
+2. build: compiles haff_tpu_torch/kernels/csrc/*.cu (one nvcc per source,
+   in parallel) and prints build seconds and ptxas register/smem use.
+3. kernels: each hand-written kernel against its plain PyTorch version at
+   the shapes evaluate() gives it at the 7b preset, in bfloat16, compared
+   in float32; times the kernel, the plain version and one PyTorch library
+   call computing the same function (CUDA events, after warm-up).
+4. tiny: evaluate() at the tiny preset in float32 on the card (kernels)
+   against the same weights on the CPU (plain versions): identical tokens,
+   masks and taxonomy within 1e-3.
+5. slice: evaluate() at the full 7b preset (LLaMA-7B, CLIP ViT-L/14,
+   SAM ViT-H) in bfloat16 with seeded random weights, 2 batches of 2
+   requests (prompt 320, 16 new tokens); checks shapes, finiteness and the
+   per-evaluate launch counts of the kernels, prints per-batch latency and
+   peak memory.
+
+Prints a {"kernels": [...]} JSON line, the nvidia-smi line, and last
+{"ok": true, "device": {...}}. Needs no network; the weights are random.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+H100_BF16_FLOPS = 989e12   # dense tensor-core peak, H100 SXM data sheet
+H100_BYTES_PER_S = 3.35e12  # HBM3
+
+# Launches of each kernel per evaluate() call at the 7b preset: 28 windowed
+# and 4 global SAM ViT-H blocks, 32 LLaMA layers' prefill.
+PER_EVALUATE = {"sam_window_relpos_attn": 28, "sam_global_relpos_attn": 4,
+                "flash_prefill_fwd": 32}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def card_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters, warmup=2):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes, flops, peak=H100_BF16_FLOPS):
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def within_bf16(name, got, ref):
+    """The kernel computes in float32 like the plain version run on the
+    float32 values of the same inputs; they differ by the kernel's bf16
+    output rounding (half an ulp: 2^-8 relative) and float32 summation
+    order. Tolerance: |err| <= 1e-3 + 2^-7 |ref| (one bf16 ulp)."""
+    err = (got.float() - ref.float()).abs()
+    tol = 1e-3 + 2.0 ** -7 * ref.float().abs()
+    bad = int((err > tol).sum())
+    if bad or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name}: {bad} elements outside tolerance, "
+                             f"max abs err {float(err.max())}")
+    return float(err.max())
+
+
+def check_window(gen):
+    from haff_tpu_torch.kernels import sam_attention as sa
+
+    # ViT-H windowed block at batch 1: 5 x 5 windows of 14 x 14 tokens,
+    # 16 heads x 80.
+    nwin, w, nh, d = 25, 14, 16, 80
+    c, l = nh * d, w * w
+    dev, bf = "cuda", torch.bfloat16
+    q3 = torch.randn(nwin, l, c, generator=gen, device=dev).to(bf)
+    kv3 = torch.randn(nwin, l, 2 * c, generator=gen, device=dev).to(bf)
+    rh = 0.1 * torch.randn(2 * w - 1, d, generator=gen, device=dev)
+    rw = 0.1 * torch.randn(2 * w - 1, d, generator=gen, device=dev)
+    args = ((w, w), nh, d ** -0.5)
+    out = sa.window_attention_kernel(q3, kv3, rh, rw, *args)
+    ref = sa.window_attention_plain(q3.float(), kv3.float(), rh, rw, *args)
+    err = within_bf16("sam_window_relpos_attn", out, ref)
+    kern = cuda_ms(lambda: sa.window_attention_kernel(q3, kv3, rh, rw, *args), 20)
+    plain = cuda_ms(lambda: sa.window_attention_plain(q3, kv3, rh.to(bf),
+                                                      rw.to(bf), *args), 10)
+    q = q3.reshape(nwin, l, nh, d).transpose(1, 2)
+    kv = kv3.reshape(nwin, l, 2, nh, d)
+    k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+    bias = sa.decomposed_rel_pos_bias(q3.reshape(nwin, l, nh, d), rh, rw,
+                                      (w, w), (w, w)).to(bf)
+    lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=bias, scale=d ** -0.5), 20)
+    flops = nwin * nh * (4 * l * l * d + 2 * l * 2 * w * d)
+    b_ms, by = bound_ms(nbytes(q3, kv3, rh, rw, out), flops)
+    return dict(name="sam_window_relpos_attn", route="cuda",
+                source="haff_tpu_torch/kernels/csrc/sam_window_attn.cu",
+                replaces="haff_tpu/kernels/sam_attention.py:558",
+                shape=f"q3 {tuple(q3.shape)} kv3 {tuple(kv3.shape)} bf16",
+                max_abs_err=err, ms=kern, plain_ms=plain, bound_ms=b_ms,
+                bound_by=by, library_ms=lib)
+
+
+def check_global(gen):
+    from haff_tpu_torch.kernels import sam_attention as sa
+
+    # ViT-H global block at batch 1: 64 x 64 tokens, 16 heads x 80.
+    H = W = 64
+    nh, d = 16, 80
+    c, l = nh * d, H * W
+    dev, bf = "cuda", torch.bfloat16
+    qkv = torch.randn(1, l, 3 * c, generator=gen, device=dev).to(bf)
+    rh = 0.1 * torch.randn(2 * H - 1, d, generator=gen, device=dev)
+    rw = 0.1 * torch.randn(2 * W - 1, d, generator=gen, device=dev)
+    args = ((H, W), nh, d ** -0.5)
+    out = sa.global_attention_kernel(qkv, rh, rw, *args)
+    ref = sa.global_attention_plain(qkv.float(), rh, rw, *args)
+    err = within_bf16("sam_global_relpos_attn", out, ref)
+    del ref
+    kern = cuda_ms(lambda: sa.global_attention_kernel(qkv, rh, rw, *args), 5)
+    plain = cuda_ms(lambda: sa.global_attention_plain(qkv, rh.to(bf),
+                                                      rw.to(bf), *args), 3, 1)
+    q5 = qkv.reshape(1, l, 3, nh, d)
+    q, k, v = (q5[:, :, i].transpose(1, 2) for i in range(3))
+    bias = sa.decomposed_rel_pos_bias(q5[:, :, 0], rh, rw, (H, W),
+                                      (H, W)).to(bf)
+    lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=bias, scale=d ** -0.5), 5)
+    del bias
+    flops = nh * (4 * l * l * d + 2 * l * (H + W) * d)
+    b_ms, by = bound_ms(nbytes(qkv, rh, rw, out), flops)
+    return dict(name="sam_global_relpos_attn", route="cuda",
+                source="haff_tpu_torch/kernels/csrc/sam_global_attn.cu",
+                replaces="haff_tpu/kernels/sam_attention.py:1150",
+                shape=f"qkv {tuple(qkv.shape)} bf16 (1, 4096, 16, 80)",
+                max_abs_err=err, ms=kern, plain_ms=plain, bound_ms=b_ms,
+                bound_by=by, library_ms=lib)
+
+
+def check_flash(gen):
+    from haff_tpu_torch.kernels import flash_attention as fa
+
+    # LLaMA-7B prefill of 2 requests: prompt 320 + 256 image tokens - 1.
+    b, l, h, d = 2, 575, 32, 128
+    dev, bf = "cuda", torch.bfloat16
+    q, k, v = (torch.randn(b, l, h, d, generator=gen, device=dev).to(bf)
+               for _ in range(3))
+    # Right padding: row 1 is 100 tokens short (more than a 64-row tile);
+    # its pad queries are fully-masked rows.
+    lengths = torch.tensor([l, l - 100], device=dev)
+    seg = (torch.arange(l, device=dev)[None] < lengths[:, None]).to(torch.int32)
+    out, lse = fa.flash_prefill_kernel(q, k, v, None, seg, seg, True)
+    ref, ref_lse = fa.attention_plain(q.float(), k.float(), v.float(), None,
+                                      seg, seg, True)
+    err = within_bf16("flash_prefill_fwd", out, ref)
+    lse_err = float((lse - ref_lse).abs().max())
+    if not lse_err <= 1e-3:  # both float32: summation order only
+        raise AssertionError(f"flash_prefill_fwd: lse max abs err {lse_err}")
+    if out[1, l - 100:].abs().max() != 0 or lse[1, :, l - 100:].abs().max() != 0:
+        raise AssertionError("flash_prefill_fwd: fully-masked rows not zero")
+    kern = cuda_ms(lambda: fa.flash_prefill_kernel(q, k, v, None, seg, seg,
+                                                   True), 20)
+    plain = cuda_ms(lambda: fa.attention_plain(q, k, v, None, seg, seg, True),
+                    10)
+    causal = torch.ones(l, l, dtype=torch.bool, device=dev).tril()
+    mask = (causal[None] & (seg[:, :, None] == seg[:, None, :])
+            & (seg[:, None, :] != 0))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask[:, None]), 20)
+    pairs = int(mask.sum())  # visible (query, key) pairs of this input
+    flops = 4 * d * h * pairs
+    b_ms, by = bound_ms(nbytes(q, k, v, seg, seg, out, lse), flops)
+    return dict(name="flash_prefill_fwd", route="cuda",
+                source="haff_tpu_torch/kernels/csrc/flash_prefill.cu",
+                replaces="haff_tpu/kernels/flash_attention.py:105",
+                shape=f"q/k/v {tuple(q.shape)} bf16 causal, lengths "
+                      f"{lengths.tolist()}",
+                max_abs_err=err, ms=kern, plain_ms=plain, bound_ms=b_ms,
+                bound_by=by, library_ms=lib)
+
+
+def make_requests(cfg, batch, prompt_len, seed):
+    """Seeded, already-preprocessed requests (bench_e2e.py's recipe)."""
+    from haff_tpu_torch.core.config import IMAGE_TOKEN_INDEX
+
+    rng = np.random.RandomState(seed)
+    S, C = cfg.sam_encoder.image_size, cfg.clip.image_size
+    ids = rng.randint(5, min(30000, cfg.llama.vocab_size - 10),
+                      (batch, prompt_len)).astype(np.int64)
+    ids[:, 0] = 1
+    ids[:, 2] = IMAGE_TOKEN_INDEX
+    attn = np.ones((batch, prompt_len), np.int64)
+    return (rng.randn(batch, S, S, 3).astype(np.float32),
+            rng.randn(batch, C, C, 3).astype(np.float32), ids, attn)
+
+
+def check_tiny_against_cpu():
+    from haff_tpu_torch.core.config import ModelConfig
+    from haff_tpu_torch.infer.evaluate import evaluate_fn
+    from haff_tpu_torch.model.lisa import LisaModel
+
+    cfg = ModelConfig.preset("tiny")
+    gpu = LisaModel(cfg, torch.float32, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(1))
+    cpu = LisaModel(cfg, torch.float32, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    req = make_requests(cfg, 2, 24, seed=3)
+    req[3][1, 20:] = 0  # right-padded second request
+    got = evaluate_fn(gpu, *req, max_new_tokens=8, eos_id=2)
+    ref = evaluate_fn(cpu, *req, max_new_tokens=8, eos_id=2)
+    if not (torch.equal(got.output_ids.cpu(), ref.output_ids)
+            and torch.equal(got.gen_lengths.cpu(), ref.gen_lengths)):
+        raise AssertionError(f"tiny: tokens differ {got.output_ids.tolist()} "
+                             f"vs {ref.output_ids.tolist()}")
+    worst = 0.0
+    for key in ("pred_masks_left", "pred_masks_right", "taxonomies"):
+        g, r = getattr(got, key).cpu(), getattr(ref, key)
+        torch.testing.assert_close(g, r, rtol=1e-3, atol=1e-3)
+        worst = max(worst, float((g - r).abs().max()))
+    log(f"tiny: card (kernels, f32) vs CPU (plain, f32): tokens identical "
+        f"{got.output_ids.tolist()}, masks/taxonomy max abs err {worst:.3g}")
+
+
+def run_slice(launches):
+    from haff_tpu_torch.core.config import ModelConfig
+    from haff_tpu_torch.infer.evaluate import evaluate_fn
+    from haff_tpu_torch.model.lisa import LisaModel
+
+    cfg = ModelConfig.preset("7b")
+    t0 = time.perf_counter()
+    model = LisaModel(cfg, torch.bfloat16, device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    nparam = sum(p.numel() for p in model.parameters())
+    log(f"slice: 7b preset built in {time.perf_counter() - t0:.1f} s, "
+        f"{nparam / 1e9:.3f} B parameters bf16, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    B, P, T, S = 2, 320, 16, cfg.sam_encoder.image_size
+    torch.cuda.reset_peak_memory_stats()
+    launches.clear()  # count the main path's launches only
+    for i in range(2):
+        req = make_requests(cfg, B, P, seed=i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = evaluate_fn(model, *req, max_new_tokens=T, eos_id=2)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        shapes = {"output_ids": (B, T), "gen_lengths": (B,),
+                  "pred_masks_left": (B, S, S), "pred_masks_right": (B, S, S),
+                  "taxonomies": (B, 4), "seg_found": (B,)}
+        for key, shape in shapes.items():
+            t = getattr(res, key)
+            if tuple(t.shape) != shape:
+                raise AssertionError(f"{key} shape {tuple(t.shape)} != {shape}")
+            if t.is_floating_point() and not torch.isfinite(t).all():
+                raise AssertionError(f"{key} has non-finite values")
+        for name, per in PER_EVALUATE.items():
+            if launches[name] != per * (i + 1):
+                raise AssertionError(f"{name}: {launches[name]} launches after "
+                                     f"{i + 1} evaluate calls, expected "
+                                     f"{per * (i + 1)}")
+        log(f"slice batch {i}: {B} requests, latency {dt * 1e3:.1f} ms "
+            f"(host clock, synchronized), tokens generated "
+            f"{int(res.gen_lengths.sum())}, seg_found "
+            f"{res.seg_found.tolist()}, taxonomy[0] "
+            f"{[round(x, 4) for x in res.taxonomies[0].tolist()]}")
+    counts = dict(launches)
+    log(f"slice: launches over 2 evaluate calls {counts}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_evaluate(model, make_requests(cfg, B, P, seed=2), T)
+    return counts
+
+
+def profile_evaluate(model, req, max_new_tokens):
+    """One more evaluate() under torch.profiler: device time by kernel
+    and the device's idle share of the call's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from haff_tpu_torch.infer.evaluate import evaluate_fn
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evaluate_fn(model, *req, max_new_tokens=max_new_tokens, eos_id=2)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev_us = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
+                               getattr(e, "self_cuda_time_total", 0))
+    # Device-side events only (kernels, copies): an operator's own row
+    # would count its kernels' time a second time.
+    rows = sorted(((dev_us(e), e.count, e.key) for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA") and dev_us(e) > 0),
+                  reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"profile: evaluate wall {wall_us / 1e3:.1f} ms (profiled), device "
+        f"busy {busy / 1e3:.1f} ms, idle share {1 - busy / wall_us:.3f}")
+    for us, count, key in rows[:15]:
+        log(f"  {us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the "
+              "card", file=sys.stderr)
+        return 2
+    from haff_tpu_torch.kernels import _build  # fails outside a checkout
+
+    card = card_line()
+    log(f"device: {card} | torch {torch.__version__} cuda "
+        f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
+        f"{torch.cuda.device_count()}")
+
+    t0 = time.perf_counter()
+    info = _build.build_all()
+    log(f"build: {time.perf_counter() - t0:.1f} s wall for "
+        f"{len(info)} kernels")
+    for name, rec in info.items():
+        log(f"build {name}: {rec['seconds']:.1f} s")
+        for line in rec["ptxas"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log("  " + line.strip())
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    kernels = []
+    for check in (check_window, check_global, check_flash):
+        rec = check(gen)
+        kernels.append(rec)
+        log(f"kernel {rec['name']}: {rec['shape']}: max abs err "
+            f"{rec['max_abs_err']:.3g}; kernel {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, "
+            f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        torch.cuda.empty_cache()
+
+    check_tiny_against_cpu()
+    torch.cuda.empty_cache()
+
+    counts = run_slice(_build.LAUNCHES)
+    for rec in kernels:
+        rec["launches"] = counts.get(rec["name"], 0)
+        rec["launches_per_evaluate"] = PER_EVALUATE[rec["name"]]
+        if rec["launches"] == 0:
+            raise AssertionError(f"{rec['name']} never launched on the path")
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

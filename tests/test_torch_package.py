@@ -1,0 +1,50 @@
+"""Boundaries of the PyTorch port: it never imports JAX, Flax or the JAX
+package, and its entry points run on the card unless the caller asks for
+the CPU."""
+
+import ast
+import pathlib
+
+import pytest
+import torch
+
+from haff_tpu_torch.core.config import ModelConfig
+from haff_tpu_torch.model.lisa import LisaModel
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "haff_tpu")
+
+
+def _sources():
+    return sorted((ROOT / "haff_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+
+
+def _imported(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", None)
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(
+    p.relative_to(ROOT)))
+def test_no_jax_flax_or_reference_imports(path):
+    for name in _imported(ast.parse(path.read_text(), str(path))):
+        top = name.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.name} imports {name}"
+
+
+def test_model_defaults_to_the_card():
+    cfg = ModelConfig.preset("tiny")
+    if torch.cuda.is_available():
+        assert LisaModel(cfg).device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            LisaModel(cfg)
+    assert LisaModel(cfg, torch.float32, device="cpu").device.type == "cpu"

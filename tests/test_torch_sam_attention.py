@@ -1,0 +1,134 @@
+"""The plain versions of the two SAM attention kernels of the port
+(haff_tpu_torch/kernels/sam_attention.py) against the JAX Pallas kernels
+they replace, run in interpret mode at geometries that really reach them:
+
+* `sam_window_attention_qkv_split` -> `_window_qkv_kernel_db_iband`
+  (nh 16, d 16, a 6 x 6 window: 36 rows tile-padded to 40 on the JAX side);
+* `sam_global_attention_qkv` -> `_global_qkv_kernel` (hw 32 x 32, nh 2,
+  d 128).
+
+Inputs are float32 on both sides; the tolerance (2e-5 abs + rel) covers
+float32 summation-order differences over <= 1024-term softmax sums.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from haff_tpu.kernels import sam_attention as jsa
+from haff_tpu.nn.sam_image_encoder import decomposed_rel_pos_bias as j_bias
+from haff_tpu.nn.sam_image_encoder import get_rel_pos as j_get_rel_pos
+from haff_tpu_torch.kernels import sam_attention as tsa
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _spy(monkeypatch, name):
+    calls = []
+    real = getattr(jsa, name)
+
+    def spy(*a, **k):
+        calls.append(name)
+        return real(*a, **k)
+
+    monkeypatch.setattr(jsa, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("nwin", [3, 5])
+def test_window_plain_matches_iband_kernel(monkeypatch, nwin):
+    nh, d, w = 16, 16, 6
+    c, lcont, lpad = nh * d, w * w, 40
+    # The JAX guard (sam_attention.py:910) that selects the in-kernel-band
+    # kernel, evaluated for this geometry.
+    kp = 16
+    while kp < w or (nh * kp) % 128:
+        kp += 16
+    hh = nh // 2
+    assert jsa._ikband_enabled() and nh % 2 == 0 and (hh * d) % 128 == 0 \
+        and (hh * kp) % 128 == 0 and kp >= w
+    rng = np.random.default_rng(nwin)
+    q3 = rng.standard_normal((nwin, lpad, c)).astype(np.float32)
+    kv3 = rng.standard_normal((nwin, lpad, 2 * c)).astype(np.float32)
+    rel_h = (0.5 * rng.standard_normal((2 * w - 1, d))).astype(np.float32)
+    rel_w = (0.5 * rng.standard_normal((2 * w - 1, d))).astype(np.float32)
+    calls = _spy(monkeypatch, "_window_qkv_band_fwd")
+    ref = jsa.sam_window_attention_qkv_split(
+        jnp.asarray(q3), jnp.asarray(kv3), jnp.asarray(rel_h),
+        jnp.asarray(rel_w), (w, w), nh, interpret=True)
+    assert calls, "the JAX call did not reach the iband kernel"
+    got = tsa.sam_window_attention_qkv_split(
+        torch.from_numpy(q3[:, :lcont].copy()),
+        torch.from_numpy(kv3[:, :lcont].copy()), torch.from_numpy(rel_h),
+        torch.from_numpy(rel_w), (w, w), nh)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref)[:, :lcont], **TOL)
+
+
+def test_global_plain_matches_global_qkv_kernel(monkeypatch):
+    H = W = 32
+    nh, d = 2, 128
+    c = nh * d
+    kp = jsa._global_kp((H, W), nh)
+    hh = nh // 2
+    # The JAX alignment guard (sam_attention.py:1365-1367).
+    assert nh % 2 == 0 and (hh * d) % 128 == 0 and (hh * 2 * kp) % 128 == 0 \
+        and H * W >= 1024 and W % 8 == 0
+    rng = np.random.default_rng(1)
+    qkv = (0.5 * rng.standard_normal((1, H * W, 3 * c))).astype(np.float32)
+    rel_h = (0.3 * rng.standard_normal((2 * H - 1, d))).astype(np.float32)
+    rel_w = (0.3 * rng.standard_normal((2 * W - 1, d))).astype(np.float32)
+    calls = _spy(monkeypatch, "_global_qkv_fwd")
+    ref = jsa.sam_global_attention_qkv(
+        jnp.asarray(qkv), jnp.asarray(rel_h), jnp.asarray(rel_w), (H, W), nh,
+        interpret=True)
+    assert calls, "the JAX call did not reach the global qkv kernel"
+    got = tsa.sam_global_attention_qkv(
+        torch.from_numpy(qkv), torch.from_numpy(rel_h),
+        torch.from_numpy(rel_w), (H, W), nh)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def test_band_tables_of_global_kernel():
+    """The wrapper's band tables (kernel b's bias operand) equal the
+    decomposed bias: bias[i, j] = Bh[i, row(j)] + Bw[i, col(j)]."""
+    H, W, nh, d = 4, 6, 2, 8
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(2, H * W, nh, d, generator=g)
+    rh = torch.randn(2 * H - 1, d, generator=g)
+    rw = torch.randn(2 * W - 1, d, generator=g)
+    bh, bw = tsa.band_tables(q, rh, rw, (H, W))
+    j = torch.arange(H * W)
+    expect = bh[..., j // W] + bw[..., j % W]             # (B, L, nh, L)
+    got = tsa.decomposed_rel_pos_bias(q, rh, rw, (H, W), (H, W))
+    torch.testing.assert_close(expect.permute(0, 2, 1, 3), got,
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("size", [4, 14])
+def test_rel_pos_and_bias_match_jax(size):
+    rng = np.random.default_rng(size)
+    d, nh = 8, 2
+    rel = rng.standard_normal((2 * size - 1, d)).astype(np.float32)
+    np.testing.assert_array_equal(
+        tsa.get_rel_pos(size, size, torch.from_numpy(rel)).numpy(),
+        np.asarray(j_get_rel_pos(size, size, jnp.asarray(rel))))
+    q = rng.standard_normal((1, size * size, nh, d)).astype(np.float32)
+    ref = j_bias(jnp.asarray(q), jnp.asarray(rel), jnp.asarray(rel),
+                 (size, size), (size, size))
+    got = tsa.decomposed_rel_pos_bias(torch.from_numpy(q),
+                                      torch.from_numpy(rel),
+                                      torch.from_numpy(rel),
+                                      (size, size), (size, size))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    before = dict(tsa._build.LAUNCHES)
+    q3 = torch.zeros(1, 16, 8)
+    kv3 = torch.zeros(1, 16, 16)
+    out = tsa.sam_window_attention_qkv_split(
+        q3, kv3, torch.zeros(7, 4), torch.zeros(7, 4), (4, 4), 2)
+    assert out.shape == (1, 16, 8)
+    assert dict(tsa._build.LAUNCHES) == before
