@@ -8,22 +8,34 @@ Phases (any failure raises and exits non-zero):
 2. build: compiles haff_tpu_torch/kernels/csrc/*.cu (one nvcc per source,
    in parallel) and prints build seconds and ptxas register/smem use.
 3. kernels: each hand-written kernel against its plain PyTorch version at
-   the shapes evaluate() gives it at the 7b preset, in bfloat16, compared
-   in float32; times the kernel, the plain version and one PyTorch library
-   call computing the same function (CUDA events, after warm-up).
+   the shapes the 7b preset gives it (evaluate() and the train step), in
+   bfloat16, compared in float32; times the kernel, the plain version and
+   one PyTorch library call computing the same function (CUDA events,
+   after warm-up).
 4. tiny: evaluate() at the tiny preset in float32 on the card (kernels)
    against the same weights on the CPU (plain versions): identical tokens,
    masks and taxonomy within 1e-3.
-5. slice: evaluate() at the full 7b preset (LLaMA-7B, CLIP ViT-L/14,
+5. tiny train: the LoRA train step (rank 2) at the tiny preset in float32
+   on the card against the CPU from the same weights and batch: every
+   trainable gradient, 3 steps' metrics and the updated trainable
+   parameters within 1e-3, frozen parameters bit-identical.
+6. slice: evaluate() at the full 7b preset (LLaMA-7B, CLIP ViT-L/14,
    SAM ViT-H) in bfloat16 with seeded random weights, 2 batches of 2
    requests (prompt 320, 16 new tokens); checks shapes, finiteness and the
    per-evaluate launch counts of the kernels, prints per-batch latency and
-   peak memory.
+   peak memory; profiles one call.
+7. train slice: make_train_step at the full 7b preset with LoRA rank 8 on
+   q/v, bf16 compute, remat, batch 2 (prompt 320 spliced to 575), 6 steps
+   on one batch: finite losses, falling loss, frozen weights unchanged,
+   trainable ones changed, per-step launch counts; prints step time and
+   peak memory; profiles one step.
 
 Prints a {"kernels": [...]} JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Needs no network; the weights are random.
 """
 
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -39,6 +51,12 @@ H100_BYTES_PER_S = 3.35e12  # HBM3
 # and 4 global SAM ViT-H blocks, 32 LLaMA layers' prefill.
 PER_EVALUATE = {"sam_window_relpos_attn": 28, "sam_global_relpos_attn": 4,
                 "flash_prefill_fwd": 32}
+# Launches per train step at the 7b preset with remat: the frozen SAM
+# encoder's forward, each LLaMA layer's flash forward twice (the forward
+# and its recompute in the backward) and its two backward kernels once.
+PER_TRAIN_STEP = {"sam_window_relpos_attn": 28, "sam_global_relpos_attn": 4,
+                  "flash_prefill_fwd": 64, "flash_bwd_dq": 32,
+                  "flash_bwd_dkv": 32}
 
 
 def log(*a):
@@ -205,6 +223,76 @@ def check_flash(gen):
                 bound_by=by, library_ms=lib)
 
 
+def check_flash_bwd(gen):
+    """Both backward kernels at the train step's shapes. Returns two
+    records. Each kernel's plain time is its own plain version's
+    (attention_bwd_dq_plain, attention_bwd_dkv_plain); its library time is
+    torch.autograd.grad of one SDPA forward (same boolean mask) for q
+    alone or for k and v, timed alone, the forward kept (retain_graph).
+    SDPA's backward computes dq, dk and dv in either call."""
+    from haff_tpu_torch.kernels import flash_attention as fa
+
+    # LLaMA-7B train step, batch 2: 575 spliced tokens, row 1 right-padded
+    # by 100 (its pad queries see nothing, its pad keys are seen by none).
+    b, l, h, d = 2, 575, 32, 128
+    dev, bf = "cuda", torch.bfloat16
+    q, k, v, do = (torch.randn(b, l, h, d, generator=gen, device=dev).to(bf)
+                   for _ in range(4))
+    lengths = torch.tensor([l, l - 100], device=dev)
+    seg = (torch.arange(l, device=dev)[None] < lengths[:, None]).to(torch.int32)
+    out, lse = fa.flash_prefill_kernel(q, k, v, None, seg, seg, True)
+    args = (q, k, v, None, seg, seg, out, lse, do, True)
+    dq = fa.flash_bwd_dq_kernel(*args)
+    dk, dv = fa.flash_bwd_dkv_kernel(*args)
+    ref = fa.attention_bwd_plain(q.float(), k.float(), v.float(), None, seg,
+                                 seg, out.float(), lse, do.float(), True)
+    err_dq = within_bf16("flash_bwd_dq", dq, ref[0])
+    err_dkv = max(within_bf16("flash_bwd_dkv dk", dk, ref[1]),
+                  within_bf16("flash_bwd_dkv dv", dv, ref[2]))
+    del ref
+    if dq[1, l - 100:].abs().max() != 0:
+        raise AssertionError("flash_bwd_dq: padded query rows not zero")
+    if dk[1, l - 100:].abs().max() != 0 or dv[1, l - 100:].abs().max() != 0:
+        raise AssertionError("flash_bwd_dkv: padded key rows not zero")
+    ms_dq = cuda_ms(lambda: fa.flash_bwd_dq_kernel(*args), 20)
+    ms_dkv = cuda_ms(lambda: fa.flash_bwd_dkv_kernel(*args), 20)
+    plain_dq = cuda_ms(lambda: fa.attention_bwd_dq_plain(*args), 10)
+    plain_dkv = cuda_ms(lambda: fa.attention_bwd_dkv_plain(*args), 10)
+    causal = torch.ones(l, l, dtype=torch.bool, device=dev).tril()
+    mask = (causal[None] & (seg[:, :, None] == seg[:, None, :])
+            & (seg[:, None, :] != 0))[:, None]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    ot = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                          attn_mask=mask)
+    dot = do.transpose(1, 2)
+    lib_dq = cuda_ms(lambda: torch.autograd.grad(ot, (qt,), dot,
+                                                 retain_graph=True), 20)
+    lib_dkv = cuda_ms(lambda: torch.autograd.grad(ot, (kt, vt), dot,
+                                                  retain_graph=True), 20)
+    del ot
+    pairs = int(mask.sum())  # visible (query, key) pairs of this input
+    rows = nbytes(seg, seg, lse, lse)  # segment ids, lse and delta
+    recs = []
+    for name, ms, err, outs, flops, plain, lib in (
+            ("flash_bwd_dq", ms_dq, err_dq, (dq,), 6 * d * h * pairs,
+             plain_dq, lib_dq),
+            ("flash_bwd_dkv", ms_dkv, err_dkv, (dk, dv), 8 * d * h * pairs,
+             plain_dkv, lib_dkv)):
+        b_ms, by = bound_ms(nbytes(q, k, v, do, *outs) + rows, flops)
+        recs.append(dict(
+            name=name, route="cuda",
+            source="haff_tpu_torch/kernels/csrc/flash_bwd.cu",
+            replaces=("haff_tpu/kernels/flash_attention.py:160"
+                      if name == "flash_bwd_dq" else
+                      "haff_tpu/kernels/flash_attention.py:202"),
+            shape=f"q/k/v/dO {tuple(q.shape)} bf16 causal, lengths "
+                  f"{lengths.tolist()}",
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+            bound_by=by, library_ms=lib))
+    return recs
+
+
 def make_requests(cfg, batch, prompt_len, seed):
     """Seeded, already-preprocessed requests (bench_e2e.py's recipe)."""
     from haff_tpu_torch.core.config import IMAGE_TOKEN_INDEX
@@ -293,36 +381,218 @@ def run_slice(launches):
     counts = dict(launches)
     log(f"slice: launches over 2 evaluate calls {counts}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile_evaluate(model, make_requests(cfg, B, P, seed=2), T)
+    req = make_requests(cfg, B, P, seed=2)
+    profile_call("evaluate", lambda: evaluate_fn(model, *req,
+                                                 max_new_tokens=T, eos_id=2))
     return counts
 
 
-def profile_evaluate(model, req, max_new_tokens):
-    """One more evaluate() under torch.profiler: device time by kernel
-    and the device's idle share of the call's wall time."""
+def profile_call(what, fn):
+    """One call of `fn` under torch.profiler: device time by kernel and
+    the device's idle share of the call's wall time."""
     from torch.profiler import ProfilerActivity, profile
-
-    from haff_tpu_torch.infer.evaluate import evaluate_fn
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        evaluate_fn(model, *req, max_new_tokens=max_new_tokens, eos_id=2)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     dev_us = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
                                getattr(e, "self_cuda_time_total", 0))
-    # Device-side events only (kernels, copies): an operator's own row
-    # would count its kernels' time a second time.
+    # Device-side events only (kernels, copies): an operator's own row, or
+    # a user annotation's range on the device timeline (AdamW.step), would
+    # count its kernels' time a second time.
     rows = sorted(((dev_us(e), e.count, e.key) for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA") and dev_us(e) > 0),
+                   if str(e.device_type).endswith("CUDA") and dev_us(e) > 0
+                   and not getattr(e, "is_user_annotation", False)),
                   reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"profile: evaluate wall {wall_us / 1e3:.1f} ms (profiled), device "
+    log(f"profile: {what} wall {wall_us / 1e3:.1f} ms (profiled), device "
         f"busy {busy / 1e3:.1f} ms, idle share {1 - busy / wall_us:.3f}")
     for us, count, key in rows[:15]:
         log(f"  {us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
+
+
+def make_train_batch(cfg, batch, prompt_len, seed, image_index, pad):
+    """Seeded TrainBatch as bench_train.py:58-80 builds it: random ids with
+    the image token at 2 and one [SEG], labels ignoring the first 20,
+    random masks, taxonomy class 2; row 1's attention mask right-padded by
+    `pad` tokens. Images are shared through `image_index`."""
+    from haff_tpu_torch.core.config import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+    from haff_tpu_torch.model.lisa import TrainBatch
+
+    rng = np.random.RandomState(seed)
+    S, C = cfg.sam_encoder.image_size, cfg.clip.image_size
+    n_img = max(image_index) + 1
+    ids = rng.randint(5, min(30000, cfg.llama.vocab_size - 10),
+                      (batch, prompt_len)).astype(np.int64)
+    ids[:, 0] = 1
+    ids[:, 2] = IMAGE_TOKEN_INDEX
+    ids[:, min(40, prompt_len - 2)] = cfg.seg_token_idx
+    labels = ids.copy()
+    labels[:, :20] = IGNORE_INDEX
+    attn = np.ones((batch, prompt_len), np.int64)
+    attn[1, prompt_len - pad:] = 0
+    return TrainBatch(
+        images_sam=rng.randn(n_img, S, S, 3).astype(np.float32),
+        images_clip=rng.randn(n_img, C, C, 3).astype(np.float32),
+        image_index=np.asarray(image_index, np.int64), input_ids=ids,
+        labels=labels, attention_mask=attn,
+        masks_left=(rng.rand(batch, S, S) > 0.9).astype(np.float32),
+        masks_right=(rng.rand(batch, S, S) > 0.9).astype(np.float32),
+        taxonomies=np.tile([[0, 0, 1, 0]], (batch, 1)).astype(np.float32),
+        valid_region=np.ones((batch, S, S), np.float32),
+        sample_weight=np.ones((batch,), np.float32))
+
+
+def fingerprint(p):
+    """Two integer checksums of a tensor's bit patterns (exact: any
+    changed element changes them, bar a compensating change)."""
+    bits = p.detach().reshape(-1).view(
+        torch.int32 if p.element_size() == 4 else torch.int16).long()
+    return int(bits.sum()), int((bits * bits).sum())
+
+
+def check_tiny_train():
+    """3 train steps at tiny, LoRA rank 2, float32: card (kernels) against
+    CPU (plain versions) from the same weights and batch. LoRA dropout is
+    0 here: its masks come from per-device generators, which draw
+    different bits on the card and the CPU."""
+    from haff_tpu_torch.core.config import ModelConfig, TrainConfig
+    from haff_tpu_torch.model.lisa import LisaModel
+    from haff_tpu_torch.train import trainer as T
+
+    base = ModelConfig.preset("tiny")
+    cfg = base.replace(llama=dataclasses.replace(
+        base.llama, lora_rank=2, lora_dropout=0.0))
+    gpu = LisaModel(cfg, torch.float32, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(1))
+    with torch.no_grad():  # nonzero adapters, so lora_a gets gradient too
+        for name, p in gpu.named_parameters():
+            if name.endswith("lora_b"):
+                p.normal_(0.0, 0.02)
+    cpu = LisaModel(cfg, torch.float32, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    host_batch = make_train_batch(cfg, 3, 24, seed=5, image_index=[0, 0, 1],
+                                  pad=5)
+    tcfg = TrainConfig(model=cfg, lr=1e-4, warmup_steps=1, total_steps=20,
+                       grad_accumulation_steps=1)
+    runs = []
+    for model in (gpu, cpu):
+        batch = host_batch.to(model.device)
+        trainable, frozen = T.partition_params(model)
+        start = {k: fingerprint(p) for k, p in frozen.items()}
+        out = model(batch, remat=True)
+        out.loss.backward()
+        grads = {k: p.grad.cpu().clone() for k, p in trainable.items()
+                 if p.grad is not None}
+        state = T.init_train_state(tcfg, trainable)
+        step = T.make_train_step(model, tcfg)
+        metrics = []
+        for _ in range(3):
+            state, m = step(state, batch, 0)
+            metrics.append({k: float(v) for k, v in m.items()})
+        if any(fingerprint(p) != start[k] for k, p in frozen.items()):
+            raise AssertionError("tiny train: a frozen parameter changed")
+        runs.append((grads, metrics,
+                     {k: p.detach().cpu() for k, p in trainable.items()}))
+    (g_gpu, m_gpu, p_gpu), (g_cpu, m_cpu, p_cpu) = runs
+    if set(g_gpu) != set(g_cpu):
+        raise AssertionError("tiny train: different parameters got gradient")
+    worst = 0.0
+    for k, r in g_cpu.items():
+        err = float((g_gpu[k] - r).abs().max())
+        if err > 1e-3 * float(r.abs().max()) + 1e-6:
+            raise AssertionError(f"tiny train: grad {k} max abs err {err}")
+        worst = max(worst, err)
+    for a, r in zip(m_gpu, m_cpu):
+        for k in r:
+            if abs(a[k] - r[k]) > 1e-3 * max(1.0, abs(r[k])):
+                raise AssertionError(f"tiny train: {k} {a[k]} vs {r[k]}")
+    for k, r in p_cpu.items():
+        torch.testing.assert_close(p_gpu[k], r, rtol=1e-3, atol=1e-3)
+    log(f"tiny train: card (kernels, f32) vs CPU (plain, f32): gradients of "
+        f"{len(g_cpu)} trainable tensors max abs err {worst:.3g}; losses "
+        f"{[round(m['loss'], 5) for m in m_gpu]} vs "
+        f"{[round(m['loss'], 5) for m in m_cpu]}; frozen unchanged")
+
+
+def run_train_slice(launches):
+    """6 train steps at the 7b preset, LoRA rank 8, bf16, remat, on one
+    batch (bench_train.py's recipe at batch 2). Returns the launch counts
+    over the 6 steps."""
+    from haff_tpu_torch.core.config import ModelConfig, TrainConfig
+    from haff_tpu_torch.model.lisa import LisaModel
+    from haff_tpu_torch.train import trainer as T
+
+    base = ModelConfig.preset("7b")
+    cfg = base.replace(llama=dataclasses.replace(base.llama, lora_rank=8))
+    t0 = time.perf_counter()
+    model = LisaModel(cfg, torch.bfloat16, device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(0))
+    trainable, frozen = T.partition_params(model)
+    torch.cuda.synchronize()
+    log(f"train: 7b + LoRA r8 built in {time.perf_counter() - t0:.1f} s: "
+        f"{T.count_params(trainable) / 1e9:.4f} B trainable (f32), "
+        f"{T.count_params(frozen) / 1e9:.3f} B frozen (bf16), "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    tcfg = TrainConfig(model=cfg, lr=3e-4, warmup_steps=1, total_steps=1000,
+                       grad_accumulation_steps=1)
+    assert tcfg.remat
+    state = T.init_train_state(tcfg, trainable)
+    step = T.make_train_step(model, tcfg)
+    batch = make_train_batch(cfg, 2, 320, seed=0, image_index=[0, 1],
+                             pad=100).to("cuda")
+    frozen0 = {k: fingerprint(p) for k, p in frozen.items()}
+    train0 = {k: fingerprint(p) for k, p in trainable.items()}
+    torch.cuda.reset_peak_memory_stats()
+    launches.clear()  # count the train path's launches only
+    losses, times = [], []
+    for i in range(6):
+        before = dict(launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, 0)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        m = {k: float(v) for k, v in m.items()}
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"train step {i}: non-finite metrics {m}")
+        for name, per in PER_TRAIN_STEP.items():
+            got = launches[name] - before.get(name, 0)
+            if got != per:
+                raise AssertionError(f"train step {i}: {name} launched {got} "
+                                     f"times, expected {per}")
+        losses.append(m["loss"])
+        log(f"train step {i}: {times[-1] * 1e3:.1f} ms (host clock, "
+            f"synchronized); " + ", ".join(f"{k} {v:.5f}" for k, v in m.items()))
+    counts = dict(launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: loss did not fall {losses}")
+    if any(fingerprint(p) != frozen0[k] for k, p in frozen.items()):
+        raise AssertionError("train: a frozen weight changed")
+    changed = {k for k, p in trainable.items() if fingerprint(p) != train0[k]}
+    must = [k for k in trainable if k.endswith(("lora_a", "lora_b"))
+            or k in ("llm.embed_tokens.weight", "llm.lm_head.weight",
+                     "text_fc1.weight", "text_fc2.weight")]
+    missing = [k for k in must if k not in changed]
+    for dec in ("mask_decoder_left", "mask_decoder_right"):
+        if not any(dec in k for k in changed):
+            missing.append(dec)
+    if missing:
+        raise AssertionError(f"train: trainable weights unchanged: {missing}")
+    steady = times[1:]
+    log(f"train: losses {[round(x, 5) for x in losses]}; step time "
+        f"{[round(t * 1e3, 1) for t in times]} ms, steady mean "
+        f"{np.mean(steady) * 1e3:.1f} ms = {2 / np.mean(steady):.3f} "
+        f"samples/s; peak memory {peak:.2f} GiB; {len(changed)} of "
+        f"{len(trainable)} trainable tensors changed; launches over 6 "
+        f"steps {counts}")
+    profile_call("train step", lambda: step(state, batch, 0))
+    return counts
 
 
 def main():
@@ -349,24 +619,36 @@ def main():
 
     gen = torch.Generator("cuda").manual_seed(0)
     kernels = []
-    for check in (check_window, check_global, check_flash):
-        rec = check(gen)
-        kernels.append(rec)
-        log(f"kernel {rec['name']}: {rec['shape']}: max abs err "
-            f"{rec['max_abs_err']:.3g}; kernel {rec['ms']:.4f} ms, plain "
-            f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, "
-            f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    for check in (check_window, check_global, check_flash, check_flash_bwd):
+        recs = check(gen)
+        for rec in recs if isinstance(recs, list) else [recs]:
+            kernels.append(rec)
+            log(f"kernel {rec['name']}: {rec['shape']}: max abs err "
+                f"{rec['max_abs_err']:.3g}; kernel {rec['ms']:.4f} ms, plain "
+                f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} "
+                f"ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
         torch.cuda.empty_cache()
 
     check_tiny_against_cpu()
+    check_tiny_train()
     torch.cuda.empty_cache()
 
-    counts = run_slice(_build.LAUNCHES)
+    # Each path is driven with the counts set to 0 just before it; the
+    # serving model is freed before the training one is built.
+    eval_counts = run_slice(_build.LAUNCHES)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_counts = run_train_slice(_build.LAUNCHES)
     for rec in kernels:
-        rec["launches"] = counts.get(rec["name"], 0)
-        rec["launches_per_evaluate"] = PER_EVALUATE[rec["name"]]
-        if rec["launches"] == 0:
-            raise AssertionError(f"{rec['name']} never launched on the path")
+        name = rec["name"]
+        if name in PER_EVALUATE:
+            rec["launches"] = eval_counts.get(name, 0)
+            rec["launches_per_evaluate"] = PER_EVALUATE[name]
+        else:
+            rec["launches"] = train_counts.get(name, 0)
+        rec["launches_per_train_step"] = PER_TRAIN_STEP[name]
+        if rec["launches"] == 0 or train_counts.get(name, 0) == 0:
+            raise AssertionError(f"{name} never launched on its path")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

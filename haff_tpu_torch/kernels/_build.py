@@ -34,7 +34,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "haff_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Sources in csrc/ that are kernels (each one its own library).
-SOURCES = ("sam_window_attn", "sam_global_attn", "flash_prefill")
+SOURCES = ("sam_window_attn", "sam_global_attn", "flash_prefill", "flash_bwd")
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
 

@@ -112,6 +112,16 @@ def _lib(name):
     return lib
 
 
+def _forward_only(name, *tensors):
+    """The SAM kernels have no backward here (the JAX package's do: a slice
+    that trains the SAM encoder ports them). Raise rather than return an
+    output without a grad_fn, which would drop the gradient silently."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel is forward-only, and an input requires "
+            "grad; run the frozen SAM encoder under torch.no_grad()")
+
+
 def _check_operand(name, t, dtype, shape):
     if not t.is_cuda:
         raise ValueError(f"{name}: operands must be CUDA tensors")
@@ -131,7 +141,9 @@ def _check_rel(t, rows, d):
 
 
 def window_attention_kernel(q3, kv3, rel_h, rel_w, hw, num_heads, sm_scale):
-    """Launch csrc/sam_window_attn.cu: q3 (BW, L, C), kv3 (BW, L, 2C)."""
+    """Launch csrc/sam_window_attn.cu: q3 (BW, L, C), kv3 (BW, L, 2C).
+    Forward only: raises when grad mode is on and an input requires grad."""
+    _forward_only(_WINDOW, q3, kv3, rel_h, rel_w)
     wh, ww = hw
     bw, l, c = q3.shape
     d = c // num_heads
@@ -177,7 +189,9 @@ def band_tables(q, rel_h, rel_w, hw):
 
 
 def global_attention_kernel(qkv, rel_h, rel_w, hw, num_heads, sm_scale):
-    """Launch csrc/sam_global_attn.cu on the fused qkv (B, L, 3C)."""
+    """Launch csrc/sam_global_attn.cu on the fused qkv (B, L, 3C).
+    Forward only: raises when grad mode is on and an input requires grad."""
+    _forward_only(_GLOBAL, qkv, rel_h, rel_w)
     H, W = hw
     b, l, f = qkv.shape
     c = f // 3

@@ -1,19 +1,21 @@
-"""The composite 2Haff model for inference (port of haff_tpu/model/lisa.py):
-CLIP ViT tower + mm_projector, LLaMA decoder emitting [SEG], the [SEG]
-projection MLP, and SAM with the dual mask decoders and the taxonomy head.
+"""The composite 2Haff model (port of haff_tpu/model/lisa.py): CLIP ViT
+tower + mm_projector, LLaMA decoder emitting [SEG], the [SEG] projection
+MLP, and SAM with the dual mask decoders and the taxonomy head.
 
 The model is built on the `meta` device, then materialised on `device`
 (default "cuda": the card, unless the caller asks for the CPU) in
 `dtype`, with weights drawn from a seeded `torch.Generator`. Real weights
-come through tools/bridge.py. The submodule methods below are the ones
-infer/evaluate.py calls; the training forward belongs to the training
-slice.
+come through tools/bridge.py. The submodule methods are the ones
+infer/evaluate.py calls; `forward(batch)` is the training/validation
+forward (JAX `LisaModel.__call__`): vision encoders over the unique images
+(frozen: run without autograd), multimodal splice, LLaMA, [SEG] gather,
+dual mask decode and the loss stack.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -24,13 +26,48 @@ from ..core.dtypes import resolve, set_reference_precision
 from ..nn.clip_vit import ClipVisionTower
 from ..nn.layers import LayerNorm, QDense
 from ..nn.llama import LlamaForCausalLM, RMSNorm
-from ..nn.sam import Sam
+from ..nn.lora import LoraDense
+from ..nn.sam import Sam, postprocess_masks_padded
+from . import losses as L
+from .multimodal import (SplicedBatch, find_image_position,
+                         gather_seg_embeddings, splice_image_embeddings)
 
 # Raw parameters drawn at unit scale (the JAX initializers' normal(1.0));
 # every other raw parameter is drawn at 0.02.
 _UNIT_SCALE = ("iou_token", "mask_tokens", "point_embeddings",
                "not_a_point_embed", "no_mask_embed",
                "positional_encoding_gaussian_matrix")
+
+
+class TrainBatch(NamedTuple):
+    """Static-shape training batch (JAX `TrainBatch`)."""
+
+    images_sam: torch.Tensor      # (B_img, S, S, 3) SAM-preprocessed
+    images_clip: torch.Tensor     # (B_img, C, C, 3) CLIP-preprocessed
+    image_index: torch.Tensor     # (B,) conversation -> image row
+    input_ids: torch.Tensor       # (B, L) with IMAGE_TOKEN_INDEX
+    labels: torch.Tensor          # (B, L) IGNORE_INDEX-masked targets
+    attention_mask: torch.Tensor  # (B, L) 1 = real token
+    masks_left: torch.Tensor      # (B, S, S) binary on the SAM canvas
+    masks_right: torch.Tensor     # (B, S, S)
+    taxonomies: torch.Tensor      # (B, 4)
+    valid_region: torch.Tensor    # (B, S, S) 1 inside the resized frame
+    sample_weight: torch.Tensor   # (B,) 1 = real sample
+
+    def to(self, device) -> "TrainBatch":
+        """Every field as a tensor on `device` (numpy arrays accepted)."""
+        return TrainBatch(*(torch.as_tensor(x, device=device) for x in self))
+
+
+class LisaOutputs(NamedTuple):
+    loss: torch.Tensor
+    ce_loss: torch.Tensor
+    mask_bce_loss: torch.Tensor
+    mask_dice_loss: torch.Tensor
+    taxonomy_ce_loss: torch.Tensor
+    pred_masks_left: torch.Tensor   # (B, S, S) logits on the canvas
+    pred_masks_right: torch.Tensor
+    pred_taxonomies: torch.Tensor   # (B, 4)
 
 
 class LisaModel(nn.Module):
@@ -48,7 +85,8 @@ class LisaModel(nn.Module):
             self.visual_model = Sam(cfg.sam_encoder, cfg.sam_decoder)
             self.text_fc1 = QDense(cfg.llama.hidden_size, cfg.llama.hidden_size)
             self.text_fc2 = QDense(cfg.llama.hidden_size, cfg.out_dim)
-        self.to(resolve(dtype))
+        self.dtype = resolve(dtype)
+        self.to(self.dtype)
         self.to_empty(device=torch.device(device))
         set_reference_precision()
         if generator is None:
@@ -83,20 +121,82 @@ class LisaModel(nn.Module):
         # IMAGE_TOKEN_INDEX (-200) reads row 0; the splice overwrites it.
         return self.llm.embed(input_ids.clamp(min=0))
 
+    # ----- the training / validation forward -----
+
+    def splice_inputs(self, batch: TrainBatch):
+        """Vision encoders over the unique images (frozen: no autograd
+        graph is kept for them), expanded to conversations by
+        `image_index`, and the multimodal splice. Returns (SAM embeddings
+        per conversation, SplicedBatch)."""
+        with torch.no_grad():
+            sam_emb = self.encode_sam(batch.images_sam)
+            clip_emb = self.encode_clip(batch.images_clip)
+        index = batch.image_index.long()
+        sam_emb, clip_emb = sam_emb[index], clip_emb[index]
+        input_ids = batch.input_ids.long()
+        sp = splice_image_embeddings(
+            self.embed_tokens(input_ids), clip_emb,
+            find_image_position(input_ids), input_ids, batch.labels,
+            batch.attention_mask, seg_token_idx=self.cfg.seg_token_idx)
+        return sam_emb, sp
+
+    def forward(self, batch: TrainBatch, dropout_seed: Optional[int] = None,
+                remat: bool = False) -> LisaOutputs:
+        """`dropout_seed` None is the deterministic forward; `remat`
+        recomputes each decoder block in the backward."""
+        sam_emb, sp = self.splice_inputs(batch)
+        logits, hidden, _ = self.llm(sp.embeds, sp.positions, sp.segment_ids,
+                                     dropout_seed=dropout_seed, remat=remat)
+        return self.finish_outputs(batch, sam_emb, sp, logits, hidden)
+
+    def finish_outputs(self, batch: TrainBatch, sam_emb, sp: SplicedBatch,
+                       logits, hidden) -> LisaOutputs:
+        """[SEG] gather and projection, dual mask decode and canvas
+        upsample, the loss stack."""
+        cfg = self.cfg
+        proj = self.project_seg(hidden)
+        seg_emb, seg_valid = gather_seg_embeddings(
+            proj, sp.seg_token_mask, max_segs=cfg.max_seg_tokens)
+        masks_l, masks_r, _, _, taxonomy = self.decode_masks(sam_emb, seg_emb)
+        S = cfg.sam_encoder.image_size
+        pred_l = postprocess_masks_padded(masks_l, S)[:, 0]
+        pred_r = postprocess_masks_padded(masks_r, S)[:, 0]
+
+        sample_weight = batch.sample_weight.float()
+        weight = sample_weight * seg_valid[:, 0].float()
+        lm_labels = torch.where(sample_weight[:, None] > 0, sp.labels,
+                                torch.full_like(sp.labels, -100))
+        ce = L.language_model_loss(logits, lm_labels) * cfg.ce_loss_weight
+        bce, dice = L.bimanual_mask_losses(
+            pred_l, pred_r, batch.masks_left, batch.masks_right,
+            batch.taxonomies, valid=batch.valid_region, sample_weight=weight,
+            bce_weight=cfg.bce_loss_weight, dice_weight=cfg.dice_loss_weight)
+        tax_ce = L.taxonomy_ce_loss(taxonomy, batch.taxonomies,
+                                    sample_weight=weight,
+                                    logit_ce=cfg.taxonomy_logit_ce)
+        return LisaOutputs(
+            loss=ce + bce + dice + tax_ce, ce_loss=ce, mask_bce_loss=bce,
+            mask_dice_loss=dice, taxonomy_ce_loss=tax_ce,
+            pred_masks_left=pred_l, pred_masks_right=pred_r,
+            pred_taxonomies=taxonomy)
+
 
 @torch.no_grad()
 def init_random_(model: nn.Module, generator: torch.Generator) -> None:
     """Fill every parameter from `generator`: normal(0, fan_in^-1/2) for
     dense and convolution weights, zero biases, unit norms, normal(0, 0.02)
     for embeddings and position tables, normal(0, 1) for the SAM decoder's
-    tokens and prompt embeddings."""
+    tokens and prompt embeddings; LoRA a he-uniform, b zero."""
 
     def normal_(p, std):
         p.copy_(torch.randn(p.shape, generator=generator, device=p.device,
                             dtype=torch.float32) * std)
 
     for mod in model.modules():
-        if isinstance(mod, (LayerNorm, RMSNorm)):
+        if isinstance(mod, LoraDense):
+            if mod.rank:
+                mod.reset_lora_(generator)
+        elif isinstance(mod, (LayerNorm, RMSNorm)):
             mod.weight.fill_(1.0)
             if getattr(mod, "bias", None) is not None:
                 mod.bias.zero_()

@@ -2,7 +2,10 @@
 
 Spatial tensors are NHWC at module boundaries, as in the JAX package;
 convolutions permute to NCHW inside. Parameters are stored in the model's
-compute dtype; normalisations compute in float32 and cast back.
+compute dtype; normalisations compute in float32 and cast back. A
+trainable parameter may instead be held in float32 (flax `param_dtype`),
+and its module's `compute_dtype` then names the dtype it is cast to at use
+(flax `dtype`).
 """
 
 from __future__ import annotations
@@ -17,18 +20,23 @@ class QDense(nn.Linear):
     to the weight's dtype, and `out_split` returns a tuple of outputs, each
     an independent product with a contiguous row block of the one weight
     (a column split of the JAX kernel), so the checkpoint layout is that of
-    the fused layer."""
+    the fused layer. With `compute_dtype` set, input, weight and bias are
+    all cast to it."""
+
+    compute_dtype = None
 
     def forward(self, x, out_split=None):
-        x = x.to(self.weight.dtype)
+        dt = self.compute_dtype or self.weight.dtype
+        x, weight = x.to(dt), self.weight.to(dt)
+        bias = None if self.bias is None else self.bias.to(dt)
         if out_split is None:
-            return F.linear(x, self.weight, self.bias)
+            return F.linear(x, weight, bias)
         if sum(out_split) != self.out_features:
             raise ValueError(f"out_split {out_split} != {self.out_features}")
         outs, off = [], 0
         for w in out_split:
-            b = None if self.bias is None else self.bias[off:off + w]
-            outs.append(F.linear(x, self.weight[off:off + w], b))
+            b = None if bias is None else bias[off:off + w]
+            outs.append(F.linear(x, weight[off:off + w], b))
             off += w
         return tuple(outs)
 
@@ -95,8 +103,9 @@ class ReluMLP(nn.Module):
 
 def conv_nhwc(conv: nn.Module, x, dtype=None):
     """Apply an NCHW torch convolution to an NHWC tensor, computing in
-    `dtype` (default: the weight's dtype)."""
-    dtype = dtype or conv.weight.dtype
+    `dtype` (default: the module's `compute_dtype` if set, else the
+    weight's dtype)."""
+    dtype = dtype or getattr(conv, "compute_dtype", None) or conv.weight.dtype
     w = conv.weight.to(dtype)
     b = None if conv.bias is None else conv.bias.to(dtype)
     xc = x.to(dtype).permute(0, 3, 1, 2)

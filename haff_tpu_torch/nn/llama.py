@@ -6,6 +6,12 @@ over a ragged per-row KV cache in plain PyTorch (the JAX package's
 `_xla_path` of kernels/decode_attention.py, which is what it runs at
 serving lengths). The post-final-norm hidden states are returned beside
 the logits: the [SEG] gather needs them.
+
+Training mode: a `dropout_seed` turns LoRA input dropout on (each
+projection's mask is seeded from it, the layer index and the projection,
+so a recomputed block redraws the same masks), and `remat` recomputes
+each decoder block in the backward (torch.utils.checkpoint, the
+counterpart of `nn.remat(..., nothing_saveable)`).
 """
 
 from __future__ import annotations
@@ -13,11 +19,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.config import LlamaConfig
 from ..kernels.flash_attention import flash_attention
 from .layers import QDense
-from .lora import LoraDense
+from .lora import LoraDense, fold_in
+
+_PROJ_IDS = {"q_proj": 0, "k_proj": 1, "v_proj": 2, "o_proj": 3}
 
 
 class RMSNorm(nn.Module):
@@ -80,7 +89,8 @@ class LlamaAttention(nn.Module):
             # LlamaAttention.proj); k/o only when targeted.
             targeted = name in cfg.lora_targets
             if targeted or name in ("q_proj", "v_proj"):
-                return LoraDense(n_in, n_out, cfg.lora_rank if targeted else 0)
+                return LoraDense(n_in, n_out, cfg.lora_rank if targeted else 0,
+                                 cfg.lora_alpha, cfg.lora_dropout)
             return QDense(n_in, n_out, bias=False)
 
         self.q_proj = proj("q_proj", e, nh * hd)
@@ -88,20 +98,32 @@ class LlamaAttention(nn.Module):
         self.v_proj = proj("v_proj", e, nkv * hd)
         self.o_proj = proj("o_proj", nh * hd, e)
 
+    def _proj(self, name, x, dropout_seed):
+        layer = getattr(self, name)
+        if not isinstance(layer, LoraDense):
+            return layer(x)
+        seed = (None if dropout_seed is None
+                else fold_in(dropout_seed, _PROJ_IDS[name]))
+        return layer(x, seed)
+
     def forward(self, x, positions, table, segment_ids=None, kv_cache=None,
-                cache_index=None, cache_kv_segment_ids=None):
+                cache_index=None, cache_kv_segment_ids=None,
+                dropout_seed=None):
         """Prefill (no cache_kv_segment_ids): causal flash attention over
         the L inputs, and, given a cache, their k/v written in place at
         per-row offsets `cache_index` (B,). Decode (L == 1, cache and
         cache_kv_segment_ids given; the mask includes the slot just
-        written): attention over the live cache slots.
-        Returns (out, kv_cache)."""
+        written): attention over the live cache slots. `dropout_seed`
+        (training) turns LoRA dropout on. Returns (out, kv_cache)."""
         cfg = self.cfg
         b, l, _ = x.shape
         nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        q = apply_rope(self.q_proj(x).reshape(b, l, nh, hd), positions, table)
-        k = apply_rope(self.k_proj(x).reshape(b, l, nkv, hd), positions, table)
-        v = self.v_proj(x).reshape(b, l, nkv, hd)
+        proj = lambda name, t: self._proj(name, t, dropout_seed)  # noqa: E731
+        q = apply_rope(proj("q_proj", x).reshape(b, l, nh, hd), positions,
+                       table)
+        k = apply_rope(proj("k_proj", x).reshape(b, l, nkv, hd), positions,
+                       table)
+        v = proj("v_proj", x).reshape(b, l, nkv, hd)
 
         if kv_cache is not None:
             ck, cv = kv_cache
@@ -127,7 +149,7 @@ class LlamaAttention(nn.Module):
             out = flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), q_segment_ids=segment_ids,
                                   kv_segment_ids=segment_ids, causal=True)
-        out = self.o_proj(out.reshape(b, l, nh * hd))
+        out = proj("o_proj", out.reshape(b, l, nh * hd))
         return out, kv_cache
 
 
@@ -151,10 +173,11 @@ class LlamaBlock(nn.Module):
         self.mlp = LlamaMLP(cfg)
 
     def forward(self, x, positions, table, segment_ids=None, kv_cache=None,
-                cache_index=None, cache_kv_segment_ids=None):
+                cache_index=None, cache_kv_segment_ids=None,
+                dropout_seed=None):
         attn, kv_cache = self.self_attn(
             self.input_layernorm(x), positions, table, segment_ids, kv_cache,
-            cache_index, cache_kv_segment_ids)
+            cache_index, cache_kv_segment_ids, dropout_seed)
         x = x + attn
         return x + self.mlp(self.post_attention_layernorm(x)), kv_cache
 
@@ -173,27 +196,53 @@ class LlamaModel(nn.Module):
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
 
     def forward(self, inputs_embeds, positions, segment_ids=None,
-                kv_caches=None, cache_index=None, cache_kv_segment_ids=None):
-        """Returns (hidden states post final norm, kv caches or None)."""
+                kv_caches=None, cache_index=None, cache_kv_segment_ids=None,
+                dropout_seed=None, remat=False):
+        """Returns (hidden states post final norm, kv caches or None).
+        `dropout_seed`: LoRA dropout on, layer i seeded fold_in(seed, i).
+        `remat` (with grad mode on): each block's activations are
+        recomputed in the backward instead of stored."""
         cfg = self.cfg
         x = inputs_embeds.to(self.norm.weight.dtype)
         table = rope_table(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta,
                            device=x.device)
         positions = positions.long()
+        remat = remat and torch.is_grad_enabled()
         new_caches = []
         for i, layer in enumerate(self.layers):
             cache = kv_caches[i] if kv_caches is not None else None
-            x, cache = layer(x, positions, table, segment_ids, cache,
-                             cache_index, cache_kv_segment_ids)
+            seed = None if dropout_seed is None else fold_in(dropout_seed, i)
+            args = (x, positions, table, segment_ids, cache, cache_index,
+                    cache_kv_segment_ids, seed)
+            if remat:
+                # The dropout masks come from explicit seeds, so the global
+                # RNG state need not be saved for the recompute.
+                x, cache = checkpoint(layer, *args, use_reentrant=False,
+                                      preserve_rng_state=False)
+            else:
+                x, cache = layer(*args)
             new_caches.append(cache)
         return self.norm(x), (new_caches if kv_caches is not None else None)
+
+
+class Embed(nn.Embedding):
+    """Token embedding: a row gather whose table gradient is a scatter-add
+    in the table's dtype (float32 when trained, which equals the JAX
+    one-hot/HIGHEST backward); the rows are cast to `compute_dtype` when it
+    is set (see nn/layers.py)."""
+
+    compute_dtype = None
+
+    def forward(self, ids):
+        out = super().forward(ids)
+        return out if self.compute_dtype is None else out.to(self.compute_dtype)
 
 
 class LlamaForCausalLM(nn.Module):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
         self.cfg = cfg
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.embed_tokens = Embed(cfg.vocab_size, cfg.hidden_size)
         self.model = LlamaModel(cfg)
         self.lm_head = QDense(cfg.hidden_size, cfg.vocab_size, bias=False)
 
@@ -201,9 +250,10 @@ class LlamaForCausalLM(nn.Module):
         return self.embed_tokens(input_ids.long())
 
     def forward(self, inputs_embeds, positions, segment_ids=None,
-                kv_caches=None, cache_index=None, cache_kv_segment_ids=None):
+                kv_caches=None, cache_index=None, cache_kv_segment_ids=None,
+                dropout_seed=None, remat=False):
         """Returns (logits, hidden post-norm, kv caches)."""
         hidden, caches = self.model(inputs_embeds, positions, segment_ids,
                                     kv_caches, cache_index,
-                                    cache_kv_segment_ids)
+                                    cache_kv_segment_ids, dropout_seed, remat)
         return self.lm_head(hidden), hidden, caches

@@ -17,6 +17,8 @@ from .two_way_transformer import TwoWayTransformer
 
 
 class MaskDecoder(nn.Module):
+    compute_dtype = None  # see nn/layers.py: set when held in float32
+
     def __init__(self, cfg: SamDecoderConfig, taxonomy_on: bool = False):
         super().__init__()
         d = cfg.prompt_embed_dim
@@ -40,7 +42,7 @@ class MaskDecoder(nn.Module):
                 dense_prompt_embeddings, multimask_output: bool = False):
         """image_embeddings (B, h, w, d) -> (masks (B, k, 4h, 4w) float32,
         iou (B, k)[, taxonomy (B, 4) float32 probabilities])."""
-        dt = self.iou_token.dtype
+        dt = self.compute_dtype or self.iou_token.dtype
         b = sparse_prompt_embeddings.shape[0]
         d = self.iou_token.shape[1]
         output_tokens = torch.cat([self.iou_token, self.mask_tokens], dim=0)

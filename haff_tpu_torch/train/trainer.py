@@ -1,0 +1,214 @@
+"""Training step (port of haff_tpu/train/trainer.py): the reference's
+trainable set, WarmupDecay schedule, global-norm clip + AdamW, gradient
+accumulation, one train step.
+
+* The trainable set is the reference's (train_ds.py:192-244): LoRA a/b on
+  q/v, embed_tokens, lm_head, both mask decoders and the [SEG] projection.
+  The port's parameter names mirror the flax scopes, so `partition_params`
+  picks it by name and turns `requires_grad` on for it and off for every
+  other parameter. It is held in float32 with its AdamW moments (flax
+  `param_dtype`) and cast to the model's dtype at use (flax `dtype`); the
+  frozen weights stay in the model's dtype, outside autograd.
+* The optimizer is optax's `chain(clip_by_global_norm, adamw(schedule))`,
+  wrapped in `MultiSteps` for gradient accumulation, written out over
+  `torch.optim.AdamW`; parameters are updated in place.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Iterable, Tuple
+
+import torch
+from torch import nn
+
+from ..core.config import TrainConfig
+from ..model.lisa import LisaModel, LisaOutputs, TrainBatch
+from ..nn.lora import fold_in
+
+TRAINABLE_KEYS = ("lora_a", "lora_b", "embed_tokens", "lm_head",
+                  "mask_decoder_left", "mask_decoder_right", "text_fc1",
+                  "text_fc2")
+
+
+def trainable_mask_path(path: Tuple[str, ...]) -> bool:
+    """Reference freezing semantics on one parameter path."""
+    return any(k in path for k in TRAINABLE_KEYS)
+
+
+def partition_params(model: nn.Module
+                     ) -> Tuple[Dict[str, nn.Parameter],
+                                Dict[str, nn.Parameter]]:
+    """Mark the trainable set and freeze the rest; returns (trainable,
+    frozen) name -> parameter.
+
+    This changes `model` in place: requires_grad is set on every
+    parameter, and in a model whose dtype is not float32 the trainable
+    parameters are converted to float32 and their modules' `compute_dtype`
+    is set to the model's dtype, so they are cast back to it at use."""
+    trainable, frozen = {}, {}
+    for name, p in model.named_parameters():
+        keep = trainable_mask_path(tuple(name.split(".")))
+        p.requires_grad_(keep)
+        (trainable if keep else frozen)[name] = p
+    compute = getattr(model, "dtype", torch.float32)
+    for mod in model.modules():
+        own = [p for p in mod.parameters(recurse=False) if p.requires_grad]
+        if own and compute != torch.float32:
+            for p in own:
+                p.data = p.data.float()
+            mod.compute_dtype = compute
+    return trainable, frozen
+
+
+def count_params(params: Dict[str, torch.Tensor]) -> int:
+    """Number of elements in a name -> tensor dict."""
+    return sum(int(p.numel()) for p in params.values())
+
+
+def make_schedule(cfg: TrainConfig) -> Callable[[int], float]:
+    """WarmupDecayLR: 0 -> lr over warmup_steps, then linear -> 0 at
+    total_steps (optax join_schedules of two linear schedules)."""
+    warm = cfg.warmup_steps
+    decay = max(cfg.total_steps - warm, 1)
+
+    def schedule(count: int) -> float:
+        if count < warm:
+            return cfg.lr * count / warm
+        return cfg.lr * (1.0 - min(max((count - warm) / decay, 0.0), 1.0))
+
+    return schedule
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """optax.global_norm: the 2-norm of all elements, float32."""
+    return torch.stack([t.float().norm() for t in tensors]).norm()
+
+
+class Optimizer:
+    """optax `chain(clip_by_global_norm(max), adamw(schedule, b1, b2,
+    eps=1e-8, weight_decay))`, inside `MultiSteps(k)` when k > 1, over
+    float32 parameters updated in place.
+
+    * clip: g * max / ||g|| when ||g|| >= max (optax's formula; not
+      `clip_grad_norm_`, whose max / (||g|| + 1e-6) differs);
+    * the schedule is evaluated at the count of updates already applied,
+      so the first update uses schedule(0) (0 with a warmup);
+    * MultiSteps: the running mean acc + (g - acc) / (n + 1) of k
+      micro-step gradients, applied once every k calls."""
+
+    def __init__(self, cfg: TrainConfig, params: Iterable[torch.Tensor]):
+        self.params = list(params)
+        self.schedule = make_schedule(cfg)
+        self.max_norm = cfg.grad_clip_norm
+        self.k = cfg.grad_accumulation_steps
+        self.adamw = torch.optim.AdamW(
+            self.params, lr=0.0, betas=(cfg.beta1, cfg.beta2), eps=1e-8,
+            weight_decay=cfg.weight_decay)
+        self.count = 0        # updates applied (the schedule's count)
+        self.mini_step = 0
+        self.acc = None
+
+    def update(self, grads, norm=None) -> bool:
+        """Take one micro-step's gradients (one per parameter, None for
+        none) and, if the caller has it, their global norm (used when k is
+        1). Returns whether an update was applied."""
+        grads = [torch.zeros_like(p) if g is None else g.float()
+                 for p, g in zip(self.params, grads)]
+        if self.k > 1:
+            if self.acc is None:
+                self.acc = [torch.zeros_like(p) for p in self.params]
+            for a, g in zip(self.acc, grads):
+                a.add_((g - a) / (self.mini_step + 1))
+            self.mini_step += 1
+            if self.mini_step < self.k:
+                return False
+            grads, self.acc, self.mini_step = self.acc, None, 0
+            norm = None
+        if norm is None:
+            norm = global_norm(grads)
+        clip = norm >= self.max_norm
+        div = torch.where(clip, norm, torch.ones_like(norm))
+        mul = torch.where(clip, torch.full_like(norm, self.max_norm),
+                          torch.ones_like(norm))
+        for p, g in zip(self.params, grads):
+            p.grad = g / div * mul
+        for group in self.adamw.param_groups:
+            group["lr"] = self.schedule(self.count)
+        self.adamw.step()
+        for p in self.params:
+            p.grad = None
+        self.count += 1
+        return True
+
+
+def make_optimizer(cfg: TrainConfig, params: Iterable[torch.Tensor]
+                   ) -> Optimizer:
+    return Optimizer(cfg, params)
+
+
+@dataclass
+class TrainState:
+    step: int
+    trainable: Dict[str, nn.Parameter]
+    optimizer: Optimizer
+
+
+def init_train_state(cfg: TrainConfig,
+                     trainable: Dict[str, nn.Parameter]) -> TrainState:
+    return TrainState(step=0, trainable=trainable,
+                      optimizer=make_optimizer(cfg, trainable.values()))
+
+
+def _check_supported(model: LisaModel, mesh) -> None:
+    if getattr(model.cfg.llama, "moe_num_experts", 0) > 0:
+        raise NotImplementedError("MoE training is not ported yet")
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh-parallel (pipeline) training is not ported yet")
+
+
+def make_train_step(model: LisaModel, cfg: TrainConfig, mesh=None
+                    ) -> Callable:
+    """Returns step(state, batch, seed) -> (state, metrics): forward with
+    LoRA dropout seeded fold_in(seed, state.step) and, with cfg.remat,
+    decoder blocks recomputed in the backward; backward into the trainable
+    set; one optimizer micro-step. `state` is updated in place. The
+    metrics (device tensors) are the JAX step's: loss, ce_loss,
+    mask_bce_loss, mask_dice_loss, taxonomy_ce_loss and grad_norm (of this
+    micro-step's gradients)."""
+    _check_supported(model, mesh)
+
+    def step(state: TrainState, batch: TrainBatch, seed: int):
+        params = list(state.trainable.values())
+        for p in params:
+            p.grad = None
+        out = model(batch, dropout_seed=fold_in(seed, state.step),
+                    remat=cfg.remat)
+        out.loss.backward()
+        grads = [p.grad for p in params]
+        grad_norm = global_norm([g for g in grads if g is not None])
+        state.optimizer.update(grads, grad_norm)
+        state.step += 1
+        metrics = dict(
+            loss=out.loss.detach(), ce_loss=out.ce_loss.detach(),
+            mask_bce_loss=out.mask_bce_loss.detach(),
+            mask_dice_loss=out.mask_dice_loss.detach(),
+            taxonomy_ce_loss=out.taxonomy_ce_loss.detach(),
+            grad_norm=grad_norm)
+        return state, metrics
+
+    return step
+
+
+def make_eval_step(model: LisaModel, cfg: TrainConfig = None,
+                   mesh=None) -> Callable:
+    """Validation forward without gradients and without dropout: returns
+    the batch's LisaOutputs (masks, taxonomy, losses)."""
+    _check_supported(model, mesh)
+
+    @torch.no_grad()
+    def step(batch: TrainBatch) -> LisaOutputs:
+        return model(batch)
+
+    return step

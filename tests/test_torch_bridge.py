@@ -140,3 +140,22 @@ def test_npz_loads_into_small_port_model():
     np.testing.assert_array_equal(
         port.state_dict()["llm.lm_head.weight"].numpy(),
         ref[("llm", "lm_head", "kernel")].T)
+
+
+def test_lora_tree_loads_strict():
+    """A JAX tree with LoRA rank 2 (lora_a (in, r), lora_b (r, out) on
+    q/v) loads strictly; the adapters keep the JAX layout unchanged."""
+    cfg = JaxModelConfig.preset("tiny")
+    cfg = cfg.replace(llama=dataclasses.replace(cfg.llama, lora_rank=2))
+    params = random_like(jax_param_shapes(JaxLisaModel(cfg=cfg), cfg), 3)
+    port = port_model(params, llama=dataclasses.replace(
+        ModelConfig.preset("tiny").llama, lora_rank=2))
+    got = port.state_dict()
+    assert set(got) == set(flax_to_state_dict(params))
+    attn = params["llm"]["model"]["layers_1"]["self_attn"]
+    for proj in ("q_proj", "v_proj"):
+        for leaf in ("lora_a", "lora_b"):
+            np.testing.assert_array_equal(
+                got[f"llm.model.layers.1.self_attn.{proj}.{leaf}"].numpy(),
+                attn[proj][leaf])
+    assert "llm.model.layers.1.self_attn.k_proj.lora_a" not in got

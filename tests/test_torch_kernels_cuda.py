@@ -108,3 +108,72 @@ def test_wrappers_refuse_unsupported_operands(dev):
     q = torch.zeros(1, 8, 2, 256, device=dev)
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,lq,lk,h,d,causal,bias,seg", [
+    (2, 575, 575, 32, 128, True, False, True),
+    (2, 5, 5, 4, 16, True, False, True),
+    (2, 9, 9, 3, 32, True, True, True),
+    (1, 70, 70, 2, 64, False, True, False),
+    (2, 130, 130, 4, 32, True, False, True),
+    (1, 9, 130, 2, 16, True, False, False),
+])
+def test_flash_backward_matches_plain(dev, dtype, b, lq, lk, h, d, causal,
+                                      bias, seg):
+    """dq (flash_bwd_dq) and dk/dv (flash_bwd_dkv) against
+    attention_bwd_plain on the float32 values of the same operands; pad
+    query rows give exactly-zero dq, pad keys exactly-zero dk/dv."""
+    g = torch.Generator(dev).manual_seed(7 * lq + lk)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(dtype)  # noqa: E731
+    q, do = rnd(b, lq, h, d), rnd(b, lq, h, d)
+    k, v = rnd(b, lk, h, d), rnd(b, lk, h, d)
+    bias_t = (torch.randn(1, h, 1, lk, generator=g, device=dev)
+              if bias else None)
+    qseg = kseg = None
+    if seg:
+        qlen = torch.tensor([lq] + [max(lq - 70, 1)] * (b - 1), device=dev)
+        klen = torch.tensor([lk] + [max(lk - 70, 1)] * (b - 1), device=dev)
+        qseg = (torch.arange(lq, device=dev)[None] < qlen[:, None]).int()
+        kseg = (torch.arange(lk, device=dev)[None] < klen[:, None]).int()
+    out, lse = fa.flash_prefill_kernel(q, k, v, bias_t, qseg, kseg, causal)
+    args = (q, k, v, bias_t, qseg, kseg, out, lse, do, causal)
+    before = dict(_build.LAUNCHES)
+    dq = fa.flash_bwd_dq_kernel(*args)
+    dk, dv = fa.flash_bwd_dkv_kernel(*args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_bwd_dq"] == before.get("flash_bwd_dq", 0) + 1
+    assert _build.LAUNCHES["flash_bwd_dkv"] == before.get("flash_bwd_dkv", 0) + 1
+    ref = fa.attention_bwd_plain(q.float(), k.float(), v.float(), bias_t,
+                                 qseg, kseg, out.float(), lse, do.float(),
+                                 causal)
+    for got, r in zip((dq, dk, dv), ref):
+        assert got.dtype == dtype
+        _close(got, r)
+    if seg and b > 1:
+        assert not dq[1, int(qseg[1].sum()):].any()
+        assert not dk[1, int(kseg[1].sum()):].any()
+        assert not dv[1, int(kseg[1].sum()):].any()
+
+
+def test_flash_attention_autograd_on_the_card(dev):
+    """Grad mode routes flash_attention through FlashAttentionFn: the
+    forward and both backward kernels launch once, and the gradients match
+    torch autograd through the plain forward (float32)."""
+    g = torch.Generator(dev).manual_seed(3)
+    b, l, h, d = 2, 70, 4, 32
+    q, k, v = (torch.randn(b, l, h, d, generator=g, device=dev,
+                           requires_grad=True) for _ in range(3))
+    seg = torch.ones(b, l, dtype=torch.int32, device=dev)
+    seg[1, 50:] = 0
+    go = torch.randn(b, l, h, d, generator=g, device=dev)
+    before = dict(_build.LAUNCHES)
+    got = torch.autograd.grad(fa.flash_attention(q, k, v, None, seg,
+                                                 causal=True), (q, k, v), go)
+    torch.cuda.synchronize()
+    for name in ("flash_prefill_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert _build.LAUNCHES[name] == before.get(name, 0) + 1, name
+    ref = torch.autograd.grad(fa.attention_plain(q, k, v, None, seg, seg,
+                                                 True)[0], (q, k, v), go)
+    for a, r in zip(got, ref):
+        _close(a, r)

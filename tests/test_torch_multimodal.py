@@ -74,3 +74,42 @@ def test_gather_seg_embeddings_matches_jax(max_segs):
                                            torch.from_numpy(mask), max_segs)
     np.testing.assert_array_equal(valid.numpy(), np.asarray(ref_valid))
     np.testing.assert_array_equal(emb.numpy(), np.asarray(ref_emb))
+
+
+@pytest.mark.parametrize("max_segs", [1, 2])
+def test_gradients_through_splice_and_gather_match_jax(max_segs):
+    """The train forward's path from the token embeddings and the image
+    features through the splice and the [SEG] gather: gradients of a fixed
+    projection of (spliced embeddings, gathered [SEG] states) against
+    jax.grad. Every element is one copied input times a weight, so the
+    gradients are exact sums of the weights (float32, 1e-6)."""
+    import jax
+
+    ids, att, labels, tok, img = _inputs()
+    rng = np.random.default_rng(2)
+    w_emb = rng.standard_normal((B, L + P - 1, E)).astype(np.float32)
+    w_seg = rng.standard_normal((B, max_segs, E)).astype(np.float32)
+    jpos = jmm.find_image_position(jnp.asarray(ids))
+
+    def jloss(tok, img):
+        sp = jmm.splice_image_embeddings(tok, img, jpos, jnp.asarray(ids),
+                                         jnp.asarray(labels), jnp.asarray(att),
+                                         seg_token_idx=SEG)
+        seg, _ = jmm.gather_seg_embeddings(sp.embeds, sp.seg_token_mask,
+                                           max_segs)
+        return jnp.sum(sp.embeds * w_emb) + jnp.sum(seg * w_seg)
+
+    ref = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(tok), jnp.asarray(img))
+    t_tok, t_img = (torch.from_numpy(x).requires_grad_() for x in (tok, img))
+    sp = tmm.splice_image_embeddings(
+        t_tok, t_img, tmm.find_image_position(torch.from_numpy(ids)),
+        torch.from_numpy(ids), torch.from_numpy(labels),
+        torch.from_numpy(att), seg_token_idx=SEG)
+    seg, _ = tmm.gather_seg_embeddings(sp.embeds, sp.seg_token_mask, max_segs)
+    loss = (sp.embeds * torch.from_numpy(w_emb)).sum() + (
+        seg * torch.from_numpy(w_seg)).sum()
+    got = torch.autograd.grad(loss, (t_tok, t_img))
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-6,
+                                   atol=1e-6)
+    assert got[0].abs().sum() > 0 and got[1].abs().sum() > 0

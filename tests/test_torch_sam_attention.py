@@ -132,3 +132,26 @@ def test_cpu_tensors_take_the_plain_version():
         q3, kv3, torch.zeros(7, 4), torch.zeros(7, 4), (4, 4), 2)
     assert out.shape == (1, 16, 8)
     assert dict(tsa._build.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("wrapper", ["window", "global"])
+def test_kernel_wrappers_refuse_to_drop_a_gradient(wrapper):
+    """The SAM kernels are forward-only: with grad mode on and an input
+    that requires grad, the wrapper raises before anything launches (an
+    output without a grad_fn would drop the gradient silently). Under
+    no_grad the same call passes the guard and fails only on the CPU
+    operands."""
+    nh, d, w = 2, 8, 4
+    rel = torch.zeros(2 * w - 1, d)
+    if wrapper == "window":
+        call = lambda q: tsa.window_attention_kernel(  # noqa: E731
+            q, torch.zeros(1, w * w, 2 * nh * d), rel, rel, (w, w), nh, 0.5)
+        q = torch.zeros(1, w * w, nh * d, requires_grad=True)
+    else:
+        call = lambda q: tsa.global_attention_kernel(  # noqa: E731
+            q, rel, rel, (w, w), nh, 0.5)
+        q = torch.zeros(1, w * w, 3 * nh * d, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        call(q)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        call(q)
