@@ -7,14 +7,16 @@ Phases (any failure raises and exits non-zero):
 1. device: requires CUDA; prints the card (nvidia-smi name, power limit).
 2. build: compiles haff_tpu_torch/kernels/csrc/*.cu (one nvcc per source,
    in parallel) and prints build seconds and ptxas register/smem use.
-3. kernels: each hand-written kernel against its plain PyTorch version at
-   the shapes the 7b preset gives it (evaluate() and the train step), in
-   bfloat16, compared in float32; times the kernel, the plain version and
-   one PyTorch library call computing the same function (CUDA events,
-   after warm-up).
+3. kernels: each of the eight hand-written kernels against its plain
+   PyTorch version at the shapes the 7b preset gives it (evaluate(), the
+   quantized evaluates and the train step), in bfloat16, compared in
+   float32 (the w8a8 product also in float32, bit for bit); times the
+   kernel, the plain version and one PyTorch library call computing the
+   same function (CUDA events, after warm-up).
 4. tiny: evaluate() at the tiny preset in float32 on the card (kernels)
-   against the same weights on the CPU (plain versions): identical tokens,
-   masks and taxonomy within 1e-3.
+   against the same weights on the CPU (plain versions), three times:
+   float weights, int8 weights with the int8 KV cache, and packed-int4
+   weights at group 16: identical tokens, masks and taxonomy within 1e-3.
 5. tiny train: the LoRA train step (rank 2) at the tiny preset in float32
    on the card against the CPU from the same weights and batch: every
    trainable gradient, 3 steps' metrics and the updated trainable
@@ -22,9 +24,16 @@ Phases (any failure raises and exits non-zero):
 6. slice: evaluate() at the full 7b preset (LLaMA-7B, CLIP ViT-L/14,
    SAM ViT-H) in bfloat16 with seeded random weights, 2 batches of 2
    requests (prompt 320, 16 new tokens); checks shapes, finiteness and the
-   per-evaluate launch counts of the kernels, prints per-batch latency and
-   peak memory; profiles one call.
-7. train slice: make_train_step at the full 7b preset with LoRA rank 8 on
+   per-evaluate launch counts of the kernels (decode attention included),
+   prints per-batch latency and peak memory; profiles one call.
+7. quantized slices: the same model quantized in place, once with int8
+   weights (SAM encoder and LLM projections, W8A8) and the int8 KV cache,
+   once with packed-int4 LLM projections (W4A16, group 64), each freed
+   before the next: the same requests and checks, the exact launch count
+   of all six serving kernels per evaluate (the w8a8 and w4a16 counts
+   derived from the model), no selected layer left with a float weight;
+   prints weight bytes, latency, peak memory; profiles one call.
+8. train slice: make_train_step at the full 7b preset with LoRA rank 8 on
    q/v, bf16 compute, remat, batch 2 (prompt 320 spliced to 575), 6 steps
    on one batch: finite losses, falling loss, frozen weights unchanged,
    trainable ones changed, per-step launch counts; prints step time and
@@ -45,18 +54,36 @@ import numpy as np
 import torch
 
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, H100 SXM data sheet
+H100_INT8_OPS = 1979e12    # dense int8 tensor-core peak, same data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3
 
 # Launches of each kernel per evaluate() call at the 7b preset: 28 windowed
-# and 4 global SAM ViT-H blocks, 32 LLaMA layers' prefill.
+# and 4 global SAM ViT-H blocks, 32 LLaMA layers' prefill, and their 15
+# decode forwards (16 new tokens; the last token needs no forward). The
+# quantized products' counts are derived from the model (product_launches).
 PER_EVALUATE = {"sam_window_relpos_attn": 28, "sam_global_relpos_attn": 4,
-                "flash_prefill_fwd": 32}
+                "flash_prefill_fwd": 32, "decode_attn": 480}
 # Launches per train step at the 7b preset with remat: the frozen SAM
 # encoder's forward, each LLaMA layer's flash forward twice (the forward
 # and its recompute in the backward) and its two backward kernels once.
 PER_TRAIN_STEP = {"sam_window_relpos_attn": 28, "sam_global_relpos_attn": 4,
                   "flash_prefill_fwd": 64, "flash_bwd_dq": 32,
                   "flash_bwd_dkv": 32}
+# The paths each kernel is expected on; the first is the one whose count
+# the kernels line reports as `launches`.
+EXPECTED_ON = {
+    "sam_window_relpos_attn": ("evaluate_bf16", "evaluate_w8a8",
+                               "evaluate_w4a16", "train"),
+    "sam_global_relpos_attn": ("evaluate_bf16", "evaluate_w8a8",
+                               "evaluate_w4a16", "train"),
+    "flash_prefill_fwd": ("evaluate_bf16", "evaluate_w8a8", "evaluate_w4a16",
+                          "train"),
+    "flash_bwd_dq": ("train",),
+    "flash_bwd_dkv": ("train",),
+    "decode_attn": ("evaluate_w8a8", "evaluate_bf16", "evaluate_w4a16"),
+    "w8a8_matmul": ("evaluate_w8a8",),
+    "w4a16_matmul": ("evaluate_w4a16",),
+}
 
 
 def log(*a):
@@ -293,6 +320,171 @@ def check_flash_bwd(gen):
     return recs
 
 
+def check_w8a8(gen):
+    """The w8a8 product at a prefill, a decode, the lm_head and a SAM
+    encoder shape. The float32 output must equal the plain version's bit
+    for bit (the int32 sum is exact); the record's numbers are the
+    prefill shape's, the others are listed under `shapes`. Library:
+    torch._int_mm on the same int8 operands (M padded to 32 and N to a
+    multiple of 8 outside the timed call, as it requires) + the rescale."""
+    from haff_tpu_torch.nn import quant
+
+    dev, bf = "cuda", torch.bfloat16
+    shapes = []
+    for what, m, k, n in (("prefill", 1150, 4096, 4096),
+                          ("decode", 2, 4096, 4096),
+                          ("lm_head", 1150, 4096, 32004),
+                          ("sam qkv", 9800, 1280, 3840)):
+        x = torch.randn(m, k, generator=gen, device=dev).to(bf)
+        w = torch.randn(n, k, generator=gen, device=dev) * k ** -0.5
+        q, sw = quant.quantize_kernel(w)
+        del w
+        xq, sx = quant.quantize_activation(x)
+        sx = sx[:, 0].contiguous()
+        exact = quant.int8_matmul_plain(xq, q, sx, sw, torch.float32)
+        if not torch.equal(quant.int8_matmul_kernel(xq, q, sx, sw,
+                                                    torch.float32), exact):
+            raise AssertionError(f"w8a8_matmul {what}: float32 output differs "
+                                 "from the exact int32 product")
+        out = quant.int8_matmul_kernel(xq, q, sx, sw, bf)
+        err = within_bf16(f"w8a8_matmul {what}", out, exact)
+        del exact
+        iters = 20 if m * n * k < 3e10 else 5
+        kern = cuda_ms(lambda: quant.int8_matmul_kernel(xq, q, sx, sw, bf),
+                       iters)
+        plain = cuda_ms(lambda: quant.int8_matmul_plain(xq, q, sx, sw, bf), 3, 1)
+        mp, np_ = max(32, -(-m // 8) * 8), -(-n // 8) * 8
+        xq_p = torch.zeros(mp, k, dtype=torch.int8, device=dev)
+        xq_p[:m] = xq
+        q_p = torch.zeros(np_, k, dtype=torch.int8, device=dev)
+        q_p[:n] = q
+        sx_p = torch.ones(mp, 1, device=dev)
+        sx_p[:m, 0] = sx
+        sw_p = torch.ones(np_, device=dev)
+        sw_p[:n] = sw
+        lib_fn = lambda: (torch._int_mm(xq_p, q_p.T).float() * sx_p  # noqa: E731
+                          * sw_p).to(bf)
+        lib_err = float((lib_fn()[:m, :n].float() - out.float()).abs().max())
+        lib = cuda_ms(lib_fn, iters)
+        b_ms, by = bound_ms(nbytes(xq, q, sx, sw, out), 2.0 * m * n * k,
+                            H100_INT8_OPS)
+        shapes.append(dict(what=what, shape=f"xq ({m}, {k}) int8, w ({n}, {k}) "
+                           "int8 -> bf16", max_abs_err=err, ms=kern,
+                           plain_ms=plain, bound_ms=b_ms, bound_by=by,
+                           library_ms=lib, library_max_abs_diff=lib_err))
+        del x, q, xq, out, xq_p, q_p
+        torch.cuda.empty_cache()
+    main = shapes[0]
+    return dict(name="w8a8_matmul", route="cuda",
+                source="haff_tpu_torch/kernels/csrc/w8a8_matmul.cu",
+                replaces="haff_tpu/nn/quant.py:68", shape=main["shape"],
+                max_abs_err=max(r["max_abs_err"] for r in shapes),
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"], shapes=shapes)
+
+
+def check_w4a16(gen):
+    """The w4a16 product at the decode shape of the widest LLaMA-7B layer
+    (M = 2) and at the largest M the kernel takes (256). Library: the
+    dequantize + torch.matmul route (int4_matmul_dequant)."""
+    from haff_tpu_torch.nn import quant
+
+    dev, bf, group = "cuda", torch.bfloat16, 64
+    k, n = 4096, 11008
+    w = torch.randn(n, k, generator=gen, device=dev) * k ** -0.5
+    packed, sc = quant.quantize_kernel_int4(w, group)
+    del w
+    wd = quant.dequantize_kernel_int4(packed, sc, group, bf).float()
+    shapes = []
+    for m in (2, 256):
+        x = torch.randn(m, k, generator=gen, device=dev).to(bf)
+        out = quant.int4_matmul_kernel(x, packed, sc, group, bf)
+        # Same rounded weight, float32 accumulation, unrounded sum.
+        err = within_bf16(f"w4a16_matmul M={m}", out, x.float() @ wd.T)
+        kern = cuda_ms(lambda: quant.int4_matmul_kernel(x, packed, sc, group,
+                                                        bf), 20)
+        plain = cuda_ms(lambda: quant.int4_matmul_plain(x, packed, sc, group,
+                                                        bf), 5)
+        lib = cuda_ms(lambda: quant.int4_matmul_dequant(x, packed, sc, group,
+                                                        bf), 5)
+        b_ms, by = bound_ms(nbytes(x, packed, sc, out), 2.0 * m * n * k)
+        shapes.append(dict(shape=f"x ({m}, {k}) bf16, packed ({n}, {k // 2}) "
+                           f"uint8, group {group}", max_abs_err=err, ms=kern,
+                           plain_ms=plain, bound_ms=b_ms, bound_by=by,
+                           library_ms=lib))
+    main = shapes[0]
+    return dict(name="w4a16_matmul", route="cuda",
+                source="haff_tpu_torch/kernels/csrc/w4a16_matmul.cu",
+                replaces="haff_tpu/nn/quant.py:134", shape=main["shape"],
+                max_abs_err=max(r["max_abs_err"] for r in shapes),
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"], shapes=shapes)
+
+
+def check_decode(gen):
+    """Decode attention at LLaMA-7B's shape with 591 cache slots (575
+    spliced + 16 new), an int8 and a bf16 cache, ragged live lengths: row
+    0 nearly full, row 1 a single live slot. The bound counts the live
+    slots only. Library: SDPA over the dequantized cache laid out
+    (B, nh, L, hd) with a boolean key mask, prepared outside the timed
+    call. The record's numbers are the int8 cache's."""
+    from haff_tpu_torch.kernels import decode_attention as da
+    from haff_tpu_torch.nn import quant
+
+    b, lmax, nh, hd = 2, 591, 32, 128
+    dev, bf = "cuda", torch.bfloat16
+    q = (0.5 * torch.randn(b, nh, hd, generator=gen, device=dev)).to(bf)
+    kf = 0.5 * torch.randn(b, lmax, nh, hd, generator=gen, device=dev)
+    vf = torch.randn(b, lmax, nh, hd, generator=gen, device=dev)
+    shapes = []
+    for kind, lengths in (("int8", (590, 1)), ("bf16", (590, 1)),
+                          ("int8", (590, 590))):
+        if kind == "int8":
+            k, v = quant.quantize_activation(kf), quant.quantize_activation(vf)
+            per_slot = 2 * nh * (hd + 4)
+        else:
+            k, v = kf.to(bf), vf.to(bf)
+            per_slot = 2 * nh * hd * 2
+        mask = (torch.arange(lmax, device=dev)[None]
+                < torch.tensor(lengths, device=dev)[:, None]).to(torch.int32)
+        scale = hd ** -0.5
+        out = da.decode_attention_kernel(q, k, v, mask, scale)
+        ref = da.decode_attention_plain(q.float(), k, v, mask, scale)
+        err = within_bf16(f"decode_attn {kind}", out, ref)
+        kern = cuda_ms(lambda: da.decode_attention_kernel(q, k, v, mask,
+                                                          scale), 50)
+        plain = cuda_ms(lambda: da.decode_attention_plain(q, k, v, mask,
+                                                          scale), 10)
+        kd, vd = (da.dequantize_cache(c).to(bf).transpose(1, 2) for c in (k, v))
+        key_mask = (mask > 0)[:, None, None, :]
+        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], kd, vd, attn_mask=key_mask, scale=scale), 50)
+        live = int(mask.sum())
+        b_ms, by = bound_ms(live * per_slot + nbytes(q, mask, out),
+                            4.0 * hd * nh * live)
+        shapes.append(dict(shape=f"q {tuple(q.shape)} bf16, {kind} cache "
+                           f"{(b, lmax, nh, hd)}, live {list(lengths)}",
+                           max_abs_err=err, ms=kern, plain_ms=plain,
+                           bound_ms=b_ms, bound_by=by, library_ms=lib))
+    # A row with no live slot gives 0, not NaN.
+    mask = torch.zeros(b, lmax, dtype=torch.int32, device=dev)
+    mask[0, :7] = 1
+    out = da.decode_attention_kernel(q, kf.to(bf), vf.to(bf), mask, hd ** -0.5)
+    if out[1].abs().max() != 0 or not torch.isfinite(out.float()).all():
+        raise AssertionError("decode_attn: a row without live slots is not 0")
+    main = shapes[0]
+    return dict(name="decode_attn", route="cuda",
+                source="haff_tpu_torch/kernels/csrc/decode_attn.cu",
+                replaces="haff_tpu/kernels/decode_attention.py:41",
+                shape=main["shape"],
+                max_abs_err=max(r["max_abs_err"] for r in shapes),
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"], shapes=shapes)
+
+
 def make_requests(cfg, batch, prompt_len, seed):
     """Seeded, already-preprocessed requests (bench_e2e.py's recipe)."""
     from haff_tpu_torch.core.config import IMAGE_TOKEN_INDEX
@@ -308,9 +500,28 @@ def make_requests(cfg, batch, prompt_len, seed):
             rng.randn(batch, C, C, 3).astype(np.float32), ids, attn)
 
 
-def check_tiny_against_cpu():
+def quantize_for(model, mode, group=64):
+    """Quantize `model` in place for a serving mode: "w8a8" (the
+    whole-model int8 serving set) or "w4a16" (packed-int4 LLM
+    projections); "bf16" leaves it as it is. Returns the predicate."""
+    from haff_tpu_torch.nn import quant
+
+    if mode == "bf16":
+        return None
+    pred = (quant.lisa_serving_predicate if mode == "w8a8"
+            else quant.default_llm_predicate)
+    quant.quantize_model_(model, pred, bits=8 if mode == "w8a8" else 4,
+                          group=group)
+    return pred
+
+
+def check_tiny_against_cpu(mode="bf16"):
+    """evaluate() at tiny in float32, card (kernels) against CPU (plain
+    versions) from the same weights; quantized modes quantize each model
+    in place on its own device and must reach identical integers."""
     from haff_tpu_torch.core.config import ModelConfig
     from haff_tpu_torch.infer.evaluate import evaluate_fn
+    from haff_tpu_torch.kernels import _build
     from haff_tpu_torch.model.lisa import LisaModel
 
     cfg = ModelConfig.preset("tiny")
@@ -318,27 +529,68 @@ def check_tiny_against_cpu():
                     generator=torch.Generator("cuda").manual_seed(1))
     cpu = LisaModel(cfg, torch.float32, device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    for model in (gpu, cpu):  # tiny widths divide by 16, not by 64
+        quantize_for(model, mode, group=16)
+    sd_gpu, sd_cpu = gpu.state_dict(), cpu.state_dict()
+    if set(sd_gpu) != set(sd_cpu) or any(
+            not torch.equal(v.cpu(), sd_cpu[k]) for k, v in sd_gpu.items()):
+        raise AssertionError(f"tiny {mode}: quantizing on the card and on the "
+                             "CPU gave different weights")
     req = make_requests(cfg, 2, 24, seed=3)
     req[3][1, 20:] = 0  # right-padded second request
-    got = evaluate_fn(gpu, *req, max_new_tokens=8, eos_id=2)
-    ref = evaluate_fn(cpu, *req, max_new_tokens=8, eos_id=2)
+    kw = dict(max_new_tokens=8, eos_id=2, kv_cache_8bit=mode == "w8a8")
+    before = dict(_build.LAUNCHES)
+    got = evaluate_fn(gpu, *req, **kw)
+    ran = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+           if v != before.get(k, 0)}
+    product = {"w8a8": "w8a8_matmul", "w4a16": "w4a16_matmul"}.get(mode)
+    if product and not ran.get(product):
+        raise AssertionError(f"tiny {mode}: {product} never launched: {ran}")
+    ref = evaluate_fn(cpu, *req, **kw)
     if not (torch.equal(got.output_ids.cpu(), ref.output_ids)
             and torch.equal(got.gen_lengths.cpu(), ref.gen_lengths)):
-        raise AssertionError(f"tiny: tokens differ {got.output_ids.tolist()} "
-                             f"vs {ref.output_ids.tolist()}")
+        raise AssertionError(f"tiny {mode}: tokens differ "
+                             f"{got.output_ids.tolist()} vs "
+                             f"{ref.output_ids.tolist()}")
     worst = 0.0
     for key in ("pred_masks_left", "pred_masks_right", "taxonomies"):
         g, r = getattr(got, key).cpu(), getattr(ref, key)
         torch.testing.assert_close(g, r, rtol=1e-3, atol=1e-3)
         worst = max(worst, float((g - r).abs().max()))
-    log(f"tiny: card (kernels, f32) vs CPU (plain, f32): tokens identical "
-        f"{got.output_ids.tolist()}, masks/taxonomy max abs err {worst:.3g}")
+    log(f"tiny {mode}: card (kernels, f32) vs CPU (plain, f32): tokens "
+        f"identical {got.output_ids.tolist()}, masks/taxonomy max abs err "
+        f"{worst:.3g}; launches {ran}")
 
 
-def run_slice(launches):
+def product_launches(model, mode, new_tokens):
+    """Launches of the quantized product's kernel in one evaluate(),
+    derived from the model: each quantized LLM layer runs once a forward
+    (prefill + new_tokens - 1 decode steps; the w4a16 kernel takes the
+    decode steps only, prefill dequantizes), each quantized SAM layer once,
+    a windowed block's qkv twice (column-split into q and kv)."""
+    from haff_tpu_torch.nn.layers import QDense
+
+    def count(root):
+        return sum(isinstance(m, QDense) and m.quantized
+                   for m in root.modules())
+
+    llm = count(model.llm)
+    if mode == "w4a16":
+        return llm * (new_tokens - 1)
+    sam = 0
+    for blk in model.visual_model.image_encoder.blocks:
+        sam += count(blk) + (blk.window_size > 0 and blk.attn.qkv.quantized)
+    return llm * new_tokens + sam
+
+
+def run_slice(launches, mode="bf16"):
+    """evaluate() at the full 7b preset in one serving mode: "bf16", "w8a8"
+    (int8 weights + int8 KV cache) or "w4a16" (packed-int4 LLM). Returns
+    the launch counts over its 2 evaluate calls."""
     from haff_tpu_torch.core.config import ModelConfig
     from haff_tpu_torch.infer.evaluate import evaluate_fn
     from haff_tpu_torch.model.lisa import LisaModel
+    from haff_tpu_torch.nn.layers import QDense
 
     cfg = ModelConfig.preset("7b")
     t0 = time.perf_counter()
@@ -346,17 +598,46 @@ def run_slice(launches):
                       generator=torch.Generator("cuda").manual_seed(0))
     torch.cuda.synchronize()
     nparam = sum(p.numel() for p in model.parameters())
-    log(f"slice: 7b preset built in {time.perf_counter() - t0:.1f} s, "
+    log(f"slice {mode}: 7b preset built in {time.perf_counter() - t0:.1f} s, "
         f"{nparam / 1e9:.3f} B parameters bf16, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     B, P, T, S = 2, 320, 16, cfg.sam_encoder.image_size
+    expected = dict(PER_EVALUATE, w8a8_matmul=0, w4a16_matmul=0)
+    if mode != "bf16":
+        t0 = time.perf_counter()
+        pred = quantize_for(model, mode)
+        torch.cuda.synchronize()
+        want = torch.int8 if mode == "w8a8" else torch.uint8
+        layers = {n: m for n, m in model.named_modules()
+                  if isinstance(m, QDense)
+                  and pred(tuple(n.split(".")) + ("weight",))}
+        wrong = [n for n, m in layers.items() if m.weight.dtype != want
+                 or m.scale.dtype != torch.float32]
+        stray = [n for n, m in model.named_modules()
+                 if isinstance(m, QDense) and m.quantized and n not in layers]
+        if not layers or wrong or stray:
+            raise AssertionError(f"slice {mode}: {len(layers)} selected "
+                                 f"layers, not quantized {wrong[:5]}, "
+                                 f"quantized unselected {stray[:5]}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = sum(t.numel() * t.element_size() for t in
+                   list(model.parameters()) + list(model.buffers()))
+        product = "w8a8_matmul" if mode == "w8a8" else "w4a16_matmul"
+        expected[product] = product_launches(model, mode, T)
+        log(f"slice {mode}: {len(layers)} layers quantized in place in "
+            f"{time.perf_counter() - t0:.1f} s; weights {held / 2**30:.2f} "
+            f"GiB, allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB; "
+            f"expecting {expected[product]} {product} launches an evaluate")
+    run = lambda req: evaluate_fn(model, *req, max_new_tokens=T,  # noqa: E731
+                                  eos_id=2, kv_cache_8bit=mode == "w8a8")
     torch.cuda.reset_peak_memory_stats()
     launches.clear()  # count the main path's launches only
     for i in range(2):
         req = make_requests(cfg, B, P, seed=i)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = evaluate_fn(model, *req, max_new_tokens=T, eos_id=2)
+        res = run(req)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         shapes = {"output_ids": (B, T), "gen_lengths": (B,),
@@ -368,22 +649,21 @@ def run_slice(launches):
                 raise AssertionError(f"{key} shape {tuple(t.shape)} != {shape}")
             if t.is_floating_point() and not torch.isfinite(t).all():
                 raise AssertionError(f"{key} has non-finite values")
-        for name, per in PER_EVALUATE.items():
+        for name, per in expected.items():
             if launches[name] != per * (i + 1):
-                raise AssertionError(f"{name}: {launches[name]} launches after "
-                                     f"{i + 1} evaluate calls, expected "
-                                     f"{per * (i + 1)}")
-        log(f"slice batch {i}: {B} requests, latency {dt * 1e3:.1f} ms "
+                raise AssertionError(f"{mode}: {name}: {launches[name]} "
+                                     f"launches after {i + 1} evaluate calls, "
+                                     f"expected {per * (i + 1)}")
+        log(f"slice {mode} batch {i}: {B} requests, latency {dt * 1e3:.1f} ms "
             f"(host clock, synchronized), tokens generated "
             f"{int(res.gen_lengths.sum())}, seg_found "
             f"{res.seg_found.tolist()}, taxonomy[0] "
             f"{[round(x, 4) for x in res.taxonomies[0].tolist()]}")
     counts = dict(launches)
-    log(f"slice: launches over 2 evaluate calls {counts}; peak memory "
+    log(f"slice {mode}: launches over 2 evaluate calls {counts}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     req = make_requests(cfg, B, P, seed=2)
-    profile_call("evaluate", lambda: evaluate_fn(model, *req,
-                                                 max_new_tokens=T, eos_id=2))
+    profile_call(f"evaluate {mode}", lambda: run(req))
     return counts
 
 
@@ -619,36 +899,39 @@ def main():
 
     gen = torch.Generator("cuda").manual_seed(0)
     kernels = []
-    for check in (check_window, check_global, check_flash, check_flash_bwd):
+    for check in (check_window, check_global, check_flash, check_flash_bwd,
+                  check_decode, check_w8a8, check_w4a16):
         recs = check(gen)
         for rec in recs if isinstance(recs, list) else [recs]:
             kernels.append(rec)
-            log(f"kernel {rec['name']}: {rec['shape']}: max abs err "
-                f"{rec['max_abs_err']:.3g}; kernel {rec['ms']:.4f} ms, plain "
-                f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} "
-                f"ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+            for r in rec.get("shapes", [rec]):
+                log(f"kernel {rec['name']}: {r['shape']}: max abs err "
+                    f"{r['max_abs_err']:.3g}; kernel {r['ms']:.4f} ms, plain "
+                    f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
+                    f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
         torch.cuda.empty_cache()
 
-    check_tiny_against_cpu()
+    for mode in ("bf16", "w8a8", "w4a16"):
+        check_tiny_against_cpu(mode)
     check_tiny_train()
     torch.cuda.empty_cache()
 
-    # Each path is driven with the counts set to 0 just before it; the
-    # serving model is freed before the training one is built.
-    eval_counts = run_slice(_build.LAUNCHES)
-    gc.collect()
-    torch.cuda.empty_cache()
-    train_counts = run_train_slice(_build.LAUNCHES)
+    # Each path is driven with the counts set to 0 just before it and read
+    # just after; each model is freed before the next is built.
+    paths = {}
+    for mode in ("bf16", "w8a8", "w4a16"):
+        paths[f"evaluate_{mode}"] = run_slice(_build.LAUNCHES, mode)
+        gc.collect()
+        torch.cuda.empty_cache()
+    paths["train"] = run_train_slice(_build.LAUNCHES)
     for rec in kernels:
         name = rec["name"]
-        if name in PER_EVALUATE:
-            rec["launches"] = eval_counts.get(name, 0)
-            rec["launches_per_evaluate"] = PER_EVALUATE[name]
-        else:
-            rec["launches"] = train_counts.get(name, 0)
-        rec["launches_per_train_step"] = PER_TRAIN_STEP[name]
-        if rec["launches"] == 0 or train_counts.get(name, 0) == 0:
-            raise AssertionError(f"{name} never launched on its path")
+        rec["launches_by_path"] = {p: paths[p].get(name, 0)
+                                   for p in EXPECTED_ON[name]}
+        rec["launches"] = rec["launches_by_path"][EXPECTED_ON[name][0]]
+        if not any(rec["launches_by_path"].values()):
+            raise AssertionError(f"{name} launched on none of its paths "
+                                 f"{EXPECTED_ON[name]}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

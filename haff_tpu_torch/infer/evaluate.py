@@ -31,12 +31,13 @@ class EvaluateResult(NamedTuple):
 
 @torch.inference_mode()
 def evaluate_fn(model: LisaModel, images_sam, images_clip, input_ids,
-                attention_mask, max_new_tokens: int,
-                eos_id: int) -> EvaluateResult:
+                attention_mask, max_new_tokens: int, eos_id: int,
+                kv_cache_8bit: bool = False) -> EvaluateResult:
     """images_sam (B, S, S, 3) and images_clip (B, C, C, 3) preprocessed
     NHWC; input_ids (B, L) with IMAGE_TOKEN_INDEX; attention_mask (B, L),
     1 = real token (right padding). Inputs (tensors or numpy) are moved to
-    the model's device; the result stays there."""
+    the model's device; the result stays there. `kv_cache_8bit` decodes
+    over an int8 KV cache."""
     cfg = model.cfg
     dev = model.device
     as_t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
@@ -51,7 +52,7 @@ def evaluate_fn(model: LisaModel, images_sam, images_clip, input_ids,
     gen = greedy_generate(
         cfg.llama, model.embed_tokens, model.llm_forward, sp.embeds,
         sp.positions, sp.segment_ids, sp.segment_ids.sum(dim=1),
-        max_new_tokens, eos_id)
+        max_new_tokens, eos_id, kv_cache_8bit=kv_cache_8bit)
 
     # [SEG] gather: the hidden state that emitted the first [SEG].
     steps = torch.arange(max_new_tokens, device=dev)[None, :]

@@ -15,6 +15,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..core.config import LlamaConfig
+from ..nn.quant import QuantArray
 
 
 class GenerateResult(NamedTuple):
@@ -27,19 +28,29 @@ class GenerateResult(NamedTuple):
 def greedy_generate(cfg: LlamaConfig, embed_fn: Callable, llm_fn: Callable,
                     prompt_embeds, prompt_positions, prompt_segment_ids,
                     prompt_lengths, max_new_tokens: int, eos_id: int,
-                    cache_dtype=torch.bfloat16) -> GenerateResult:
+                    cache_dtype=torch.bfloat16,
+                    kv_cache_8bit: bool = False) -> GenerateResult:
     """embed_fn(tokens (B, 1)) -> (B, 1, E); llm_fn(embeds, positions,
     segment_ids, kv_caches, cache_index, cache_kv_segment_ids) ->
     (logits, hidden, kv_caches). prompt_*: spliced prompt (B, L, ...);
     prompt_lengths (B,) real token counts. The caches are updated in
-    place. The cache dtype defaults to bfloat16 as in the JAX package."""
+    place. The cache dtype defaults to bfloat16 as in the JAX package;
+    `kv_cache_8bit` stores it as int8 with per token-head float32 scales
+    (nn/quant.QuantArray) instead."""
     b, l, _ = prompt_embeds.shape
     dev = prompt_embeds.device
     max_len = l + max_new_tokens
     shape = (b, max_len, cfg.num_kv_heads, cfg.head_dim)
-    caches = [(torch.zeros(shape, dtype=cache_dtype, device=dev),
-               torch.zeros(shape, dtype=cache_dtype, device=dev))
-              for _ in range(cfg.num_layers)]
+
+    def one_cache():
+        if kv_cache_8bit:
+            return QuantArray(
+                torch.zeros(shape, dtype=torch.int8, device=dev),
+                torch.ones(shape[:-1] + (1,), dtype=torch.float32,
+                           device=dev))
+        return torch.zeros(shape, dtype=cache_dtype, device=dev)
+
+    caches = [(one_cache(), one_cache()) for _ in range(cfg.num_layers)]
     lengths = prompt_lengths.long()
     logits, hidden, caches = llm_fn(
         prompt_embeds, prompt_positions, prompt_segment_ids, caches,

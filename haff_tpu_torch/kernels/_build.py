@@ -34,7 +34,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "haff_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Sources in csrc/ that are kernels (each one its own library).
-SOURCES = ("sam_window_attn", "sam_global_attn", "flash_prefill", "flash_bwd")
+SOURCES = ("sam_window_attn", "sam_global_attn", "flash_prefill", "flash_bwd",
+           "decode_attn", "w8a8_matmul", "w4a16_matmul")
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
 
@@ -121,6 +122,20 @@ def check(err: int, name: str) -> None:
     """Raise if a kernel's C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+def check_operand(name: str, what: str, t, dtype, shape) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor of `dtype` and `shape`:
+    a kernel reads its operands through raw pointers."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: {what} must be a CUDA tensor")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: {what} dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: {what} shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: {what} must be contiguous")
 
 
 def stream_handle(device) -> ctypes.c_void_p:

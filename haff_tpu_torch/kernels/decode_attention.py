@@ -1,0 +1,127 @@
+"""Decode attention: one token's queries over a ragged KV cache that is
+float or int8 (port of haff_tpu/kernels/decode_attention.py).
+
+`flash_decode_attention` -> csrc/decode_attn.cu (`decode_attn`),
+replacing the Pallas streaming kernel `_make_kernel`. On the card every
+decode step goes through the kernel, at any cache length and head
+geometry with head_dim <= 128 and nh % nkv == 0; CPU tensors take
+`decode_attention_plain`, with no fallback between the two.
+
+An int8 cache is a pair of `nn.quant.QuantArray`s: int8 values
+(B, Lmax, nkv, hd) with float32 scales (B, Lmax, nkv, 1), one per
+token-head. Kernel and plain version dequantize as the Pallas kernel
+does, int8 times the float32 scale with no rounding to the query's dtype,
+and give 0 for a row with no live slot.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Union
+
+import torch
+
+from ..nn.quant import QuantArray
+from . import _build
+
+_DECODE = "decode_attn"
+Cache = Union[torch.Tensor, QuantArray]
+# The kernel's code for the cache's storage type.
+_KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def dequantize_cache(c: Cache):
+    """A cache as float32: int8 values times their float32 scales, with
+    no rounding in between."""
+    if isinstance(c, QuantArray):
+        return c.values.float() * c.scales.float()
+    return c.float()
+
+
+def decode_attention_plain(q, k_cache: Cache, v_cache: Cache, kv_mask,
+                           sm_scale: float):
+    """q (B, nh, hd) over caches (B, Lmax, nkv, hd) (tensors or
+    QuantArrays) with kv_mask (B, Lmax), > 0 = live slot. float32 softmax
+    over the live slots; a row with none gives 0. Returns (B, nh, hd) in
+    q's dtype."""
+    nh = q.shape[1]
+    k, v = dequantize_cache(k_cache), dequantize_cache(v_cache)
+    nkv = k.shape[2]
+    if nkv != nh:
+        k = k.repeat_interleave(nh // nkv, dim=2)
+        v = v.repeat_interleave(nh // nkv, dim=2)
+    live = (kv_mask > 0)[:, None, :]
+    s = torch.einsum("bnd,blnd->bnl", q.float() * sm_scale, k)
+    s = s.masked_fill(~live, -torch.inf)
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m)  # masked slots: exp(-inf) = 0
+    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return torch.einsum("bnl,blnd->bnd", p / denom, v).to(q.dtype)
+
+
+def _lib():
+    fn = _build.library(_DECODE).decode_attn
+    if fn.argtypes is None:
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
+                       ctypes.c_float, i32, i32, vp]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def decode_attention_kernel(q, k_cache: Cache, v_cache: Cache, kv_mask,
+                            sm_scale: float):
+    """Launch csrc/decode_attn.cu. Forward only: raises when grad mode is
+    on and an input requires grad."""
+    quant = isinstance(k_cache, QuantArray)
+    if quant != isinstance(v_cache, QuantArray):
+        raise TypeError(f"{_DECODE}: k and v caches of different kinds")
+    kv, vv = (k_cache.values, v_cache.values) if quant else (k_cache, v_cache)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, kv, vv)):
+        raise RuntimeError(
+            f"{_DECODE}: the CUDA kernel is forward-only, and an input "
+            "requires grad; decode under torch.no_grad()")
+    b, nh, hd = q.shape
+    lmax, nkv = kv.shape[1], kv.shape[2]
+    if hd > 128 or nkv == 0 or nh % nkv:
+        raise ValueError(f"{_DECODE}: nh={nh} nkv={nkv} hd={hd}; need "
+                         "hd <= 128 and nh % nkv == 0")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{_DECODE}: q dtype {q.dtype}; need bfloat16 or "
+                        "float32")
+    if kv.dtype not in _KV_CODES or quant != (kv.dtype == torch.int8):
+        raise TypeError(f"{_DECODE}: cache dtype {kv.dtype}; need float32 or "
+                        "bfloat16 tensors, or int8 QuantArrays")
+    check = _build.check_operand
+    check(_DECODE, "q", q, q.dtype, (b, nh, hd))
+    check(_DECODE, "k cache", kv, kv.dtype, (b, lmax, nkv, hd))
+    check(_DECODE, "v cache", vv, kv.dtype, (b, lmax, nkv, hd))
+    ks = vs = None
+    if quant:
+        ks, vs = k_cache.scales, v_cache.scales
+        check(_DECODE, "k scales", ks, torch.float32, (b, lmax, nkv, 1))
+        check(_DECODE, "v scales", vs, torch.float32, (b, lmax, nkv, 1))
+    mask = kv_mask.to(torch.int32).contiguous()
+    check(_DECODE, "kv_mask", mask, torch.int32, (b, lmax))
+    out = torch.empty_like(q)
+    if b and nh:
+        ptr = _build.ptr
+        err = _lib()(ptr(q), ptr(kv), ptr(vv), ptr(ks), ptr(vs), ptr(mask),
+                     ptr(out), b, lmax, nh, nkv, hd, float(sm_scale),
+                     int(q.dtype == torch.bfloat16), _KV_CODES[kv.dtype],
+                     _build.stream_handle(q.device))
+        _build.LAUNCHES[_DECODE] += 1
+        _build.check(err, _DECODE)
+    return out
+
+
+def flash_decode_attention(q, k_cache: Cache, v_cache: Cache, kv_mask,
+                           sm_scale: Optional[float] = None):
+    """q (B, nh, hd), one decode step's queries; k/v_cache
+    (B, Lmax, nkv, hd) tensors, or QuantArrays with (B, Lmax, nkv, 1)
+    scales; kv_mask (B, Lmax), 1 = live slot. Returns (B, nh, hd)."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    run = decode_attention_kernel if q.is_cuda else decode_attention_plain
+    return run(q, k_cache, v_cache, kv_mask, sm_scale)

@@ -1,4 +1,4 @@
-"""Shared small modules (port of haff_tpu/nn/layers.py, float path).
+"""Shared small modules (port of haff_tpu/nn/layers.py).
 
 Spatial tensors are NHWC at module boundaries, as in the JAX package;
 convolutions permute to NCHW inside. Parameters are stored in the model's
@@ -14,29 +14,91 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import quant
+
 
 class QDense(nn.Linear):
-    """Dense layer with the JAX `QDense` float-path call: the input is cast
-    to the weight's dtype, and `out_split` returns a tuple of outputs, each
-    an independent product with a contiguous row block of the one weight
-    (a column split of the JAX kernel), so the checkpoint layout is that of
-    the fused layer. With `compute_dtype` set, input, weight and bias are
-    all cast to it."""
+    """Dense layer with the JAX `QDense` call. Float weight: the input is
+    cast to the weight's dtype, and `out_split` returns a tuple of
+    outputs, each an independent product with a contiguous row block of
+    the one weight (a column split of the JAX kernel), so the checkpoint
+    layout is that of the fused layer. With `compute_dtype` set, input,
+    weight and bias are all cast to it.
+
+    Quantized (after `quantize_`, `nn.quant.quantize_model_` or a bridged
+    quantized tree): `weight` is a buffer, int8 (out, in) with `scale`
+    (out,) -> the W8A8 product `quant.int8_matmul`, or packed uint8
+    (out, in/2) with `scale` (out, in/group) -> the W4A16 product
+    `quant.int4_matmul`. The bias is added after, in the compute dtype
+    (the float weight's dtype when the layer was quantized), and
+    `out_split` slices weight, scale and bias by output row. `scale`
+    stays float32 through `.to(dtype)` and `.half()`-style casts."""
 
     compute_dtype = None
 
-    def forward(self, x, out_split=None):
+    @property
+    def quantized(self) -> bool:
+        return not self.weight.dtype.is_floating_point
+
+    def set_quantized_(self, weight, scale):
+        """Replace the float weight parameter by the buffers `weight`
+        (int8 or packed uint8) and `scale` (float32)."""
+        if weight.dtype not in (torch.int8, torch.uint8):
+            raise TypeError(f"quantized weight dtype {weight.dtype}")
+        if not self.quantized:
+            if self.compute_dtype is None:
+                self.compute_dtype = self.weight.dtype
+            del self._parameters["weight"]
+        self.register_buffer("weight", weight)
+        self.register_buffer("scale", scale.float())
+        return self
+
+    @torch.no_grad()
+    def quantize_(self, bits: int = 8, group: int = 64):
+        """Quantize this layer's float weight in place: int8, or packed
+        int4 where bits == 4 and in_features divides by `group`."""
+        if bits == 4 and self.in_features % group == 0:
+            q, s = quant.quantize_kernel_int4(self.weight, group)
+        else:
+            q, s = quant.quantize_kernel(self.weight)
+        return self.set_quantized_(q, s)
+
+    def _apply(self, fn, recurse=True):
+        # A dtype cast of the module (model.to(bfloat16)) must not round
+        # the float32 scales: keep their bits, follow the device only.
+        scale = self._buffers.get("scale")
+        super()._apply(fn, recurse)
+        if scale is not None:
+            moved = self._buffers["scale"]
+            if moved.dtype != torch.float32:
+                self._buffers["scale"] = scale.to(moved.device)
+        return self
+
+    def _dot(self, x, lo, hi):
+        """x @ weight[lo:hi].T + bias[lo:hi] in the compute dtype."""
+        whole = lo == 0 and hi == self.out_features
+        rows = (lambda t: t) if whole else (lambda t: t[lo:hi])
         dt = self.compute_dtype or self.weight.dtype
-        x, weight = x.to(dt), self.weight.to(dt)
-        bias = None if self.bias is None else self.bias.to(dt)
+        bias = None if self.bias is None else rows(self.bias).to(dt)
+        if not self.quantized:
+            return F.linear(x.to(dt), rows(self.weight).to(dt), bias)
+        weight, scale = rows(self.weight), rows(self.scale)
+        if weight.dtype == torch.int8:
+            y = quant.int8_matmul(x.to(dt), weight, scale, dtype=dt)
+        else:
+            y = quant.int4_matmul(x.to(dt), weight, scale,
+                                  group=self.in_features // scale.shape[-1],
+                                  dtype=dt)
+        return y if bias is None else y + bias
+
+    def forward(self, x, out_split=None):
         if out_split is None:
-            return F.linear(x, weight, bias)
+            return self._dot(x, 0, self.out_features)
         if sum(out_split) != self.out_features:
             raise ValueError(f"out_split {out_split} != {self.out_features}")
         outs, off = [], 0
         for w in out_split:
-            b = None if bias is None else bias[off:off + w]
-            outs.append(F.linear(x, weight[off:off + w], b))
+            outs.append(self._dot(x, off, off + w))
             off += w
         return tuple(outs)
 

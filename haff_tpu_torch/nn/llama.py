@@ -2,10 +2,10 @@
 
 RMSNorm and rotate-half RoPE in float32, causal prefill through the
 flash-prefill kernel (kernels/flash_attention.py), single-token decode
-over a ragged per-row KV cache in plain PyTorch (the JAX package's
-`_xla_path` of kernels/decode_attention.py, which is what it runs at
-serving lengths). The post-final-norm hidden states are returned beside
-the logits: the [SEG] gather needs them.
+over a ragged per-row KV cache, bfloat16 or int8 with per token-head
+scales, through the decode-attention kernel
+(kernels/decode_attention.py). The post-final-norm hidden states are
+returned beside the logits: the [SEG] gather needs them.
 
 Training mode: a `dropout_seed` turns LoRA input dropout on (each
 projection's mask is seeded from it, the layer index and the projection,
@@ -22,9 +22,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.config import LlamaConfig
+from ..kernels.decode_attention import flash_decode_attention
 from ..kernels.flash_attention import flash_attention
 from .layers import QDense
 from .lora import LoraDense, fold_in
+from .quant import QuantArray, quantize_activation
 
 _PROJ_IDS = {"q_proj": 0, "k_proj": 1, "v_proj": 2, "o_proj": 3}
 
@@ -59,23 +61,6 @@ def apply_rope(x, positions, table):
     x1, x2 = x[..., :d2].float(), x[..., d2:].float()
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
-
-
-def decode_attention(q, k_cache, v_cache, kv_mask, sm_scale=None):
-    """One decode step: q (B, nh, hd) over caches (B, Lmax, nkv, hd) with
-    kv_mask (B, Lmax), 1 = live slot. float32 softmax; returns (B, nh, hd)
-    in q's dtype (JAX decode_attention `_xla_path`)."""
-    b, nh, hd = q.shape
-    if sm_scale is None:
-        sm_scale = hd ** -0.5
-    nkv = k_cache.shape[2]
-    if nkv != nh:
-        k_cache = k_cache.repeat_interleave(nh // nkv, dim=2)
-        v_cache = v_cache.repeat_interleave(nh // nkv, dim=2)
-    s = torch.einsum("bnd,blnd->bnl", q.float() * sm_scale, k_cache.float())
-    s = s.masked_fill(kv_mask[:, None, :] <= 0, -torch.inf)
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bnl,blnd->bnd", p, v_cache.float()).to(q.dtype)
 
 
 class LlamaAttention(nn.Module):
@@ -113,7 +98,8 @@ class LlamaAttention(nn.Module):
         the L inputs, and, given a cache, their k/v written in place at
         per-row offsets `cache_index` (B,). Decode (L == 1, cache and
         cache_kv_segment_ids given; the mask includes the slot just
-        written): attention over the live cache slots. `dropout_seed`
+        written): attention over the live cache slots. A cache is a pair
+        of tensors, or of QuantArrays (int8). `dropout_seed`
         (training) turns LoRA dropout on. Returns (out, kv_cache)."""
         cfg = self.cfg
         b, l, _ = x.shape
@@ -133,15 +119,24 @@ class LlamaAttention(nn.Module):
             rows = torch.arange(b, device=x.device)[:, None]
             cols = cache_index.long()[:, None] + torch.arange(
                 l, device=x.device)[None, :]
-            ck[rows, cols] = k.to(ck.dtype)
-            cv[rows, cols] = v.to(cv.dtype)
+            if isinstance(ck, QuantArray):
+                # int8 cache: each fresh token-head quantized over head_dim,
+                # values and scales written at the same slots.
+                for cache, fresh in ((ck, k), (cv, v)):
+                    qa = quantize_activation(fresh)
+                    cache.values[rows, cols] = qa.values
+                    cache.scales[rows, cols] = qa.scales
+            else:
+                ck[rows, cols] = k.to(ck.dtype)
+                cv[rows, cols] = v.to(cv.dtype)
 
         if kv_cache is not None and cache_kv_segment_ids is not None:
             if l != 1:
                 raise NotImplementedError(
                     "multi-token cache attention (speculative verify) is "
                     "not ported yet")
-            out = decode_attention(q[:, 0], ck, cv, cache_kv_segment_ids)[:, None]
+            out = flash_decode_attention(q[:, 0].contiguous(), ck, cv,
+                                         cache_kv_segment_ids)[:, None]
         else:
             if nkv != nh:
                 k = k.repeat_interleave(nh // nkv, dim=2)

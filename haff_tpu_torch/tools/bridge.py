@@ -16,6 +16,12 @@ kernels HWIO become OIHW; flax ConvTranspose(transpose_kernel=True)
 kernels (kh, kw, out, in) become ConvTranspose2d weights (in, out, kh,
 kw) (the inverse of haff_tpu/tools/convert_weights.py t_convT);
 LayerNorm `scale` and Embed `embedding` become `weight`.
+
+A tree that `quantize_dense_tree` made loads too: a Dense scope with an
+int8 `kernel` (in, out) and `scale` (out,), or a packed uint8 `kernel`
+(in/2, out) and `scale` (in/group, out), becomes the quantized `QDense`
+buffers `weight` (out, in) / (out, in/2) and `scale` (out,) /
+(out, in/group), integer dtypes kept.
 """
 
 from __future__ import annotations
@@ -61,13 +67,16 @@ def _flatten(tree: Mapping, prefix=()):
             yield prefix + (k,), v
 
 
-def _torch_name(path) -> str:
+def _torch_name(path, dense_scale: bool = False) -> str:
+    """`dense_scale`: the leaf is the `scale` beside a quantized Dense
+    `kernel` (kept as `scale`), not a LayerNorm's (which is its weight)."""
     *scopes, leaf = path
     names = []
     for s in scopes:
         m = _INDEXED.match(s)
         names.append(f"{m.group(1)}.{m.group(2)}" if m else s)
-    if leaf in ("kernel", "scale", "embedding"):
+    if leaf in ("kernel", "embedding") or (leaf == "scale"
+                                           and not dense_scale):
         leaf = "weight"
     return ".".join(names + [leaf])
 
@@ -76,26 +85,43 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     """JAX LisaModel parameter tree -> the port's LisaModel state_dict."""
     if set(params) == {"params"}:
         params = params["params"]
+    leaves = dict(_flatten(params))
     sd = {}
-    for path, value in _flatten(params):
+    for path, value in leaves.items():
         arr = np.asarray(value)
         if np.issubdtype(arr.dtype, np.floating):
             arr = arr.astype(np.float32)
-        if path[-1] == "kernel":
+        dense_scale = (path[-1] == "scale"
+                       and path[:-1] + ("kernel",) in leaves)
+        if path[-1] == "kernel" or (dense_scale and arr.ndim == 2):
             if arr.ndim == 2:
                 arr = arr.T
             elif arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)
             else:
                 raise ValueError(f"kernel {'/'.join(path)} of rank {arr.ndim}")
-        sd[_torch_name(path)] = torch.from_numpy(np.ascontiguousarray(arr))
+        sd[_torch_name(path, dense_scale)] = torch.from_numpy(
+            np.ascontiguousarray(arr))
     return sd
 
 
 def load_jax_params(model: torch.nn.Module, params) -> torch.nn.Module:
     """Load a JAX parameter tree, or the path of an export .npz, into the
-    port's model (strict: every parameter must be matched)."""
+    port's model (strict: every parameter must be matched). A `QDense`
+    whose weight arrives quantized (int8 or packed uint8, with its
+    `scale`) is switched to its quantized form first."""
     if isinstance(params, str):
         params = load_npz(params)
-    model.load_state_dict(flax_to_state_dict(params), strict=True)
+    sd = flax_to_state_dict(params)
+    modules = dict(model.named_modules())
+    for name, scale in sd.items():
+        prefix, _, leaf = name.rpartition(".")
+        weight = sd.get(prefix + ".weight")
+        mod = modules.get(prefix)
+        if (leaf == "scale" and weight is not None
+                and not weight.dtype.is_floating_point
+                and hasattr(mod, "set_quantized_")):
+            dev = mod.weight.device
+            mod.set_quantized_(weight.to(dev), scale.to(dev))
+    model.load_state_dict(sd, strict=True)
     return model

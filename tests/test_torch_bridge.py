@@ -159,3 +159,67 @@ def test_lora_tree_loads_strict():
                 got[f"llm.model.layers.1.self_attn.{proj}.{leaf}"].numpy(),
                 attn[proj][leaf])
     assert "llm.model.layers.1.self_attn.k_proj.lora_a" not in got
+
+
+@pytest.mark.parametrize("bits,predicate,group", [
+    (8, "lisa_serving_predicate", 64), (4, "default_llm_predicate", 16)])
+def test_quantized_tree_loads_strict_and_equals_in_place_quantization(
+        bits, predicate, group):
+    """A tree `quantize_dense_tree` made loads strictly: int8 (in, out) /
+    packed uint8 (in/2, out) kernels and their scales arrive transposed
+    with their dtypes kept, a LayerNorm's `scale` still becomes `weight`;
+    and quantizing the port's float model in place gives the same
+    state_dict bit for bit."""
+    from haff_tpu.nn import quant as jq
+    from haff_tpu_torch.nn import quant as tq
+
+    _, params = jax_tiny_params()
+    qtree = jax.tree_util.tree_map(np.asarray, jq.quantize_dense_tree(
+        params, getattr(jq, predicate), bits=bits, group=group))
+    sd = flax_to_state_dict(qtree)
+    port = port_model(qtree)
+    got = port.state_dict()
+    assert set(got) == set(sd)
+    q = qtree["llm"]["model"]["layers_1"]["mlp"]["down_proj"]
+    name = "llm.model.layers.1.mlp.down_proj"
+    want = np.int8 if bits == 8 else np.uint8
+    assert q["kernel"].dtype == want
+    assert got[name + ".weight"].numpy().dtype == want
+    np.testing.assert_array_equal(got[name + ".weight"].numpy(), q["kernel"].T)
+    assert got[name + ".scale"].dtype == torch.float32
+    np.testing.assert_array_equal(got[name + ".scale"].numpy(), q["scale"].T)
+    assert name + ".weight" not in dict(port.named_parameters())
+    np.testing.assert_array_equal(          # a LayerNorm scale, untouched
+        got["vision_tower.layers.0.layer_norm1.weight"].numpy(),
+        params["vision_tower"]["layers_0"]["layer_norm1"]["scale"])
+    in_place = tq.quantize_model_(port_model(params), getattr(tq, predicate),
+                                  bits=bits, group=group).state_dict()
+    assert set(in_place) == set(got)
+    for k, v in got.items():
+        assert in_place[k].dtype == v.dtype, k
+        assert torch.equal(in_place[k], v), k
+
+
+def test_quantized_tree_into_a_bfloat16_model_keeps_float32_scales():
+    """LisaModel(cfg, bfloat16) casts floating parameters and buffers; the
+    bridged scales stay float32 and the integer weights stay integer."""
+    from haff_tpu.nn import quant as jq
+
+    _, params = jax_tiny_params()
+    qtree = jax.tree_util.tree_map(np.asarray, jq.quantize_dense_tree(
+        params, jq.lisa_serving_predicate, bits=8))
+    port = load_jax_params(
+        LisaModel(ModelConfig.preset("tiny"), torch.bfloat16, device="cpu"),
+        qtree)
+    port.to(torch.bfloat16)
+    sd = port.state_dict()
+    name = "visual_model.image_encoder.blocks.0.attn.qkv"
+    assert sd[name + ".weight"].dtype == torch.int8
+    assert sd[name + ".scale"].dtype == torch.float32
+    np.testing.assert_array_equal(
+        sd[name + ".scale"].numpy(),
+        qtree["visual_model"]["image_encoder"]["blocks_0"]["attn"]["qkv"][
+            "scale"])
+    assert sd[name + ".bias"].dtype == torch.bfloat16
+    assert port.visual_model.image_encoder.blocks[0].attn.qkv.compute_dtype \
+        == torch.bfloat16

@@ -7,15 +7,20 @@ Each kernel runs on bf16 (and float32) inputs and is compared with the
 plain version evaluated in float32 on the same input values. The kernel
 computes in float32 too, so they differ by the output rounding (half a
 bf16 ulp, 2^-8 relative) and summation order: tolerance
-|err| <= 1e-3 + 2^-7 |ref| for bf16, 1e-4 + 1e-4 |ref| for float32.
+|err| <= 1e-3 + 2^-7 |ref| for bf16, 1e-4 + 1e-4 |ref| for float32. The
+w8a8 product is exact in int32, so its float32 output must equal the
+plain version's bit for bit.
 """
 
 import pytest
 import torch
 
 from haff_tpu_torch.kernels import _build
+from haff_tpu_torch.kernels import decode_attention as da
 from haff_tpu_torch.kernels import flash_attention as fa
 from haff_tpu_torch.kernels import sam_attention as sa
+from haff_tpu_torch.nn import quant
+from haff_tpu_torch.nn.layers import QDense
 
 pytestmark = pytest.mark.cuda
 
@@ -177,3 +182,168 @@ def test_flash_attention_autograd_on_the_card(dev):
                                                  True)[0], (q, k, v), go)
     for a, r in zip(got, ref):
         _close(a, r)
+
+
+# ----- quantized products and decode attention -----
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [
+    (1, 64, 1), (2, 4096, 4096), (2, 100, 7), (16, 37, 33), (17, 64, 130),
+    (256, 1280, 7), (300, 52, 65), (2, 4096, 32004), (1150, 128, 32004),
+    (9800, 1280, 3840), (129, 11008, 64)])
+def test_w8a8_kernel_matches_plain(dev, dtype, m, k, n):
+    g = torch.Generator(dev).manual_seed(m * 7 + k + n)
+    x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+    w = torch.randn(n, k, generator=g, device=dev) * k ** -0.5
+    q, s = quant.quantize_kernel(w)
+    before = _build.LAUNCHES["w8a8_matmul"]
+    got = quant.int8_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["w8a8_matmul"] == before + 1
+    assert got.dtype == dtype and got.shape == (m, n)
+    xq, s_x = quant.quantize_activation(x)
+    exact = quant.int8_matmul_plain(xq, q, s_x[:, 0], s, torch.float32)
+    if dtype == torch.float32:
+        assert torch.equal(got, exact)
+    else:
+        _close(got, exact)
+
+
+def test_w8a8_kernel_on_an_unaligned_row_block(dev):
+    """An out_split piece starting at a row whose byte offset is not a
+    multiple of 16 (K = 40, row 3) takes the byte-load path."""
+    g = torch.Generator(dev).manual_seed(5)
+    x = torch.randn(20, 40, generator=g, device=dev)
+    q, s = quant.quantize_kernel(torch.randn(50, 40, generator=g, device=dev))
+    got = quant.int8_matmul(x, q[3:], s[3:])
+    xq, s_x = quant.quantize_activation(x)
+    assert torch.equal(got, quant.int8_matmul_plain(xq, q[3:], s_x[:, 0],
+                                                    s[3:], torch.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n,group", [
+    (1, 64, 1, 64), (2, 4096, 4096, 64), (2, 4096, 11008, 64),
+    (2, 11008, 4096, 64), (2, 4096, 32004, 64), (3, 48, 7, 16),
+    (5, 2080, 33, 32), (256, 1280, 7, 128), (256, 4096, 1024, 64)])
+def test_w4a16_kernel_matches_plain(dev, dtype, m, k, n, group):
+    g = torch.Generator(dev).manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+    w = torch.randn(n, k, generator=g, device=dev) * k ** -0.5
+    packed, s = quant.quantize_kernel_int4(w, group)
+    before = _build.LAUNCHES["w4a16_matmul"]
+    got = quant.int4_matmul(x, packed, s, group)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["w4a16_matmul"] == before + 1
+    assert got.dtype == dtype and got.shape == (m, n)
+    # Same rounded weight and inputs, float32 accumulation, unrounded sum.
+    wd = quant.dequantize_kernel_int4(packed, s, group, dtype).float()
+    _close(got, x.float() @ wd.T)
+
+
+def test_w4a16_large_m_and_odd_groups_take_the_dequant_route(dev):
+    g = torch.Generator(dev).manual_seed(9)
+    w = torch.randn(24, 96, generator=g, device=dev)
+    before = _build.LAUNCHES["w4a16_matmul"]
+    for m, group in ((257, 32), (4, 8), (4, 24)):
+        packed, s = quant.quantize_kernel_int4(w, group)
+        x = torch.randn(m, 96, generator=g, device=dev)
+        got = quant.int4_matmul(x, packed, s, group)
+        ref = x @ quant.dequantize_kernel_int4(packed, s, group,
+                                               torch.float32).T
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    assert _build.LAUNCHES["w4a16_matmul"] == before
+
+
+@pytest.mark.parametrize("qdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("b,lmax,nh,nkv,hd", [
+    (2, 591, 32, 32, 128), (3, 5, 4, 4, 16), (2, 70, 8, 2, 32),
+    (2, 1500, 16, 4, 80), (1, 33, 4, 1, 128)])
+def test_decode_kernel_matches_plain(dev, qdtype, kind, b, lmax, nh, nkv, hd):
+    g = torch.Generator(dev).manual_seed(lmax + hd)
+    q = (0.5 * torch.randn(b, nh, hd, generator=g, device=dev)).to(qdtype)
+    k = 0.5 * torch.randn(b, lmax, nkv, hd, generator=g, device=dev)
+    v = torch.randn(b, lmax, nkv, hd, generator=g, device=dev)
+    if kind == "int8":
+        k, v = quant.quantize_activation(k), quant.quantize_activation(v)
+    elif kind == "bf16":
+        k, v = k.bfloat16(), v.bfloat16()
+    lengths = torch.tensor([lmax, 1, max(lmax // 2, 1)][:b], device=dev)
+    mask = (torch.arange(lmax, device=dev)[None] < lengths[:, None]).int()
+    mask[0, lmax // 3] = 0  # a hole: live slots need not be a prefix
+    before = _build.LAUNCHES["decode_attn"]
+    got = da.flash_decode_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["decode_attn"] == before + 1
+    ref = da.decode_attention_plain(q.float(), k, v, mask, hd ** -0.5)
+    assert got.dtype == qdtype
+    _close(got, ref)
+
+
+def test_decode_kernel_gives_zero_for_a_row_without_live_slots(dev):
+    g = torch.Generator(dev).manual_seed(1)
+    q = torch.randn(2, 4, 32, generator=g, device=dev)
+    k = torch.randn(2, 40, 4, 32, generator=g, device=dev)
+    mask = torch.ones(2, 40, dtype=torch.int32, device=dev)
+    mask[1] = 0
+    got = da.flash_decode_attention(q, k, k, mask)
+    assert torch.isfinite(got).all() and not got[1].any() and got[0].any()
+
+
+def test_quantized_wrappers_refuse_grad_and_bad_operands(dev):
+    x = torch.randn(2, 64, device=dev, requires_grad=True)
+    q, s = quant.quantize_kernel(torch.randn(8, 64, device=dev))
+    with pytest.raises(RuntimeError):
+        quant.int8_matmul(x, q, s)
+    packed, s4 = quant.quantize_kernel_int4(torch.randn(8, 64, device=dev), 16)
+    with pytest.raises(RuntimeError):
+        quant.int4_matmul(x, packed, s4, 16)
+    kv = torch.randn(2, 5, 2, 32, device=dev)
+    with pytest.raises(RuntimeError):
+        da.flash_decode_attention(torch.randn(2, 2, 32, device=dev,
+                                              requires_grad=True), kv, kv,
+                                  torch.ones(2, 5, device=dev))
+    with torch.no_grad():
+        with pytest.raises(TypeError):
+            quant.int8_matmul(x.half(), q, s)
+        with pytest.raises(ValueError):
+            da.flash_decode_attention(torch.randn(2, 2, 256, device=dev),
+                                      torch.randn(2, 5, 2, 256, device=dev),
+                                      torch.randn(2, 5, 2, 256, device=dev),
+                                      torch.ones(2, 5, device=dev))
+
+
+@pytest.mark.parametrize("bits,group", [(8, 64), (4, 16)])
+def test_quantized_qdense_on_the_card_matches_the_cpu(dev, bits, group):
+    """A quantized QDense (bias, 3-D input, out_split) on the card, through
+    the kernels, against the same layer on the CPU (plain versions)."""
+    g = torch.Generator().manual_seed(bits)
+    cpu = QDense(64, 48)
+    with torch.no_grad():
+        cpu.weight.copy_(torch.randn(48, 64, generator=g) / 8)
+        cpu.bias.copy_(torch.randn(48, generator=g))
+    cpu.quantize_(bits, group)
+    gpu = QDense(64, 48)
+    gpu.set_quantized_(cpu.weight.clone(), cpu.scale.clone())
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.to(dev)
+    x = torch.randn(2, 5, 64, generator=g)
+    with torch.no_grad():
+        ref = cpu(x, out_split=(16, 32))
+        got = gpu(x.to(dev), out_split=(16, 32))
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a.cpu(), r, rtol=1e-5, atol=1e-5)
+
+
+def test_quantizers_on_the_card_equal_the_cpu_bit_for_bit(dev):
+    """The quantization arithmetic is IEEE float32 on both devices (a
+    division by a Python scalar would not be, on the card)."""
+    g = torch.Generator().manual_seed(11)
+    w = torch.randn(96, 256, generator=g) / 16
+    x = torch.randn(4, 7, 256, generator=g)
+    for fn, arg in ((quant.quantize_kernel, w),
+                    (lambda t: quant.quantize_kernel_int4(t, 64), w),
+                    (quant.quantize_activation, x)):
+        for a, r in zip(fn(arg.to(dev)), fn(arg)):
+            assert a.dtype == r.dtype and torch.equal(a.cpu(), r)

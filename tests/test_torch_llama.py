@@ -22,7 +22,9 @@ from haff_tpu.nn.llama import LlamaForCausalLM as JaxLlama
 from haff_tpu_torch.core.config import ModelConfig
 from haff_tpu_torch.infer.generate import greedy_generate
 from haff_tpu_torch.nn.clip_vit import ClipVisionTower
-from haff_tpu_torch.nn.llama import LlamaForCausalLM, decode_attention
+from haff_tpu_torch.kernels.decode_attention import \
+    flash_decode_attention as decode_attention
+from haff_tpu_torch.nn.llama import LlamaForCausalLM
 from haff_tpu_torch.tools.bridge import flax_to_state_dict
 from test_torch_bridge import random_like
 
