@@ -7,12 +7,19 @@ Phases (any failure raises and exits non-zero):
 1. device: requires CUDA; prints the card (nvidia-smi name, power limit).
 2. build: compiles haff_tpu_torch/kernels/csrc/*.cu (one nvcc per source,
    in parallel) and prints build seconds and ptxas register/smem use.
-3. kernels: each of the eight hand-written kernels against its plain
-   PyTorch version at the shapes the 7b preset gives it (evaluate(), the
-   quantized evaluates and the train step), in bfloat16, compared in
-   float32 (the w8a8 product also in float32, bit for bit); times the
-   kernel, the plain version and one PyTorch library call computing the
-   same function (CUDA events, after warm-up).
+3. kernels: each hand-written kernel against its plain PyTorch version
+   at the shapes its path gives it (the 7b preset's evaluate(), quantized
+   evaluates and train step; SAM ViT-B and the small preset for the
+   predictor; the audit's shapes for the fused-operand and per-head SAM
+   entries; 2048^3 for the matmul probe), in bfloat16, compared in
+   float32 (the integer products bit for bit); times the kernel, the
+   plain version and one PyTorch library call computing the same function
+   (CUDA events, after warm-up).
+3b. backward: the SAM attention entries' gradients at ViT-H shapes against
+   autograd through the plain version, the global entry's rel-pos tables
+   exactly zero; then the ViT-H image encoder alone, forward and backward
+   at batch 1 in bfloat16 with remat: finite gradients on every parameter
+   but the global blocks' tables, exact launch counts, time, peak memory.
 4. tiny: evaluate() at the tiny preset in float32 on the card (kernels)
    against the same weights on the CPU (plain versions), three times:
    float weights, int8 weights with the int8 KV cache, and packed-int4
@@ -21,6 +28,10 @@ Phases (any failure raises and exits non-zero):
    on the card against the CPU from the same weights and batch: every
    trainable gradient, 3 steps' metrics and the updated trainable
    parameters within 1e-3, frozen parameters bit-identical.
+5b. small: evaluate() at the small preset with the trained weights of
+   artifacts/overfit_small_params.npz on the card against the CPU
+   (identical tokens, masks within 1e-3), and 3 train steps with the SAM
+   encoder unfrozen on the card against the CPU within 1e-3.
 6. slice: evaluate() at the full 7b preset (LLaMA-7B, CLIP ViT-L/14,
    SAM ViT-H) in bfloat16 with seeded random weights, 2 batches of 2
    requests (prompt 320, 16 new tokens); checks shapes, finiteness and the
@@ -38,6 +49,17 @@ Phases (any failure raises and exits non-zero):
    on one batch: finite losses, falling loss, frozen weights unchanged,
    trainable ones changed, per-step launch counts; prints step time and
    peak memory; profiles one step.
+
+9. predictor slice: SamPredictor over SAM ViT-B at full width and depth
+   (bfloat16, seeded random weights) on a seeded 720 x 1280 frame:
+   set_image, a point and a box prompt, a 64-point predict_batch and the
+   automatic mask generator at 16 points a side; shapes, finiteness,
+   masks at the original resolution, exactly 8 windowed and 4 global
+   launches per set_image and none in the decodes; prints latencies and
+   peak memory, profiles one set_image. The same predictor at tiny on the
+   card against the CPU (logits within 1e-3).
+10. audit and bench: tools/kernel_audit.py in-process (every check must
+   pass) and tools/bench_kernels.py int8probe.
 
 Prints a {"kernels": [...]} JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Needs no network; the weights are random.
@@ -69,13 +91,28 @@ PER_EVALUATE = {"sam_window_relpos_attn": 28, "sam_global_relpos_attn": 4,
 PER_TRAIN_STEP = {"sam_window_relpos_attn": 28, "sam_global_relpos_attn": 4,
                   "flash_prefill_fwd": 64, "flash_bwd_dq": 32,
                   "flash_bwd_dkv": 32}
+# Launches per SamPredictor.set_image at SAM ViT-B: 8 windowed and 4 global
+# blocks; the prompt decodes launch none of the SAM kernels.
+PER_SET_IMAGE = {"sam_window_relpos_attn": 8, "sam_global_relpos_attn": 4}
+# Launches of one ViT-H encoder forward + backward with remat: each block's
+# forward runs twice.
+PER_ENCODER_BACKWARD = {"sam_window_relpos_attn": 56,
+                        "sam_global_relpos_attn": 8}
 # The paths each kernel is expected on; the first is the one whose count
 # the kernels line reports as `launches`.
 EXPECTED_ON = {
     "sam_window_relpos_attn": ("evaluate_bf16", "evaluate_w8a8",
-                               "evaluate_w4a16", "train"),
+                               "evaluate_w4a16", "train", "encoder_backward"),
     "sam_global_relpos_attn": ("evaluate_bf16", "evaluate_w8a8",
-                               "evaluate_w4a16", "train"),
+                               "evaluate_w4a16", "train", "encoder_backward",
+                               "predictor_vit_b", "small"),
+    # The split window entry at the geometries of the TPU head-loop kernel
+    # (counted under the split entry's key, on the paths that run it there).
+    "sam_window_relpos_attn/vit_b": ("predictor_vit_b", "small"),
+    "sam_window_relpos_attn_fused": ("audit", "predictor_tiny"),
+    "sam_global_relpos_attn_heads": ("audit",),
+    "sam_window_relpos_attn_heads": ("audit",),
+    "matmul_probe": ("bench",),
     "flash_prefill_fwd": ("evaluate_bf16", "evaluate_w8a8", "evaluate_w4a16",
                           "train"),
     "flash_bwd_dq": ("train",),
@@ -133,78 +170,6 @@ def within_bf16(name, got, ref):
         raise AssertionError(f"{name}: {bad} elements outside tolerance, "
                              f"max abs err {float(err.max())}")
     return float(err.max())
-
-
-def check_window(gen):
-    from haff_tpu_torch.kernels import sam_attention as sa
-
-    # ViT-H windowed block at batch 1: 5 x 5 windows of 14 x 14 tokens,
-    # 16 heads x 80.
-    nwin, w, nh, d = 25, 14, 16, 80
-    c, l = nh * d, w * w
-    dev, bf = "cuda", torch.bfloat16
-    q3 = torch.randn(nwin, l, c, generator=gen, device=dev).to(bf)
-    kv3 = torch.randn(nwin, l, 2 * c, generator=gen, device=dev).to(bf)
-    rh = 0.1 * torch.randn(2 * w - 1, d, generator=gen, device=dev)
-    rw = 0.1 * torch.randn(2 * w - 1, d, generator=gen, device=dev)
-    args = ((w, w), nh, d ** -0.5)
-    out = sa.window_attention_kernel(q3, kv3, rh, rw, *args)
-    ref = sa.window_attention_plain(q3.float(), kv3.float(), rh, rw, *args)
-    err = within_bf16("sam_window_relpos_attn", out, ref)
-    kern = cuda_ms(lambda: sa.window_attention_kernel(q3, kv3, rh, rw, *args), 20)
-    plain = cuda_ms(lambda: sa.window_attention_plain(q3, kv3, rh.to(bf),
-                                                      rw.to(bf), *args), 10)
-    q = q3.reshape(nwin, l, nh, d).transpose(1, 2)
-    kv = kv3.reshape(nwin, l, 2, nh, d)
-    k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
-    bias = sa.decomposed_rel_pos_bias(q3.reshape(nwin, l, nh, d), rh, rw,
-                                      (w, w), (w, w)).to(bf)
-    lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, attn_mask=bias, scale=d ** -0.5), 20)
-    flops = nwin * nh * (4 * l * l * d + 2 * l * 2 * w * d)
-    b_ms, by = bound_ms(nbytes(q3, kv3, rh, rw, out), flops)
-    return dict(name="sam_window_relpos_attn", route="cuda",
-                source="haff_tpu_torch/kernels/csrc/sam_window_attn.cu",
-                replaces="haff_tpu/kernels/sam_attention.py:558",
-                shape=f"q3 {tuple(q3.shape)} kv3 {tuple(kv3.shape)} bf16",
-                max_abs_err=err, ms=kern, plain_ms=plain, bound_ms=b_ms,
-                bound_by=by, library_ms=lib)
-
-
-def check_global(gen):
-    from haff_tpu_torch.kernels import sam_attention as sa
-
-    # ViT-H global block at batch 1: 64 x 64 tokens, 16 heads x 80.
-    H = W = 64
-    nh, d = 16, 80
-    c, l = nh * d, H * W
-    dev, bf = "cuda", torch.bfloat16
-    qkv = torch.randn(1, l, 3 * c, generator=gen, device=dev).to(bf)
-    rh = 0.1 * torch.randn(2 * H - 1, d, generator=gen, device=dev)
-    rw = 0.1 * torch.randn(2 * W - 1, d, generator=gen, device=dev)
-    args = ((H, W), nh, d ** -0.5)
-    out = sa.global_attention_kernel(qkv, rh, rw, *args)
-    ref = sa.global_attention_plain(qkv.float(), rh, rw, *args)
-    err = within_bf16("sam_global_relpos_attn", out, ref)
-    del ref
-    kern = cuda_ms(lambda: sa.global_attention_kernel(qkv, rh, rw, *args), 5)
-    plain = cuda_ms(lambda: sa.global_attention_plain(qkv, rh.to(bf),
-                                                      rw.to(bf), *args), 3, 1)
-    q5 = qkv.reshape(1, l, 3, nh, d)
-    q, k, v = (q5[:, :, i].transpose(1, 2) for i in range(3))
-    bias = sa.decomposed_rel_pos_bias(q5[:, :, 0], rh, rw, (H, W),
-                                      (H, W)).to(bf)
-    lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, attn_mask=bias, scale=d ** -0.5), 5)
-    del bias
-    flops = nh * (4 * l * l * d + 2 * l * (H + W) * d)
-    b_ms, by = bound_ms(nbytes(qkv, rh, rw, out), flops)
-    return dict(name="sam_global_relpos_attn", route="cuda",
-                source="haff_tpu_torch/kernels/csrc/sam_global_attn.cu",
-                replaces="haff_tpu/kernels/sam_attention.py:1150",
-                shape=f"qkv {tuple(qkv.shape)} bf16 (1, 4096, 16, 80)",
-                max_abs_err=err, ms=kern, plain_ms=plain, bound_ms=b_ms,
-                bound_by=by, library_ms=lib)
 
 
 def check_flash(gen):
@@ -483,6 +448,479 @@ def check_decode(gen):
                 ms=main["ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
                 library_ms=main["library_ms"], shapes=shapes)
+
+
+def sam_case(gen, scope, entry, b, hw, nh, d, iters):
+    """One SAM attention entry (`scope` "window" or "global"; `entry`
+    "split", "fused" or "heads") at one shape in bf16: error against the
+    plain version on the float32 values, kernel / plain / SDPA + bias
+    times, and the bound. The operands of the split and per-head entries
+    are separate contiguous tensors, as their callers hold them."""
+    from haff_tpu_torch.kernels import sam_attention as sa
+
+    H, W = hw
+    l, c = H * W, nh * d
+    dev, bf = "cuda", torch.bfloat16
+    qkv = torch.randn(b, l, 3 * c, generator=gen, device=dev).to(bf)
+    rh = 0.1 * torch.randn(2 * H - 1, d, generator=gen, device=dev)
+    rw = 0.1 * torch.randn(2 * W - 1, d, generator=gen, device=dev)
+    q, k, v = (sa.head_view(qkv, 3, i, nh).contiguous() for i in range(3))
+    if entry == "fused":
+        fn = (sa.sam_window_attention_qkv if scope == "window"
+              else sa.sam_global_attention_qkv)
+        run, held = (lambda: fn(qkv, rh, rw, hw, nh)), (qkv,)
+    elif entry == "split":
+        q3, kv3 = qkv[..., :c].contiguous(), qkv[..., c:].contiguous()
+        run = lambda: sa.sam_window_attention_qkv_split(  # noqa: E731
+            q3, kv3, rh, rw, hw, nh)
+        held = (q3, kv3)
+    else:
+        fn = (sa.sam_window_attention if scope == "window"
+              else sa.sam_global_attention)
+        run, held = (lambda: fn(q, k, v, rh, rw, hw)), (q, k, v)
+    name = f"sam {scope} {entry} {(b, l, nh, d)} grid {hw}"
+    with torch.no_grad():
+        out = run()
+        ref = sa.global_attention_plain(qkv.float(), rh, rw, hw, nh, d ** -0.5)
+        err = within_bf16(name, out.reshape(b, l, c), ref)
+        del ref
+        kern = cuda_ms(run, iters)
+        plain = cuda_ms(lambda: sa.global_attention_plain(
+            qkv, rh.to(bf), rw.to(bf), hw, nh, d ** -0.5), max(iters // 2, 2), 1)
+        bias = sa.decomposed_rel_pos_bias(q, rh, rw, hw, hw).to(bf)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=bias, scale=d ** -0.5), iters)
+    flops = b * nh * (4 * l * l * d + 2 * l * (H + W) * d)
+    b_ms, by = bound_ms(nbytes(*held, rh, rw, out), flops)
+    layout = {"fused": f"qkv {(b, l, 3 * c)}", "split": f"q3 {(b, l, c)} kv3 "
+              f"{(b, l, 2 * c)}", "heads": f"q/k/v {(b, l, nh, d)}"}[entry]
+    return dict(shape=f"{layout} bf16, grid {hw}, {nh} x {d}",
+                max_abs_err=err, ms=kern, plain_ms=plain, bound_ms=b_ms,
+                bound_by=by, library_ms=lib)
+
+
+def record(name, source, replaces, shapes, **extra):
+    """A kernels-line record whose own numbers are its first shape's."""
+    main = shapes[0]
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                shape=main["shape"],
+                max_abs_err=max(r["max_abs_err"] for r in shapes),
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"], shapes=shapes, **extra)
+
+
+def check_sam_entries(gen):
+    """Every SAM attention entry at its path's shapes: the split window
+    and fused global entries at ViT-H (evaluate(), batch 1: 5 x 5 windows
+    of 14 x 14 and a 64 x 64 grid, 16 heads x 80), the fused-operand
+    window entry (the audit's ViT-H shape and a non-square window), the
+    split entry at ViT-B's and the small preset's geometry, and the two
+    per-head entries. Library: SDPA with the (L, L) bias built outside
+    the timed call."""
+    win = "haff_tpu_torch/kernels/csrc/sam_window_attn.cu"
+    glob = "haff_tpu_torch/kernels/csrc/sam_global_attn.cu"
+    jsa = "haff_tpu/kernels/sam_attention.py"
+    return [
+        record("sam_window_relpos_attn", win, f"{jsa}:558", [
+            sam_case(gen, "window", "split", 25, (14, 14), 16, 80, 20)]),
+        record("sam_global_relpos_attn", glob, f"{jsa}:1150", [
+            sam_case(gen, "global", "fused", 1, (64, 64), 16, 80, 5)]),
+        record("sam_window_relpos_attn_fused", win, f"{jsa}:494", [
+            sam_case(gen, "window", "fused", 25, (14, 14), 16, 80, 20),
+            sam_case(gen, "window", "fused", 25, (14, 12), 16, 80, 20)]),
+        record("sam_window_relpos_attn/vit_b", win, f"{jsa}:451", [
+            sam_case(gen, "window", "split", 25, (14, 14), 12, 64, 20),
+            sam_case(gen, "window", "split", 16, (8, 8), 8, 32, 20)],
+            counter="sam_window_relpos_attn"),
+        record("sam_global_relpos_attn_heads", glob, f"{jsa}:71", [
+            sam_case(gen, "global", "heads", 1, (64, 64), 12, 64, 5)]),
+        record("sam_window_relpos_attn_heads", win, f"{jsa}:249", [
+            sam_case(gen, "window", "heads", 25, (14, 14), 16, 80, 20)]),
+    ]
+
+
+def check_probe(gen):
+    """The bench tool's tiled matmul probe at its 2048^3 shape, int8
+    (exact) and bf16. Library: torch._int_mm / torch.matmul."""
+    from haff_tpu_torch.tools.bench_kernels import (matmul_probe,
+                                                    matmul_probe_plain)
+
+    m = k = n = 2048
+    dev = "cuda"
+    shapes = []
+    for kind, peak in (("int8", H100_INT8_OPS), ("bf16", H100_BF16_FLOPS)):
+        if kind == "int8":
+            a, b = (torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                                  dtype=torch.int8) for _ in range(2))
+            lib_fn = lambda: torch._int_mm(a, b.T)  # noqa: E731
+        else:
+            a, b = (torch.randn(m, k, generator=gen, device=dev).bfloat16()
+                    for _ in range(2))
+            lib_fn = lambda: a @ b.T  # noqa: E731
+        out, ref = matmul_probe(a, b), matmul_probe_plain(a, b)
+        if kind == "int8":
+            if not torch.equal(out, ref):
+                raise AssertionError("matmul_probe int8: not the exact product")
+            err = 0.0
+        else:  # float32 sums of 2048 exact products: summation order only
+            err = float((out - ref).abs().max())
+            if not err <= 1e-4 * k ** 0.5:
+                raise AssertionError(f"matmul_probe bf16: max abs err {err}")
+        kern = cuda_ms(lambda: matmul_probe(a, b), 10)
+        plain = cuda_ms(lambda: matmul_probe_plain(a, b), 3, 1)
+        lib = cuda_ms(lib_fn, 10)
+        b_ms, by = bound_ms(nbytes(a, b, out), 2.0 * m * n * k, peak)
+        shapes.append(dict(shape=f"a ({m}, {k}) @ b ({n}, {k})^T {kind}",
+                           max_abs_err=err, ms=kern, plain_ms=plain,
+                           bound_ms=b_ms, bound_by=by, library_ms=lib))
+    log(f"matmul_probe: int8 / bf16 rate at equal structure "
+        f"{shapes[1]['ms'] / shapes[0]['ms']:.2f}x")
+    return record("matmul_probe",
+                  "haff_tpu_torch/kernels/csrc/matmul_probe.cu",
+                  "tools/bench_kernels.py:652", shapes)
+
+
+def check_sam_backward(gen):
+    """The SAM attention entries under autograd at ViT-H shapes in bf16
+    (kernel forward, plain-torch backward) against autograd through the
+    plain version on the float32 values: q/k/v gradients within one bf16
+    ulp of the leaf's scale; the window entry's rel-pos tables get true
+    gradients, the global entry's exactly zero."""
+    from haff_tpu_torch.kernels import sam_attention as sa
+
+    dev, bf = "cuda", torch.bfloat16
+    nh, d = 16, 80
+    c = nh * d
+    for scope, b, hw in (("window", 25, (14, 14)), ("global", 1, (64, 64))):
+        l = hw[0] * hw[1]
+        qkv = torch.randn(b, l, 3 * c, generator=gen, device=dev).to(bf)
+        rh = 0.1 * torch.randn(2 * hw[0] - 1, d, generator=gen, device=dev)
+        rw = 0.1 * torch.randn(2 * hw[1] - 1, d, generator=gen, device=dev)
+        go = torch.randn(b, l, c, generator=gen, device=dev).to(bf)
+        ins = [t.requires_grad_() for t in (qkv, rh, rw)]
+        fn = (sa.sam_window_attention_qkv if scope == "window"
+              else sa.sam_global_attention_qkv)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = torch.autograd.grad(fn(*ins, hw, nh), ins, go)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        ref_ins = [t.detach().float().requires_grad_() for t in ins]
+        ref = torch.autograd.grad(
+            sa.global_attention_plain(*ref_ins, hw, nh, d ** -0.5), ref_ins,
+            go.float())
+        errs = {}
+        for name, a, r in zip(("qkv", "rel_h", "rel_w"), got, ref):
+            if scope == "global" and name != "qkv":
+                if a.any():
+                    raise AssertionError(f"backward global: {name} gradient "
+                                         "is not exactly zero")
+                errs[name] = 0.0
+                continue
+            err = float((a.float() - r).abs().max())
+            if not err <= 2.0 ** -7 * float(r.abs().max()) + 1e-6:
+                raise AssertionError(f"backward {scope}: d{name} max abs err "
+                                     f"{err} at scale {float(r.abs().max())}")
+            errs[name] = err
+        del ref, ref_ins
+        log(f"backward {scope}: qkv {tuple(qkv.shape)} bf16 grid {hw}: "
+            f"forward + backward {dt * 1e3:.1f} ms (first call); max abs errs "
+            + ", ".join(f"d{k} {v:.3g}" for k, v in errs.items()))
+    torch.cuda.empty_cache()
+
+
+def run_encoder_backward(launches):
+    """The ViT-H image encoder alone, forward and backward at batch 1 in
+    bf16 with remat. Returns the launch counts of one forward + backward."""
+    from haff_tpu_torch.core.config import SamEncoderConfig
+    from haff_tpu_torch.model.lisa import init_random_
+    from haff_tpu_torch.nn.sam_image_encoder import SamImageEncoder
+
+    cfg = SamEncoderConfig.preset("vit_h")
+    enc = SamImageEncoder(cfg).to("cuda", torch.bfloat16)
+    init_random_(enc, torch.Generator("cuda").manual_seed(0))
+    gen = torch.Generator("cuda").manual_seed(1)
+    x = torch.randn(1, cfg.image_size, cfg.image_size, 3, generator=gen,
+                    device="cuda")
+    go = torch.randn(1, cfg.grid_size, cfg.grid_size, cfg.out_chans,
+                     generator=gen, device="cuda")
+    times = []
+    for i in range(2):
+        enc.zero_grad(set_to_none=True)
+        torch.cuda.reset_peak_memory_stats()
+        launches.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (enc(x, remat=True) * go).sum().backward()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = dict(launches)
+        if counts != PER_ENCODER_BACKWARD:
+            raise AssertionError(f"encoder backward: launches {counts}, "
+                                 f"expected {PER_ENCODER_BACKWARD}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    frozen_tables = 0
+    for name, p in enc.named_parameters():
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            raise AssertionError(f"encoder backward: no finite gradient on "
+                                 f"{name}")
+        table = "rel_pos" in name and int(name.split(".")[1]) in \
+            cfg.global_attn_indexes
+        if table:
+            frozen_tables += 1
+        if table == bool(p.grad.any()):
+            raise AssertionError(f"encoder backward: {name} gradient is "
+                                 f"{'not ' if table else ''}zero")
+    nparam = sum(p.numel() for p in enc.parameters())
+    log(f"encoder backward: SAM ViT-H ({nparam / 1e9:.3f} B parameters, bf16, "
+        f"remat), batch 1: forward + backward "
+        f"{[round(t * 1e3, 1) for t in times]} ms (host clock, synchronized), "
+        f"peak memory {peak:.2f} GiB; finite nonzero gradients on every "
+        f"parameter but the {frozen_tables} global rel-pos tables (exact "
+        f"zeros); launches {counts}")
+    return counts
+
+
+def check_small(launches):
+    """The small preset with the trained weights of the committed
+    artifact, float32, card (kernels) against CPU (plain versions):
+    evaluate(), then 3 train steps with the SAM encoder unfrozen. Returns
+    the card's launch counts."""
+    import os
+
+    from haff_tpu_torch.core.config import ModelConfig, TrainConfig
+    from haff_tpu_torch.infer.evaluate import evaluate_fn
+    from haff_tpu_torch.model.lisa import LisaModel
+    from haff_tpu_torch.tools.bridge import load_jax_params
+    from haff_tpu_torch.train import trainer as T
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "artifacts", "overfit_small_params.npz")
+    cfg = ModelConfig.preset("small")
+    models = {dev: load_jax_params(LisaModel(cfg, torch.float32, device=dev),
+                                   path) for dev in ("cuda", "cpu")}
+    req = make_requests(cfg, 2, 24, seed=3)
+    req[3][1, 20:] = 0
+    launches.clear()
+    got = evaluate_fn(models["cuda"], *req, max_new_tokens=8, eos_id=2)
+    ref = evaluate_fn(models["cpu"], *req, max_new_tokens=8, eos_id=2)
+    if not torch.equal(got.output_ids.cpu(), ref.output_ids):
+        raise AssertionError(f"small: tokens differ {got.output_ids.tolist()} "
+                             f"vs {ref.output_ids.tolist()}")
+    worst = 0.0
+    for key in ("pred_masks_left", "pred_masks_right", "taxonomies"):
+        g, r = getattr(got, key).cpu(), getattr(ref, key)
+        torch.testing.assert_close(g, r, rtol=1e-3, atol=1e-3)
+        worst = max(worst, float((g - r).abs().max()))
+    want = {"sam_window_relpos_attn": 2, "sam_global_relpos_attn": 2}
+    sam = {k: launches[k] for k in want}
+    if sam != want:
+        raise AssertionError(f"small: SAM launches {sam}, expected {want}")
+    log(f"small evaluate: trained weights, card (kernels, f32) vs CPU: tokens "
+        f"identical {got.output_ids.tolist()}, masks/taxonomy max abs err "
+        f"{worst:.3g}; launches {dict(launches)}")
+
+    host_batch = make_train_batch(cfg, 2, 24, seed=5, image_index=[0, 1], pad=5)
+    tcfg = TrainConfig(model=cfg, lr=1e-4, warmup_steps=1, total_steps=20,
+                       grad_accumulation_steps=1)
+    runs = []
+    for dev, model in models.items():
+        batch = host_batch.to(dev)
+        trainable, _ = T.partition_params(model, extra=("image_encoder",))
+        state = T.init_train_state(tcfg, trainable)
+        step = T.make_train_step(model, tcfg)
+        metrics = []
+        for _ in range(3):
+            state, m = step(state, batch, 0)
+            metrics.append({k: float(v) for k, v in m.items()})
+        runs.append((metrics, {k: p.detach().cpu()
+                               for k, p in trainable.items()}))
+    (m_gpu, p_gpu), (m_cpu, p_cpu) = runs
+    for a, r in zip(m_gpu, m_cpu):
+        for k in r:
+            if abs(a[k] - r[k]) > 1e-3 * max(1.0, abs(r[k])):
+                raise AssertionError(f"small train: {k} {a[k]} vs {r[k]}")
+    for k, r in p_cpu.items():
+        torch.testing.assert_close(p_gpu[k], r, rtol=1e-3, atol=1e-3)
+    n_enc = sum("image_encoder" in k for k in p_cpu)
+    log(f"small train: 3 steps with the SAM encoder unfrozen ({n_enc} encoder "
+        f"tensors of {len(p_cpu)} trainable), card vs CPU: losses "
+        f"{[round(m['loss'], 5) for m in m_gpu]} vs "
+        f"{[round(m['loss'], 5) for m in m_cpu]}, grad norms "
+        f"{[round(m['grad_norm'], 4) for m in m_gpu]} vs "
+        f"{[round(m['grad_norm'], 4) for m in m_cpu]}")
+    return dict(launches)
+
+
+def sam_launches(launches):
+    return {k: v for k, v in launches.items() if k.startswith("sam_")}
+
+
+def run_predictor_slice(launches):
+    """SamPredictor over SAM ViT-B (full width and depth, bf16, seeded
+    random weights) on a seeded 720 x 1280 frame. Returns the launch
+    counts of the whole path."""
+    from haff_tpu_torch.core.config import SamDecoderConfig, SamEncoderConfig
+    from haff_tpu_torch.infer.amg import from_predictor
+    from haff_tpu_torch.infer.sam_predictor import SamPredictor
+    from haff_tpu_torch.model.lisa import init_random_
+    from haff_tpu_torch.nn.sam import Sam
+
+    enc_cfg = SamEncoderConfig.preset("vit_b")
+    with torch.device("meta"):
+        sam = Sam(enc_cfg, SamDecoderConfig())
+    sam = sam.to(torch.bfloat16).to_empty(device="cuda")
+    init_random_(sam, torch.Generator("cuda").manual_seed(0))
+    pred = SamPredictor(sam, image_size=enc_cfg.image_size)
+    nparam = sum(p.numel() for p in sam.parameters())
+    H, W = 720, 1280
+    frame = np.random.RandomState(0).randint(0, 256, (H, W, 3)).astype(np.uint8)
+    torch.cuda.reset_peak_memory_stats()
+    launches.clear()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    set_ms = []
+    for i in range(3):
+        _, ms = timed(lambda: pred.set_image(frame))
+        set_ms.append(ms)
+        want = {k: v * (i + 1) for k, v in PER_SET_IMAGE.items()}
+        if sam_launches(launches) != want:
+            raise AssertionError(f"predictor: launches after {i + 1} "
+                                 f"set_image calls {sam_launches(launches)}, "
+                                 f"expected {want}")
+    emb = pred._embedding
+    g = enc_cfg.grid_size
+    if tuple(emb.shape) != (1, g, g, 256) or not emb.is_cuda or \
+            not torch.isfinite(emb).all():
+        raise AssertionError(f"predictor: embedding {tuple(emb.shape)} on "
+                             f"{emb.device}")
+    encoded = sam_launches(launches)
+
+    def check(what, masks, iou, tax, n, n_out, left):
+        lead = (n, n_out) if n else (n_out,)
+        if masks.shape != lead + (H, W) or iou.shape != lead:
+            raise AssertionError(f"predictor {what}: masks {masks.shape}, iou "
+                                 f"{iou.shape}")
+        if not (np.isfinite(masks).all() and np.isfinite(iou).all()):
+            raise AssertionError(f"predictor {what}: non-finite output")
+        if left != (tax is not None):
+            raise AssertionError(f"predictor {what}: taxonomy {tax}")
+        if left and not np.allclose(tax.sum(-1), 1.0, atol=1e-2):
+            raise AssertionError(f"predictor {what}: taxonomy does not sum to 1")
+
+    out, point_ms = timed(lambda: pred.predict(
+        point_coords=np.array([[640.0, 360.0]]), point_labels=np.array([1]),
+        multimask_output=True, return_logits=True, hand="left"))
+    check("point", *out, 0, 3, True)
+    binary = pred.predict(point_coords=np.array([[640.0, 360.0]]),
+                          point_labels=np.array([1]), hand="left")[0]
+    if binary.dtype != bool or not np.array_equal(binary, out[0] > 0):
+        raise AssertionError("predictor: binary masks are not logits > 0")
+    out, box_ms = timed(lambda: pred.predict(
+        box=np.array([200.0, 100.0, 900.0, 600.0]), multimask_output=False,
+        return_logits=True, hand="right"))
+    check("box", *out, 0, 1, False)
+    pts = np.random.RandomState(1).rand(64, 2) * np.array([W, H])
+    batch_ms = []
+    for _ in range(3):
+        out, ms = timed(lambda: pred.predict_batch(
+            pts, multimask_output=True, return_logits=True, hand="left"))
+        batch_ms.append(ms)
+    check("batch", *out, 64, 3, True)
+    del out
+    amg = from_predictor(pred, hand="left", points_per_side=16,
+                         pred_iou_thresh=-1e9, stability_thresh=0.0)
+    records, amg_ms = timed(lambda: amg.generate((H, W)))
+    if not records:
+        raise AssertionError("predictor: the mask generator kept no mask")
+    for r in records:
+        if r["segmentation"]["size"] != [H, W] or r["area"] <= 0 or \
+                sum(r["segmentation"]["counts"]) != H * W:
+            raise AssertionError(f"predictor: bad record {r['bbox']}")
+    if sam_launches(launches) != encoded:
+        raise AssertionError(f"predictor: a prompt decode launched a SAM "
+                             f"attention kernel: {sam_launches(launches)}")
+    counts = dict(launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"predictor: SAM ViT-B ({nparam / 1e6:.1f} M parameters, bf16) on a "
+        f"{H} x {W} frame: set_image {[round(t, 1) for t in set_ms]} ms, "
+        f"point prompt {point_ms:.1f} ms, box prompt {box_ms:.1f} ms, "
+        f"64-prompt decode {[round(t, 1) for t in batch_ms]} ms (masks at "
+        f"{H} x {W} copied to the host), mask generator 16 x 16 points "
+        f"{amg_ms:.1f} ms -> {len(records)} masks after NMS (host clock, "
+        f"synchronized); peak memory {peak:.2f} GiB; launches {counts}")
+    profile_call("set_image vit_b", lambda: pred.set_image(frame))
+    return counts
+
+
+def check_tiny_predictor(launches):
+    """SamPredictor at tiny in float32 on the card (kernels) against the
+    CPU (plain versions): point, box and batch logits within 1e-3. The
+    tiny encoder's 8 x 8 global grid goes through the fused window entry.
+    Returns the card's launch counts."""
+    from haff_tpu_torch.core.config import ModelConfig
+    from haff_tpu_torch.infer.sam_predictor import SamPredictor
+    from haff_tpu_torch.model.lisa import init_random_
+    from haff_tpu_torch.nn.sam import Sam
+
+    cfg = ModelConfig.preset("tiny")
+    gpu = Sam(cfg.sam_encoder, cfg.sam_decoder).to("cuda")
+    init_random_(gpu, torch.Generator("cuda").manual_seed(2))
+    cpu = Sam(cfg.sam_encoder, cfg.sam_decoder)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    S = cfg.sam_encoder.image_size
+    frame = np.random.RandomState(3).randint(0, 256, (60, 90, 3)).astype(np.uint8)
+    pts = np.array([[10.0, 8.0], [32.0, 24.0], [70.0, 50.0]])
+    launches.clear()
+    outs = []
+    for sam, dev in ((gpu, "cuda"), (cpu, "cpu")):
+        pred = SamPredictor(sam, image_size=S, device=dev)
+        pred.set_image(frame)
+        outs.append((
+            pred.predict(point_coords=pts[:1], point_labels=np.array([1]),
+                         return_logits=True, hand="left"),
+            pred.predict(box=np.array([10.0, 10.0, 70.0, 50.0]),
+                         multimask_output=False, return_logits=True,
+                         hand="right"),
+            pred.predict_batch(pts, return_logits=True, hand="left")))
+    counts = dict(launches)
+    worst = 0.0
+    for got, ref in zip(*outs):
+        for g, r in zip(got, ref):
+            if (g is None) != (r is None):
+                raise AssertionError("tiny predictor: taxonomy presence differs")
+            if g is not None:
+                np.testing.assert_allclose(g, r, rtol=1e-3, atol=1e-3)
+                worst = max(worst, float(np.abs(g - r).max()))
+    if counts.get("sam_window_relpos_attn_fused") != 1:
+        raise AssertionError(f"tiny predictor: launches {counts}")
+    log(f"tiny predictor: card (kernels, f32) vs CPU (plain, f32): point, box "
+        f"and batch logits, iou, taxonomy max abs err {worst:.3g}; launches "
+        f"{counts}")
+    return counts
+
+
+def run_tools(launches):
+    """The kernel audit and the int8 probe bench, in-process. Returns the
+    launch counts of each."""
+    from haff_tpu_torch.tools import bench_kernels, kernel_audit
+
+    launches.clear()
+    if kernel_audit.main([]) != 0:
+        raise AssertionError("kernel audit failed")
+    audit = dict(launches)
+    launches.clear()
+    if bench_kernels.main(["int8probe", "--iters", "5"]) != 0:
+        raise AssertionError("bench_kernels int8probe failed")
+    return audit, dict(launches)
 
 
 def make_requests(cfg, batch, prompt_len, seed):
@@ -899,8 +1337,8 @@ def main():
 
     gen = torch.Generator("cuda").manual_seed(0)
     kernels = []
-    for check in (check_window, check_global, check_flash, check_flash_bwd,
-                  check_decode, check_w8a8, check_w4a16):
+    for check in (check_sam_entries, check_flash, check_flash_bwd,
+                  check_decode, check_w8a8, check_w4a16, check_probe):
         recs = check(gen)
         for rec in recs if isinstance(recs, list) else [recs]:
             kernels.append(rec)
@@ -911,6 +1349,7 @@ def main():
                     f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
         torch.cuda.empty_cache()
 
+    check_sam_backward(gen)
     for mode in ("bf16", "w8a8", "w4a16"):
         check_tiny_against_cpu(mode)
     check_tiny_train()
@@ -918,7 +1357,15 @@ def main():
 
     # Each path is driven with the counts set to 0 just before it and read
     # just after; each model is freed before the next is built.
-    paths = {}
+    paths = {"encoder_backward": run_encoder_backward(_build.LAUNCHES)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["small"] = check_small(_build.LAUNCHES)
+    paths["predictor_tiny"] = check_tiny_predictor(_build.LAUNCHES)
+    paths["predictor_vit_b"] = run_predictor_slice(_build.LAUNCHES)
+    paths["audit"], paths["bench"] = run_tools(_build.LAUNCHES)
+    gc.collect()
+    torch.cuda.empty_cache()
     for mode in ("bf16", "w8a8", "w4a16"):
         paths[f"evaluate_{mode}"] = run_slice(_build.LAUNCHES, mode)
         gc.collect()
@@ -926,12 +1373,13 @@ def main():
     paths["train"] = run_train_slice(_build.LAUNCHES)
     for rec in kernels:
         name = rec["name"]
-        rec["launches_by_path"] = {p: paths[p].get(name, 0)
+        counter = rec.get("counter", name)
+        rec["launches_by_path"] = {p: paths[p].get(counter, 0)
                                    for p in EXPECTED_ON[name]}
         rec["launches"] = rec["launches_by_path"][EXPECTED_ON[name][0]]
-        if not any(rec["launches_by_path"].values()):
-            raise AssertionError(f"{name} launched on none of its paths "
-                                 f"{EXPECTED_ON[name]}")
+        if not all(rec["launches_by_path"].values()):
+            raise AssertionError(f"{name} did not launch on every path it is "
+                                 f"expected on: {rec['launches_by_path']}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,14 @@
 // sam_global_relpos_attn: flash-style global attention with the
-// decomposed relative-position bias, for the 4 global blocks of SAM ViT-H
-// (L = 64 x 64 = 4096 tokens).
+// decomposed relative-position bias, for the global blocks of every SAM
+// ViT (L = 64 x 64 = 4096 tokens at ViT-H/L/B) and any grid (H, W); a
+// window too large for sam_window_attn.cu's shared memory runs here as a
+// batch of small grids.
 //
 // Replaces haff_tpu/kernels/sam_attention.py::_global_qkv_kernel
-// (launched by _global_qkv_fwd through sam_global_attention_qkv).
+// (launched by _global_qkv_fwd through sam_global_attention_qkv) and
+// ::_fused_kernel (launched by _fused_fwd through sam_global_attention):
+// one function over the fused projection or per-head operands. The TPU
+// guards (L >= 256 or 1024, W % 8, 128-lane head halves) do not apply.
 //
 // What it computes, per batch b, head h and query i:
 //   s[i, j] = scale * q_i . k_j + Bh[i, row(j)] + Bw[i, col(j)]
@@ -16,8 +21,16 @@
 // online softmax (running max m, sum l, f32 accumulator), the loop that
 // replaces the TPU kernel's sequential key-block grid axis. The (L, L)
 // scores and bias never reach device memory; the block's band rows sit
-// in shared memory. q, k, v are read in place from the fused qkv
-// projection output (B, L, 3C): head h at columns h*d, C + h*d, 2C + h*d.
+// in shared memory.
+//
+// Operands: q, k and v are three base pointers, each with a batch stride
+// and a row stride in elements; element (b, row i, head h, k) lies at
+// base + b * bs + i * rs + h * d + k. The fused projection (B, L, 3C) is
+// read in place (k = qkv + C, v = qkv + 2C, row stride 3C), as are
+// separate per-head (B, L, nh, d) tensors (row stride C). Loads and stores
+// are of one element each, so a pointer needs its element type's alignment
+// only and any row stride is valid. The ragged last query tile and key
+// tile (L not a multiple of 64) are masked.
 //
 // What bounds it on Hopper: ~4*L*L*d FLOPs per (batch, head) against
 // ~4*L*d*2 bytes, i.e. operations by a wide margin (~2000 FLOP/byte).
@@ -34,18 +47,24 @@ constexpr int THREADS = 256;  // 8 warps
 constexpr int MAXD = 128;
 constexpr int ACC = BQ * MAXD / THREADS;  // accumulators per thread
 
+// Batch and row strides of q, k and v, in elements.
+struct Strides {
+  long long q_b, q_row, k_b, k_row, v_b, v_row;
+};
+
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-global_attn_kernel(const T* __restrict__ qkv, const float* __restrict__ band_h,
+global_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const float* __restrict__ band_h,
                    const float* __restrict__ band_w, T* __restrict__ out, int H, int W,
-                   int nh, int d, float scale) {
+                   int nh, int d, Strides st, float scale) {
   using haff::from_f;
   using haff::to_f;
   const int L = H * W;
   const int C = nh * d;
-  const int i0 = blockIdx.x * BQ;
+  const int i0 = blockIdx.z * BQ;
   const int h = blockIdx.y;
-  const long b = blockIdx.z;
+  const long long b = blockIdx.x;  // batch on x: no 65535 limit
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -63,10 +82,12 @@ global_attn_kernel(const T* __restrict__ qkv, const float* __restrict__ band_h,
   float* l_s = m_s + BQ;          // BQ running sum
   float* a_s = l_s + BQ;          // BQ rescale of this tile
 
-  const T* base = qkv + b * L * 3 * C + (long)h * d;
+  const T* qbase = q + b * st.q_b + (long long)h * d;
+  const T* kbase = k + b * st.k_b + (long long)h * d;
+  const T* vbase = v + b * st.v_b + (long long)h * d;
   for (int o = tid; o < BQ * d; o += THREADS) {
-    const int i = o / d, k = o - i * d;
-    Qs[i * dp + k] = (i0 + i < L) ? to_f(base[(long)(i0 + i) * 3 * C + k]) : 0.f;
+    const int i = o / d, c = o - i * d;
+    Qs[i * dp + c] = (i0 + i < L) ? to_f(qbase[(i0 + i) * st.q_row + c]) : 0.f;
   }
   for (int o = tid; o < BQ * H; o += THREADS) {
     const int i = o / H, r = o - i * H;
@@ -87,11 +108,10 @@ global_attn_kernel(const T* __restrict__ qkv, const float* __restrict__ band_h,
   for (int j0 = 0; j0 < L; j0 += BK) {
     __syncthreads();  // previous tile's readers are done with Ks, Vs, S
     for (int o = tid; o < BK * d; o += THREADS) {
-      const int j = o / d, k = o - j * d;
+      const int j = o / d, c = o - j * d;
       const bool ok = j0 + j < L;
-      const long row = (long)(j0 + j) * 3 * C;
-      Ks[o] = ok ? to_f(base[row + C + k]) : 0.f;
-      Vs[o] = ok ? to_f(base[row + 2 * C + k]) : 0.f;
+      Ks[o] = ok ? to_f(kbase[(j0 + j) * st.k_row + c]) : 0.f;
+      Vs[o] = ok ? to_f(vbase[(j0 + j) * st.v_row + c]) : 0.f;
     }
     __syncthreads();
 
@@ -103,7 +123,7 @@ global_attn_kernel(const T* __restrict__ qkv, const float* __restrict__ band_h,
         const float* qi = Qs + i * dp;
         const float* kj = Ks + j * d;
         float dot = 0.f;
-        for (int k = 0; k < d; ++k) dot = fmaf(qi[k], kj[k], dot);
+        for (int c = 0; c < d; ++c) dot = fmaf(qi[c], kj[c], dot);
         s = dot * scale + Bh[i * H + ja / W] + Bw[i * W + ja % W];
       }
       S[j * sp + i] = s;
@@ -162,31 +182,35 @@ size_t smem_bytes(int H, int W, int d) {
 }
 
 template <typename T>
-cudaError_t launch(const void* qkv, const float* band_h, const float* band_w, void* out,
-                   int B, int H, int W, int nh, int d, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, const float* band_h,
+                   const float* band_w, void* out, int B, int H, int W, int nh, int d,
+                   Strides st, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(H, W, d);
   cudaError_t e = haff::allow_smem(global_attn_kernel<T>, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((H * W + BQ - 1) / BQ, nh, B);
+  dim3 grid(B, nh, (H * W + BQ - 1) / BQ);
   global_attn_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(qkv), band_h, band_w, static_cast<T*>(out), H, W, nh, d,
-      scale);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      band_h, band_w, static_cast<T*>(out), H, W, nh, d, st, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Head dim d <= 128 (MAXD); the wrapper checks it.
-extern "C" int sam_global_relpos_attn(const void* qkv, const void* band_h,
-                                      const void* band_w, void* out, int B, int H, int W,
-                                      int nh, int d, float scale, int is_bf16,
-                                      void* stream) {
+extern "C" int sam_global_relpos_attn(const void* q, const void* k, const void* v,
+                                      const void* band_h, const void* band_w, void* out,
+                                      int B, int H, int W, int nh, int d, long long q_b,
+                                      long long q_row, long long k_b, long long k_row,
+                                      long long v_b, long long v_row, float scale,
+                                      int is_bf16, void* stream) {
+  const Strides st{q_b, q_row, k_b, k_row, v_b, v_row};
   const float* bh = static_cast<const float*>(band_h);
   const float* bw = static_cast<const float*>(band_w);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return (int)launch<__nv_bfloat16>(qkv, bh, bw, out, B, H, W, nh, d, scale, s);
-  return (int)launch<float>(qkv, bh, bw, out, B, H, W, nh, d, scale, s);
+    return (int)launch<__nv_bfloat16>(q, k, v, bh, bw, out, B, H, W, nh, d, st, scale, s);
+  return (int)launch<float>(q, k, v, bh, bw, out, B, H, W, nh, d, st, scale, s);
 }
 
 extern "C" size_t sam_global_relpos_attn_smem(int H, int W, int d) {

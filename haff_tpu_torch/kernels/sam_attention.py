@@ -1,20 +1,55 @@
-"""SAM ViT attention with the decomposed relative-position bias: the two
-CUDA kernels' wrappers and their plain PyTorch versions.
+"""SAM ViT attention with the decomposed relative-position bias: the
+wrappers of the two CUDA kernels, their autograd rule and their plain
+PyTorch versions.
 
-Port of haff_tpu/kernels/sam_attention.py for the two kernels on the
-evaluate() path:
+Port of haff_tpu/kernels/sam_attention.py. Its six Pallas kernels compute
+two functions (windowed and global attention with the bias) under
+different operand layouts and lane geometries; the port has one kernel a
+function, reading every layout in place through pointers and strides:
 
-* `sam_window_attention_qkv_split` -> csrc/sam_window_attn.cu
-  (`sam_window_relpos_attn`), replacing `_window_qkv_kernel_db_iband`;
-* `sam_global_attention_qkv` -> csrc/sam_global_attn.cu
-  (`sam_global_relpos_attn`), replacing `_global_qkv_kernel`.
+* csrc/sam_window_attn.cu (`sam_window_relpos_attn`) replaces
+  `_window_qkv_kernel_db_iband`, `_window_qkv_kernel_db`,
+  `_window_qkv_kernel` and `_window_kernel`;
+* csrc/sam_global_attn.cu (`sam_global_relpos_attn`) replaces
+  `_global_qkv_kernel` and `_fused_kernel`.
 
-The public functions take the JAX entry points' arguments. The TPU-only
-artefacts (196 -> 200 tile-pad rows, the -1e30 lane poison, the
-head-half grid) are not part of the port: L is the window area. CPU
-tensors take the plain version (decomposed bias + softmax attention in
-float32, JAX `_window_xla` semantics); CUDA tensors launch the kernel,
-with no fallback between the two.
+The public functions take the JAX entry points' arguments in their order
+(`interpret` and the TPU tile size `block_q` dropped):
+
+=================================  ==========================  =========
+entry                              operands                    LAUNCHES key
+=================================  ==========================  =========
+`sam_window_attention_qkv_split`   q3 (BW, L, C), kv3 (.., 2C)  sam_window_relpos_attn
+`sam_window_attention_qkv`         qkv (BW, L, 3C)              sam_window_relpos_attn_fused
+`sam_window_attention`             q, k, v (BW, L, nh, d)       sam_window_relpos_attn_heads
+`sam_global_attention_qkv`         qkv (B, L, 3C)               sam_global_relpos_attn
+`sam_global_attention`             q, k, v (B, L, nh, d)        sam_global_relpos_attn_heads
+=================================  ==========================  =========
+
+CPU tensors take the plain version (decomposed bias + softmax attention
+in float32, JAX `_window_xla` semantics); CUDA tensors launch the kernel,
+with no fallback between the two. `force_xla=True` or
+`train_rel_pos=True` asks for the plain version under ordinary autograd
+on either device, as in JAX. A window whose keys, values and scores do not
+fit one block's shared memory (above about 16 x 16 at d = 80) goes to the
+global kernel as a batch of small grids. The TPU-only artefacts (196 ->
+200 tile-pad rows, the -1e30 lane poison, head-half grids, group sizes
+dividing the window count, the 128-lane alignment guards) are not part of
+the port: L is the window area and every geometry runs the kernel.
+
+Gradients (`RelPosAttentionFn`): the kernels have no backward kernel, as
+the Pallas ones have none. Window entries take the VJP of the plain
+version recomputed from the saved inputs, reaching q, k, v and both
+rel-pos tables. Global entries take `banded_attention_bwd`, a loop over
+key rows with an O(L * W) working set that never builds an (L, L) tensor;
+it reaches q (through the scores and through the bias), k and v, and
+gives the rel-pos tables zero gradients, but only where the JAX package's
+fused global path runs (`global_tables_frozen`); elsewhere it takes the
+plain version's VJP, with true table gradients.
+
+One numeric difference from the Pallas kernels, inside the stated bf16
+tolerance: they scale q and round it, and round the band tables, to the
+operand dtype before the products; these kernels keep both in float32.
 """
 
 from __future__ import annotations
@@ -28,8 +63,11 @@ import torch
 from . import _build
 from .flash_attention import mha_reference
 
-_WINDOW = "sam_window_relpos_attn"
-_GLOBAL = "sam_global_relpos_attn"
+WINDOW_SPLIT = "sam_window_relpos_attn"
+WINDOW_FUSED = "sam_window_relpos_attn_fused"
+WINDOW_HEADS = "sam_window_relpos_attn_heads"
+GLOBAL_FUSED = "sam_global_relpos_attn"
+GLOBAL_HEADS = "sam_global_relpos_attn_heads"
 _SMEM_LIMIT = 227 * 1024
 
 
@@ -64,47 +102,59 @@ def decomposed_rel_pos_bias(q, rel_pos_h, rel_pos_w, q_hw: Tuple[int, int],
     return bias.reshape(b, nh, q_h * q_w, k_h * k_w)
 
 
+def head_view(t, parts: int, index: int, num_heads: int):
+    """Part `index` of a projection output (B, L, parts * C) as its
+    (B, L, nh, d) view: never a copy (splitting the last axis keeps
+    every other stride, whatever the layout)."""
+    b, l, f = t.shape
+    c = f // parts
+    if f != parts * c or c % num_heads:
+        raise ValueError(f"operand {tuple(t.shape)} is not {parts} x "
+                         f"{num_heads} heads wide")
+    return t.view(b, l, parts, num_heads, c // num_heads)[:, :, index]
+
+
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
 
-def window_attention_plain(q3, kv3, rel_h, rel_w, hw, num_heads, sm_scale):
-    """q3 (BW, L, C), kv3 (BW, L, 2C) with L = hw[0]*hw[1] -> (BW, L, C)."""
-    bw, l, c = q3.shape
-    d = c // num_heads
-    q = q3.reshape(bw, l, num_heads, d)
-    kv = kv3.reshape(bw, l, 2, num_heads, d)
+def relpos_attention_plain(q, k, v, rel_h, rel_w, hw, sm_scale):
+    """Per-head form: q, k, v (B, L, nh, d), L = hw[0]*hw[1] ->
+    (B, L, nh, d). The plain version of all five entries."""
     bias = decomposed_rel_pos_bias(q, rel_h, rel_w, hw, hw)
-    out = mha_reference(q, kv[:, :, 0], kv[:, :, 1], bias=bias,
-                        sm_scale=sm_scale)
-    return out.reshape(bw, l, c)
+    return mha_reference(q, k, v, bias=bias, sm_scale=sm_scale)
+
+
+def window_attention_plain(q3, kv3, rel_h, rel_w, hw, num_heads, sm_scale):
+    """Split form: q3 (BW, L, C), kv3 (BW, L, 2C) -> (BW, L, C)."""
+    out = relpos_attention_plain(
+        head_view(q3, 1, 0, num_heads), head_view(kv3, 2, 0, num_heads),
+        head_view(kv3, 2, 1, num_heads), rel_h, rel_w, hw, sm_scale)
+    return out.reshape(q3.shape)
 
 
 def global_attention_plain(qkv, rel_h, rel_w, hw, num_heads, sm_scale):
-    """qkv (B, L, 3C) with L = hw[0]*hw[1] -> (B, L, C)."""
-    b, l, f = qkv.shape
-    c = f // 3
-    qkv5 = qkv.reshape(b, l, 3, num_heads, c // num_heads)
-    q, k, v = qkv5[:, :, 0], qkv5[:, :, 1], qkv5[:, :, 2]
-    bias = decomposed_rel_pos_bias(q, rel_h, rel_w, hw, hw)
-    return mha_reference(q, k, v, bias=bias, sm_scale=sm_scale).reshape(b, l, c)
+    """Fused form: qkv (B, L, 3C) -> (B, L, C). The function does not
+    depend on the scope, so this is also the plain version of the fused
+    window entry (`hw` the window)."""
+    q, k, v = (head_view(qkv, 3, i, num_heads) for i in range(3))
+    out = relpos_attention_plain(q, k, v, rel_h, rel_w, hw, sm_scale)
+    return out.reshape(qkv.shape[0], qkv.shape[1], -1)
+
 
 
 # ---------------------------------------------------------------------------
-# Kernel wrappers
+# Kernel launches
 # ---------------------------------------------------------------------------
 
 def _lib(name):
     lib = _build.library(name)
-    fn = getattr(lib, _WINDOW if name == "sam_window_attn" else _GLOBAL)
+    fn = getattr(lib, WINDOW_SPLIT if name == "sam_window_attn"
+                 else GLOBAL_FUSED)
     if fn.argtypes is None:
-        vp, i32 = ctypes.c_void_p, ctypes.c_int
-        if name == "sam_window_attn":
-            fn.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
-                           ctypes.c_float, i32, vp]
-        else:
-            fn.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32,
-                           ctypes.c_float, i32, vp]
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = ([vp] * 6 + [i32] * 5 + [i64] * 6
+                       + [ctypes.c_float, i32, vp])
         fn.restype = ctypes.c_int
         smem = getattr(lib, fn.__name__ + "_smem")
         smem.argtypes = [i32, i32, i32]
@@ -112,66 +162,33 @@ def _lib(name):
     return lib
 
 
-def _forward_only(name, *tensors):
-    """The SAM kernels have no backward here (the JAX package's do: a slice
-    that trains the SAM encoder ports them). Raise rather than return an
-    output without a grad_fn, which would drop the gradient silently."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name}: the CUDA kernel is forward-only, and an input requires "
-            "grad; run the frozen SAM encoder under torch.no_grad()")
-
-
-def _check_operand(name, t, dtype, shape):
-    if not t.is_cuda:
-        raise ValueError(f"{name}: operands must be CUDA tensors")
-    if t.dtype not in (torch.bfloat16, torch.float32) or t.dtype != dtype:
+def _check_heads(name, t, like):
+    """A (B, L, nh, d) operand the kernels can read in place: head h of
+    row i at i * stride(1) + h * d, elements of a head adjacent. Batch and
+    row strides are free (fused, split and per-head layouts differ only
+    there). The kernels load single elements, so the only alignment they
+    assume is the element type's, which every tensor has."""
+    if not t.is_cuda or t.device != like.device:
+        raise ValueError(f"{name}: operands must be CUDA tensors on one "
+                         "device")
+    if t.dtype not in (torch.bfloat16, torch.float32) or t.dtype != like.dtype:
         raise TypeError(f"{name}: dtype {t.dtype}; need bfloat16 or float32, "
                         "one for all operands")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: operands must be contiguous")
+    if tuple(t.shape) != tuple(like.shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(like.shape)}")
+    d = t.shape[3]
+    if t.stride(3) != 1 or t.stride(2) != d:
+        raise ValueError(f"{name}: strides {t.stride()}: heads must lie "
+                         f"side by side in a row (stride {d}, 1)")
+    if t.data_ptr() % t.element_size():
+        raise ValueError(f"{name}: operand not aligned to its element size")
 
 
 def _check_rel(t, rows, d):
     if tuple(t.shape) != (rows, d):
         raise ValueError(f"rel-pos table {tuple(t.shape)}, expected "
                          f"{(rows, d)}")
-
-
-def window_attention_kernel(q3, kv3, rel_h, rel_w, hw, num_heads, sm_scale):
-    """Launch csrc/sam_window_attn.cu: q3 (BW, L, C), kv3 (BW, L, 2C).
-    Forward only: raises when grad mode is on and an input requires grad."""
-    _forward_only(_WINDOW, q3, kv3, rel_h, rel_w)
-    wh, ww = hw
-    bw, l, c = q3.shape
-    d = c // num_heads
-    if l != wh * ww or c != d * num_heads or d > 128:
-        raise ValueError(f"{_WINDOW}: q3 {tuple(q3.shape)} does not match "
-                         f"window {hw} with {num_heads} heads")
-    _check_operand(_WINDOW, q3, q3.dtype, (bw, l, c))
-    _check_operand(_WINDOW, kv3, q3.dtype, (bw, l, 2 * c))
-    if kv3.device != q3.device:
-        raise ValueError(f"{_WINDOW}: q3 and kv3 on different devices")
-    _check_rel(rel_h, 2 * wh - 1, d)
-    _check_rel(rel_w, 2 * ww - 1, d)
-    rh, rw = (t.to(device=q3.device, dtype=torch.float32).contiguous()
-              for t in (rel_h, rel_w))
-    lib = _lib("sam_window_attn")
-    if lib.sam_window_relpos_attn_smem(wh, ww, d) > _SMEM_LIMIT:
-        raise ValueError(f"{_WINDOW}: window {hw} x head dim {d} exceeds "
-                         "one block's shared memory")
-    out = torch.empty_like(q3)
-    if bw:
-        ptr = _build.ptr
-        err = lib.sam_window_relpos_attn(
-            ptr(q3), ptr(kv3), ptr(rh), ptr(rw), ptr(out), bw, wh, ww,
-            num_heads, d, float(sm_scale), int(q3.dtype == torch.bfloat16),
-            _build.stream_handle(q3.device))
-        _build.LAUNCHES[_WINDOW] += 1
-        _build.check(err, _WINDOW)
-    return out
 
 
 def band_tables(q, rel_h, rel_w, hw):
@@ -188,36 +205,180 @@ def band_tables(q, rel_h, rel_w, hw):
     return bh.contiguous(), bw.contiguous()
 
 
-def global_attention_kernel(qkv, rel_h, rel_w, hw, num_heads, sm_scale):
-    """Launch csrc/sam_global_attn.cu on the fused qkv (B, L, 3C).
-    Forward only: raises when grad mode is on and an input requires grad."""
-    _forward_only(_GLOBAL, qkv, rel_h, rel_w)
-    H, W = hw
-    b, l, f = qkv.shape
-    c = f // 3
-    d = c // num_heads
-    if l != H * W or f != 3 * c or c != d * num_heads or d > 128:
-        raise ValueError(f"{_GLOBAL}: qkv {tuple(qkv.shape)} does not match "
-                         f"grid {hw} with {num_heads} heads")
-    _check_operand(_GLOBAL, qkv, qkv.dtype, (b, l, f))
-    _check_rel(rel_h, 2 * H - 1, d)
-    _check_rel(rel_w, 2 * W - 1, d)
+def _operands(name, q, k, v, rel_h, rel_w, hw):
+    h, w = hw
+    b, l, nh, d = q.shape
+    if l != h * w or d > 128:
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not match grid "
+                         f"{hw} (head dim at most 128)")
+    for t in (q, k, v):
+        _check_heads(name, t, q)
+    _check_rel(rel_h, 2 * h - 1, d)
+    _check_rel(rel_w, 2 * w - 1, d)
+    strides = [s for t in (q, k, v) for s in (t.stride(0), t.stride(1))]
+    return b, nh, d, strides
+
+
+def _launch_global(counter, q, k, v, rel_h, rel_w, hw, sm_scale):
+    """csrc/sam_global_attn.cu on (B, L, nh, d) views -> (B, L, nh, d)."""
+    b, nh, d, strides = _operands(counter, q, k, v, rel_h, rel_w, hw)
     lib = _lib("sam_global_attn")
-    if lib.sam_global_relpos_attn_smem(H, W, d) > _SMEM_LIMIT:
-        raise ValueError(f"{_GLOBAL}: grid {hw} x head dim {d} exceeds one "
+    if lib.sam_global_relpos_attn_smem(hw[0], hw[1], d) > _SMEM_LIMIT:
+        raise ValueError(f"{counter}: grid {hw} x head dim {d} exceeds one "
                          "block's shared memory")
-    bh, bw = band_tables(qkv[..., :c].reshape(b, l, num_heads, d),
-                         rel_h, rel_w, hw)
-    out = torch.empty((b, l, c), dtype=qkv.dtype, device=qkv.device)
-    if b:
-        ptr = _build.ptr
-        err = lib.sam_global_relpos_attn(
-            ptr(qkv), ptr(bh), ptr(bw), ptr(out), b, H, W, num_heads, d,
-            float(sm_scale), int(qkv.dtype == torch.bfloat16),
-            _build.stream_handle(qkv.device))
-        _build.LAUNCHES[_GLOBAL] += 1
-        _build.check(err, _GLOBAL)
+    bh, bw = band_tables(q, rel_h, rel_w, hw)
+    out = torch.empty((b, q.shape[1], nh, d), dtype=q.dtype, device=q.device)
+    ptr = _build.ptr
+    err = lib.sam_global_relpos_attn(
+        ptr(q), ptr(k), ptr(v), ptr(bh), ptr(bw), ptr(out), b, hw[0], hw[1],
+        nh, d, *strides, float(sm_scale), int(q.dtype == torch.bfloat16),
+        _build.stream_handle(q.device))
+    _build.LAUNCHES[counter] += 1
+    _build.check(err, counter)
     return out
+
+
+def _launch_window(counter, q, k, v, rel_h, rel_w, hw, sm_scale):
+    """csrc/sam_window_attn.cu on (BW, L, nh, d) views -> (BW, L, nh, d);
+    a window too large for one block's shared memory runs on the global
+    kernel instead (a window is a small grid)."""
+    b, nh, d, strides = _operands(counter, q, k, v, rel_h, rel_w, hw)
+    lib = _lib("sam_window_attn")
+    if lib.sam_window_relpos_attn_smem(hw[0], hw[1], d) > _SMEM_LIMIT:
+        return _launch_global(counter, q, k, v, rel_h, rel_w, hw, sm_scale)
+    rh, rw = (t.detach().to(device=q.device, dtype=torch.float32).contiguous()
+              for t in (rel_h, rel_w))
+    out = torch.empty((b, q.shape[1], nh, d), dtype=q.dtype, device=q.device)
+    ptr = _build.ptr
+    err = lib.sam_window_relpos_attn(
+        ptr(q), ptr(k), ptr(v), ptr(rh), ptr(rw), ptr(out), b, hw[0], hw[1],
+        nh, d, *strides, float(sm_scale), int(q.dtype == torch.bfloat16),
+        _build.stream_handle(q.device))
+    _build.LAUNCHES[counter] += 1
+    _build.check(err, counter)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Gradients
+# ---------------------------------------------------------------------------
+
+def global_tables_frozen(hw: Tuple[int, int]) -> bool:
+    """Whether a global entry gives the rel-pos tables zero gradients.
+
+    This is the JAX package's predicate for its fused global path, kept
+    only to decide this: `sam_global_attention` leaves the fused path (and
+    its zero table gradients) for XLA, with true table gradients, when
+    `L < 256 or W % 8 != 0`, and `sam_global_attention_qkv` falls back to
+    it under stricter conditions that all imply L >= 256 and W % 8 == 0.
+    The port's kernel runs at every geometry, so it needs the rule spelt
+    out to give the reference's gradients: zeros at the `small` preset
+    and every SAM ViT (32 x 32, 64 x 64), true gradients at `tiny`
+    (8 x 8). The same on the CPU and on the card."""
+    return hw[0] * hw[1] >= 256 and hw[1] % 8 == 0
+
+
+def banded_attention_bwd(q, k, v, rel_h, rel_w, out, g, hw, sm_scale):
+    """Backward of global rel-pos attention by key-row bands (JAX
+    `_banded_bwd`): q, k, v, out, g (B, L, nh, d) -> (dq, dk, dv) in the
+    operands' dtypes, computed in float32. Pass 1 accumulates the
+    log-sum-exp over the H bands of W keys, pass 2 the gradients; the
+    largest tensor is a band of scores (B, nh, L, W), never (L, L). dq
+    includes the bias terms: dBh[i, r] = sum_w ds[i, r, w] and
+    dBw[i, w] = sum_r ds[i, r, w] go back through q . Rh and q . Rw."""
+    H, W = hw
+    b, l, nh, d = q.shape
+    Rh = get_rel_pos(H, H, rel_h).float()           # (H, H, d)
+    Rw = get_rel_pos(W, W, rel_w).float()           # (W, W, d)
+    bh, bw = band_tables(q, rel_h, rel_w, hw)
+    bh, bw = bh.permute(0, 2, 1, 3), bw.permute(0, 2, 1, 3)   # (B, nh, L, *)
+    qh = q.float().permute(0, 2, 1, 3)              # (B, nh, L, d)
+    kh = k.float().permute(0, 2, 1, 3).reshape(b, nh, H, W, d)
+    vh = v.float().permute(0, 2, 1, 3).reshape(b, nh, H, W, d)
+    do = g.float().permute(0, 2, 1, 3)
+    delta = (do * out.float().permute(0, 2, 1, 3)).sum(-1, keepdim=True)
+    qs = qh * sm_scale
+
+    def band_logits(r):
+        return qs @ kh[:, :, r].transpose(-1, -2) + bh[..., r, None] + bw
+
+    lse = torch.full((b, nh, l), -torch.inf, device=q.device)
+    for r in range(H):
+        lse = torch.logaddexp(lse, torch.logsumexp(band_logits(r), dim=-1))
+
+    dq = torch.zeros_like(qh)
+    dk, dv = torch.empty_like(kh), torch.empty_like(vh)
+    dbh = torch.empty_like(bh)
+    dbw = torch.zeros_like(bw)
+    for r in range(H):
+        p = torch.exp(band_logits(r) - lse[..., None])        # (B, nh, L, W)
+        dv[:, :, r] = p.transpose(-1, -2) @ do
+        ds = p * (do @ vh[:, :, r].transpose(-1, -2) - delta)
+        dq += sm_scale * (ds @ kh[:, :, r])
+        dk[:, :, r] = sm_scale * (ds.transpose(-1, -2) @ qh)
+        dbh[..., r] = ds.sum(-1)
+        dbw += ds
+    rows = torch.arange(l, device=q.device) // W
+    cols = torch.arange(l, device=q.device) % W
+    dq += torch.einsum("bnlh,lhd->bnld", dbh, Rh[rows])
+    dq += torch.einsum("bnlw,lwd->bnld", dbw, Rw[cols])
+    back = lambda t, like: t.reshape(b, nh, l, d).permute(0, 2, 1, 3).to(  # noqa: E731
+        like.dtype)
+    return back(dq, q), back(dk, k), back(dv, v)
+
+
+class RelPosAttentionFn(torch.autograd.Function):
+    """Rel-pos attention on (B, L, nh, d) operands. Forward: the `kind`
+    ("window" or "global") kernel on CUDA tensors, counted under
+    `counter`, the plain version on CPU tensors. Backward, plain torch:
+    `banded` (global entries where `global_tables_frozen`) takes
+    `banded_attention_bwd` and gives the tables zeros; otherwise the VJP of
+    the plain version recomputed from the saved inputs, tables included."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, rel_h, rel_w, hw, sm_scale, kind, counter,
+                banded):
+        if q.is_cuda:
+            launch = _launch_window if kind == "window" else _launch_global
+            out = launch(counter, q, k, v, rel_h, rel_w, hw, sm_scale)
+        else:
+            out = relpos_attention_plain(q, k, v, rel_h, rel_w, hw, sm_scale)
+        ctx.save_for_backward(q, k, v, rel_h, rel_w,
+                              *((out,) if banded else ()))
+        ctx.hw, ctx.sm_scale, ctx.banded = hw, sm_scale, banded
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors  # read once: remat unpacks on access
+        q, k, v, rel_h, rel_w = saved[:5]
+        need = ctx.needs_input_grad[:5]
+        if ctx.banded:
+            dq, dk, dv = banded_attention_bwd(
+                q, k, v, rel_h, rel_w, saved[5], g, ctx.hw, ctx.sm_scale)
+            grads = [dq, dk, dv, torch.zeros_like(rel_h),
+                     torch.zeros_like(rel_w)]
+            grads = [t if n else None for t, n in zip(grads, need)]
+        else:
+            with torch.enable_grad():
+                ins = [t.detach().requires_grad_(n)
+                       for t, n in zip((q, k, v, rel_h, rel_w), need)]
+                out = relpos_attention_plain(*ins, ctx.hw, ctx.sm_scale)
+                wanted = [t for t, n in zip(ins, need) if n]
+                got = iter(torch.autograd.grad(out, wanted, g.to(out.dtype)))
+            grads = [next(got) if n else None for n in need]
+        return (*grads, None, None, None, None, None)
+
+
+def _attend(kind, counter, q, k, v, rel_h, rel_w, hw, sm_scale, plain):
+    hw = (int(hw[0]), int(hw[1]))
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    if plain or q.shape[0] == 0:
+        return relpos_attention_plain(q, k, v, rel_h, rel_w, hw, sm_scale)
+    banded = kind == "global" and global_tables_frozen(hw)
+    return RelPosAttentionFn.apply(q, k, v, rel_h, rel_w, hw, float(sm_scale),
+                                   kind, counter, banded)
 
 
 # ---------------------------------------------------------------------------
@@ -226,20 +387,57 @@ def global_attention_kernel(qkv, rel_h, rel_w, hw, num_heads, sm_scale):
 
 def sam_window_attention_qkv_split(q3, kv3, rel_h, rel_w,
                                    hw: Tuple[int, int], num_heads: int,
-                                   sm_scale=None):
+                                   sm_scale=None, force_xla: bool = False,
+                                   train_rel_pos: bool = False):
     """Windowed SAM attention over a column-split qkv projection:
     q3 (BW, L, C), kv3 (BW, L, 2C), L = hw[0]*hw[1]. Returns (BW, L, C)."""
-    if sm_scale is None:
-        sm_scale = (q3.shape[-1] // num_heads) ** -0.5
-    run = window_attention_kernel if q3.is_cuda else window_attention_plain
-    return run(q3, kv3, rel_h, rel_w, hw, num_heads, sm_scale)
+    out = _attend("window", WINDOW_SPLIT, head_view(q3, 1, 0, num_heads),
+                  head_view(kv3, 2, 0, num_heads), head_view(kv3, 2, 1, num_heads),
+                  rel_h, rel_w, hw, sm_scale, force_xla or train_rel_pos)
+    return out.reshape(q3.shape)
+
+
+def sam_window_attention_qkv(qkv, rel_h, rel_w, hw: Tuple[int, int],
+                             num_heads: int, sm_scale=None,
+                             force_xla: bool = False,
+                             train_rel_pos: bool = False):
+    """Windowed SAM attention over the fused qkv projection (BW, L, 3C),
+    L = hw[0]*hw[1], read in place. Returns (BW, L, C). The encoder also
+    sends global grids under 1024 tokens here, as the JAX encoder does."""
+    q, k, v = (head_view(qkv, 3, i, num_heads) for i in range(3))
+    out = _attend("window", WINDOW_FUSED, q, k, v, rel_h, rel_w, hw, sm_scale,
+                  force_xla or train_rel_pos)
+    return out.reshape(qkv.shape[0], qkv.shape[1], -1)
+
+
+def sam_window_attention(q, k, v, rel_h, rel_w, hw: Tuple[int, int],
+                         sm_scale=None, force_xla: bool = False,
+                         train_rel_pos: bool = False):
+    """Windowed SAM attention on per-head operands: q, k, v
+    (BW, L, nh, d), L = hw[0]*hw[1]. Returns (BW, L, nh, d)."""
+    return _attend("window", WINDOW_HEADS, q, k, v, rel_h, rel_w, hw,
+                   sm_scale, force_xla or train_rel_pos)
+
+
+def sam_global_attention(q, k, v, rel_h, rel_w, hw: Tuple[int, int],
+                         sm_scale=None, force_xla: bool = False,
+                         train_rel_pos: bool = False):
+    """Global SAM attention on per-head operands: q, k, v (B, L, nh, d),
+    L = hw[0]*hw[1]. Returns (B, L, nh, d). The rel-pos tables get zero
+    gradients where `global_tables_frozen(hw)`; `train_rel_pos=True` gives
+    true ones through the plain version."""
+    return _attend("global", GLOBAL_HEADS, q, k, v, rel_h, rel_w, hw,
+                   sm_scale, force_xla or train_rel_pos)
 
 
 def sam_global_attention_qkv(qkv, rel_h, rel_w, hw: Tuple[int, int],
-                             num_heads: int, sm_scale=None):
+                             num_heads: int, sm_scale=None,
+                             force_xla: bool = False,
+                             train_rel_pos: bool = False):
     """Global SAM attention over the fused qkv projection (B, L, 3C),
-    L = hw[0]*hw[1]. Returns (B, L, C)."""
-    if sm_scale is None:
-        sm_scale = (qkv.shape[-1] // 3 // num_heads) ** -0.5
-    run = global_attention_kernel if qkv.is_cuda else global_attention_plain
-    return run(qkv, rel_h, rel_w, hw, num_heads, sm_scale)
+    L = hw[0]*hw[1], read in place. Returns (B, L, C). Table gradients as
+    `sam_global_attention`."""
+    q, k, v = (head_view(qkv, 3, i, num_heads) for i in range(3))
+    out = _attend("global", GLOBAL_FUSED, q, k, v, rel_h, rel_w, hw, sm_scale,
+                  force_xla or train_rel_pos)
+    return out.reshape(qkv.shape[0], qkv.shape[1], -1)

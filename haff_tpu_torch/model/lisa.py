@@ -8,8 +8,9 @@ The model is built on the `meta` device, then materialised on `device`
 come through tools/bridge.py. The submodule methods are the ones
 infer/evaluate.py calls; `forward(batch)` is the training/validation
 forward (JAX `LisaModel.__call__`): vision encoders over the unique images
-(frozen: run without autograd), multimodal splice, LLaMA, [SEG] gather,
-dual mask decode and the loss stack.
+(the CLIP tower always without autograd, the SAM encoder without it unless
+one of its parameters is trainable), multimodal splice, LLaMA, [SEG]
+gather, dual mask decode and the loss stack.
 """
 
 from __future__ import annotations
@@ -71,6 +72,11 @@ class LisaOutputs(NamedTuple):
 
 
 class LisaModel(nn.Module):
+    # Submodules whose forward always runs under torch.no_grad(): a
+    # trainable parameter there would get no gradient
+    # (train/trainer.py partition_params refuses one).
+    NO_GRAD_MODULES = ("vision_tower", "mm_projector")
+
     def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16,
                  device="cuda", generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -102,8 +108,8 @@ class LisaModel(nn.Module):
     def encode_clip(self, images_clip):
         return self.mm_projector(self.vision_tower(images_clip))
 
-    def encode_sam(self, images_sam):
-        return self.visual_model.encode_image(images_sam)
+    def encode_sam(self, images_sam, remat: bool = False):
+        return self.visual_model.encode_image(images_sam, remat)
 
     def project_seg(self, hidden):
         return self.text_fc2(F.relu(self.text_fc1(hidden)))
@@ -123,13 +129,18 @@ class LisaModel(nn.Module):
 
     # ----- the training / validation forward -----
 
-    def splice_inputs(self, batch: TrainBatch):
-        """Vision encoders over the unique images (frozen: no autograd
-        graph is kept for them), expanded to conversations by
-        `image_index`, and the multimodal splice. Returns (SAM embeddings
-        per conversation, SplicedBatch)."""
+    def splice_inputs(self, batch: TrainBatch, remat: bool = False):
+        """Vision encoders over the unique images, expanded to
+        conversations by `image_index`, and the multimodal splice. The
+        CLIP tower keeps no autograd graph; the SAM encoder keeps one
+        (recomputing each block in the backward with `remat`) only when
+        one of its parameters requires grad. Returns (SAM embeddings per
+        conversation, SplicedBatch)."""
+        encoder = self.visual_model.image_encoder
+        train_sam = any(p.requires_grad for p in encoder.parameters())
+        with torch.set_grad_enabled(train_sam and torch.is_grad_enabled()):
+            sam_emb = self.encode_sam(batch.images_sam, remat)
         with torch.no_grad():
-            sam_emb = self.encode_sam(batch.images_sam)
             clip_emb = self.encode_clip(batch.images_clip)
         index = batch.image_index.long()
         sam_emb, clip_emb = sam_emb[index], clip_emb[index]
@@ -143,8 +154,9 @@ class LisaModel(nn.Module):
     def forward(self, batch: TrainBatch, dropout_seed: Optional[int] = None,
                 remat: bool = False) -> LisaOutputs:
         """`dropout_seed` None is the deterministic forward; `remat`
-        recomputes each decoder block in the backward."""
-        sam_emb, sp = self.splice_inputs(batch)
+        recomputes each LLaMA block (and each SAM encoder block, when the
+        encoder is trained) in the backward."""
+        sam_emb, sp = self.splice_inputs(batch, remat)
         logits, hidden, _ = self.llm(sp.embeds, sp.positions, sp.segment_ids,
                                      dropout_seed=dropout_seed, remat=remat)
         return self.finish_outputs(batch, sam_emb, sp, logits, hidden)

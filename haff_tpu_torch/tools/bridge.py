@@ -105,13 +105,21 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def load_jax_params(model: torch.nn.Module, params) -> torch.nn.Module:
+def load_jax_params(model: torch.nn.Module, params,
+                    scope: str = None) -> torch.nn.Module:
     """Load a JAX parameter tree, or the path of an export .npz, into the
-    port's model (strict: every parameter must be matched). A `QDense`
-    whose weight arrives quantized (int8 or packed uint8, with its
-    `scale`) is switched to its quantized form first."""
+    port's model (strict: every parameter must be matched): a `LisaModel`
+    from a `LisaModel.init` tree, a `Sam` from a `Sam.init` tree, or, with
+    `scope="visual_model"`, a `Sam` from the subtree of that name in a
+    whole-model tree or export. A `QDense` whose weight arrives quantized
+    (int8 or packed uint8, with its `scale`) is switched to its quantized
+    form first."""
     if isinstance(params, str):
         params = load_npz(params)
+    if set(params) == {"params"}:
+        params = params["params"]
+    if scope is not None:
+        params = params[scope]
     sd = flax_to_state_dict(params)
     modules = dict(model.named_modules())
     for name, scale in sd.items():

@@ -31,12 +31,18 @@ TRAINABLE_KEYS = ("lora_a", "lora_b", "embed_tokens", "lm_head",
                   "text_fc2")
 
 
-def trainable_mask_path(path: Tuple[str, ...]) -> bool:
-    """Reference freezing semantics on one parameter path."""
-    return any(k in path for k in TRAINABLE_KEYS)
+def trainable_mask_path(path: Tuple[str, ...],
+                        exclude: Tuple[str, ...] = (),
+                        extra: Tuple[str, ...] = ()) -> bool:
+    """Reference freezing semantics on one parameter path. `exclude`
+    removes keys from the trainable set (the mask decoders, say); `extra`
+    adds keys ("image_encoder" to train the SAM encoder)."""
+    keys = tuple(k for k in TRAINABLE_KEYS if k not in exclude) + tuple(extra)
+    return any(k in path for k in keys)
 
 
-def partition_params(model: nn.Module
+def partition_params(model: nn.Module, exclude: Tuple[str, ...] = (),
+                     extra: Tuple[str, ...] = ()
                      ) -> Tuple[Dict[str, nn.Parameter],
                                 Dict[str, nn.Parameter]]:
     """Mark the trainable set and freeze the rest; returns (trainable,
@@ -45,10 +51,22 @@ def partition_params(model: nn.Module
     This changes `model` in place: requires_grad is set on every
     parameter, and in a model whose dtype is not float32 the trainable
     parameters are converted to float32 and their modules' `compute_dtype`
-    is set to the model's dtype, so they are cast back to it at use."""
+    is set to the model's dtype, so they are cast back to it at use.
+
+    Raises if a parameter would be trainable inside a module whose forward
+    the model always runs without autograd (`model.NO_GRAD_MODULES`: the
+    CLIP tower and its projector): its gradient would silently be none.
+    The SAM image encoder runs with autograd exactly when one of its
+    parameters is trainable (`extra=("image_encoder",)`)."""
     trainable, frozen = {}, {}
     for name, p in model.named_parameters():
-        keep = trainable_mask_path(tuple(name.split(".")))
+        keep = trainable_mask_path(tuple(name.split(".")), exclude, extra)
+        if keep and name.startswith(
+                tuple(m + "." for m in getattr(model, "NO_GRAD_MODULES", ()))):
+            raise ValueError(
+                f"{name} would be trainable, but the model runs "
+                f"{name.split('.')[0]} under torch.no_grad(): its gradient "
+                "would be dropped")
         p.requires_grad_(keep)
         (trainable if keep else frozen)[name] = p
     compute = getattr(model, "dtype", torch.float32)

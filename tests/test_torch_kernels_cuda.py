@@ -106,7 +106,7 @@ def test_flash_prefill_matches_plain(dev, dtype, b, lq, lk, h, d, causal,
 
 def test_wrappers_refuse_unsupported_operands(dev):
     x = torch.zeros(1, 16, 8, device=dev, dtype=torch.float16)
-    with pytest.raises(TypeError):
+    with pytest.raises(TypeError), torch.no_grad():
         sa.sam_window_attention_qkv_split(
             x, torch.zeros(1, 16, 16, device=dev, dtype=torch.float16),
             torch.zeros(7, 4), torch.zeros(7, 4), (4, 4), 2)
@@ -347,3 +347,192 @@ def test_quantizers_on_the_card_equal_the_cpu_bit_for_bit(dev):
                     (quant.quantize_activation, x)):
         for a, r in zip(fn(arg.to(dev)), fn(arg)):
             assert a.dtype == r.dtype and torch.equal(a.cpu(), r)
+
+
+# ----- SAM attention: every entry, geometry and operand layout -----
+
+def _sam_inputs(dev, dtype, b, hw, nh, d, seed=0):
+    g = torch.Generator(dev).manual_seed(seed + b * hw[0] + d)
+    l, c = hw[0] * hw[1], nh * d
+    qkv = torch.randn(b, l, 3 * c, generator=g, device=dev).to(dtype)
+    rh = 0.2 * torch.randn(2 * hw[0] - 1, d, generator=g, device=dev)
+    rw = 0.2 * torch.randn(2 * hw[1] - 1, d, generator=g, device=dev)
+    return qkv, rh, rw
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("nwin,hw,nh,d", [
+    (25, (14, 14), 12, 64),   # ViT-B windows
+    (16, (8, 8), 8, 32),      # the small preset
+    (25, (14, 12), 16, 80),   # non-square
+    (5, (14, 14), 16, 80),    # a window count no group divides
+    (2, (18, 18), 8, 32),     # above 16 x 16
+    (3, (20, 20), 2, 128),    # too large for the window kernel's shared memory
+    (1, (5, 7), 3, 24)])
+def test_window_entries_agree_on_every_layout(dev, dtype, nwin, hw, nh, d):
+    """The fused, split and per-head entries read one storage in place
+    through different pointers and strides: equal bits among themselves,
+    and the plain version within tolerance; each counts under its key."""
+    qkv, rh, rw = _sam_inputs(dev, dtype, nwin, hw, nh, d)
+    l, c = hw[0] * hw[1], nh * d
+    before = dict(_build.LAUNCHES)
+    fused = sa.sam_window_attention_qkv(qkv, rh, rw, hw, nh)
+    split = sa.sam_window_attention_qkv_split(
+        qkv[..., :c].contiguous(), qkv[..., c:].contiguous(), rh, rw, hw, nh)
+    # Per-head operands that are strided slices of the fused tensor and a
+    # contiguous copy: both are valid layouts.
+    q, k, v = (sa.head_view(qkv, 3, i, nh) for i in range(3))
+    heads = sa.sam_window_attention(q, k, v, rh, rw, hw)
+    heads_c = sa.sam_window_attention(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), rh, rw, hw)
+    torch.cuda.synchronize()
+    for key, n in ((sa.WINDOW_FUSED, 1), (sa.WINDOW_SPLIT, 1),
+                   (sa.WINDOW_HEADS, 2)):
+        assert _build.LAUNCHES[key] == before.get(key, 0) + n, key
+    assert heads.shape == (nwin, l, nh, d)
+    for other in (split, heads.reshape(nwin, l, c), heads_c.reshape(nwin, l, c)):
+        assert torch.equal(fused, other)
+    _close(fused, sa.global_attention_plain(qkv.float(), rh, rw, hw, nh,
+                                            d ** -0.5))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,hw,nh,d", [
+    (1, (64, 64), 12, 64),    # ViT-B global block
+    (2, (32, 32), 8, 32),     # the small preset
+    (1, (12, 20), 3, 24),     # ragged last query and key tile (240 = 3*64+48)
+    (2, (16, 16), 2, 32)])
+def test_global_entries_agree_on_every_layout(dev, dtype, b, hw, nh, d):
+    qkv, rh, rw = _sam_inputs(dev, dtype, b, hw, nh, d, seed=1)
+    l, c = hw[0] * hw[1], nh * d
+    before = dict(_build.LAUNCHES)
+    fused = sa.sam_global_attention_qkv(qkv, rh, rw, hw, nh)
+    q, k, v = (sa.head_view(qkv, 3, i, nh) for i in range(3))
+    heads = sa.sam_global_attention(q, k, v, rh, rw, hw)
+    heads_c = sa.sam_global_attention(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), rh, rw, hw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[sa.GLOBAL_FUSED] == before.get(sa.GLOBAL_FUSED, 0) + 1
+    assert _build.LAUNCHES[sa.GLOBAL_HEADS] == before.get(sa.GLOBAL_HEADS, 0) + 2
+    assert torch.equal(fused, heads.reshape(b, l, c))
+    assert torch.equal(fused, heads_c.reshape(b, l, c))
+    _close(fused, sa.global_attention_plain(qkv.float(), rh, rw, hw, nh,
+                                            d ** -0.5))
+
+
+def test_sam_wrappers_refuse_layouts_the_kernels_cannot_read(dev):
+    qkv, rh, rw = _sam_inputs(dev, torch.float32, 2, (4, 4), 2, 16)
+    q, k, v = (sa.head_view(qkv, 3, i, 2) for i in range(3))
+    with pytest.raises(ValueError, match="strides"):   # heads not adjacent
+        sa.sam_window_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                                k, v, rh, rw, (4, 4))
+    with pytest.raises(TypeError):
+        sa.sam_window_attention(q, k.bfloat16(), v, rh, rw, (4, 4))
+    with pytest.raises(ValueError):
+        sa.sam_global_attention(q, k, v, rh, rw, (4, 5))
+    with pytest.raises(ValueError, match="shared memory"):
+        big = torch.zeros(1, 1000, 3 * 128, device=dev)
+        sa.sam_global_attention_qkv(big, torch.zeros(1, 128, device=dev),
+                                    torch.zeros(1999, 128, device=dev),
+                                    (1, 1000), 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("entry,hw,nh,d", [("window_split", (14, 14), 16, 80),
+                                           ("window_fused", (8, 8), 8, 32),
+                                           ("global", (64, 64), 16, 80),
+                                           ("global", (16, 16), 2, 32),
+                                           ("global", (8, 8), 2, 16)])
+def test_sam_attention_backward_on_the_card(dev, dtype, entry, hw, nh, d):
+    """The kernel forward with the plain-torch backward against autograd
+    through the plain version, in float32 on the same values. The global
+    entry's tables get exact zeros where `global_tables_frozen`, true
+    gradients at the 8 x 8 grid."""
+    b = 1 if hw[0] == 64 else 3
+    qkv, rh, rw = _sam_inputs(dev, dtype, b, hw, nh, d, seed=2)
+    c = nh * d
+    g = torch.Generator(dev).manual_seed(3)
+    go = torch.randn(b, hw[0] * hw[1], c, generator=g, device=dev).to(dtype)
+    ins = [t.requires_grad_() for t in (qkv, rh, rw)]
+    ref_ins = [t.detach().float().requires_grad_() for t in ins]
+    ref_out = sa.global_attention_plain(*ref_ins, hw, nh, d ** -0.5)
+    ref = torch.autograd.grad(ref_out, ref_ins, go.float())
+    before = dict(_build.LAUNCHES)
+    if entry == "window_split":
+        out = sa.sam_window_attention_qkv_split(
+            qkv[..., :c].contiguous(), qkv[..., c:].contiguous(), rh, rw, hw, nh)
+        key = sa.WINDOW_SPLIT
+    elif entry == "window_fused":
+        out, key = sa.sam_window_attention_qkv(*ins, hw, nh), sa.WINDOW_FUSED
+    else:
+        out, key = sa.sam_global_attention_qkv(*ins, hw, nh), sa.GLOBAL_FUSED
+    got = torch.autograd.grad(out, ins, go)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[key] == before.get(key, 0) + 1
+    _close(out, ref_out)
+    frozen = entry == "global" and sa.global_tables_frozen(hw)
+    for name, a, r in zip(("qkv", "rel_h", "rel_w"), got, ref):
+        assert a.dtype == (dtype if name == "qkv" else torch.float32)
+        if frozen and name != "qkv":
+            assert not a.any(), name
+            continue
+        # Gradients are sums over up to 4096 keys of bf16-rounded terms:
+        # compare at the scale of the leaf.
+        err = float((a.float() - r).abs().max())
+        tol = (2.0 ** -7 if dtype == torch.bfloat16 else 1e-4) * float(
+            r.abs().max()) + 1e-6
+        assert err <= tol, (name, err, tol)
+
+
+def test_sam_encoder_backward_with_remat_on_the_card(dev):
+    """A 4-block encoder at the small preset: remat recomputes each block,
+    so every SAM kernel launches twice a forward + backward, and the
+    gradients equal the CPU's (plain versions)."""
+    from haff_tpu_torch.core.config import SamEncoderConfig
+    from haff_tpu_torch.model.lisa import init_random_
+    from haff_tpu_torch.nn.sam_image_encoder import SamImageEncoder
+
+    cfg = SamEncoderConfig.preset("small")
+    gpu = SamImageEncoder(cfg).to(dev)
+    init_random_(gpu, torch.Generator(dev).manual_seed(0))
+    cpu = SamImageEncoder(cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(1, 512, 512, 3, generator=gen)
+    # A random cotangent: the last LayerNorm makes sum(emb^2) nearly constant.
+    go = torch.randn(1, 32, 32, cfg.out_chans, generator=gen)
+    before = dict(_build.LAUNCHES)
+    (gpu(x.to(dev), remat=True) * go.to(dev)).sum().backward()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[sa.WINDOW_SPLIT] == before.get(sa.WINDOW_SPLIT, 0) + 4
+    assert _build.LAUNCHES[sa.GLOBAL_FUSED] == before.get(sa.GLOBAL_FUSED, 0) + 4
+    (cpu(x) * go).sum().backward()
+    for (name, p), q in zip(gpu.named_parameters(), cpu.parameters()):
+        err = float((p.grad.cpu() - q.grad).abs().max())
+        assert err <= 1e-3 * float(q.grad.abs().max()) + 1e-6, (name, err)
+
+
+@pytest.mark.parametrize("m,k,n", [(2048, 2048, 2048), (70, 64, 130),
+                                   (1, 32, 1), (65, 96, 63)])
+def test_matmul_probe_matches_plain(dev, m, k, n):
+    from haff_tpu_torch.tools.bench_kernels import (PROBE, matmul_probe,
+                                                    matmul_probe_plain)
+
+    g = torch.Generator(dev).manual_seed(m + n)
+    a8, b8 = (torch.randint(-127, 128, s, generator=g, device=dev,
+                            dtype=torch.int8) for s in ((m, k), (n, k)))
+    before = _build.LAUNCHES[PROBE]
+    got = matmul_probe(a8, b8)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, matmul_probe_plain(a8, b8))
+    a16, b16 = (torch.randn(s, generator=g, device=dev).bfloat16()
+                for s in ((m, k), (n, k)))
+    got = matmul_probe(a16, b16)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[PROBE] == before + 2
+    torch.testing.assert_close(got, matmul_probe_plain(a16, b16), rtol=1e-4,
+                               atol=1e-4 * k ** 0.5)
+    with pytest.raises(ValueError):
+        matmul_probe(a8[:, :k - 1].contiguous(), b8[:, :k - 1].contiguous())
+    with pytest.raises(TypeError):
+        matmul_probe(a8, b16)

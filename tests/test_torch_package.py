@@ -40,6 +40,17 @@ def test_no_jax_flax_or_reference_imports(path):
         assert top not in FORBIDDEN, f"{path.name} imports {name}"
 
 
+def test_the_walk_covers_every_module_of_the_port():
+    names = {str(p.relative_to(ROOT)) for p in _sources()}
+    for rel in ("haff_tpu_torch/infer/sam_predictor.py",
+                "haff_tpu_torch/infer/amg.py",
+                "haff_tpu_torch/data/transforms.py",
+                "haff_tpu_torch/tools/bridge.py",
+                "haff_tpu_torch/tools/kernel_audit.py",
+                "haff_tpu_torch/tools/bench_kernels.py", "chip_smoke.py"):
+        assert rel in names, rel
+
+
 def test_model_defaults_to_the_card():
     cfg = ModelConfig.preset("tiny")
     if torch.cuda.is_available():

@@ -136,22 +136,29 @@ def test_cpu_tensors_take_the_plain_version():
 
 @pytest.mark.parametrize("wrapper", ["window", "global"])
 def test_kernel_wrappers_refuse_to_drop_a_gradient(wrapper):
-    """The SAM kernels are forward-only: with grad mode on and an input
-    that requires grad, the wrapper raises before anything launches (an
-    output without a grad_fn would drop the gradient silently). Under
-    no_grad the same call passes the guard and fails only on the CPU
-    operands."""
-    nh, d, w = 2, 8, 4
-    rel = torch.zeros(2 * w - 1, d)
+    """Neither entry drops a gradient: with an input that requires grad
+    the output carries a grad_fn (`RelPosAttentionFn`) and the gradient
+    arrives at q, k and v; the rel-pos tables get a true gradient from the
+    window entry and exact zeros from the global one at a grid where the
+    JAX fused path runs."""
+    nh, d, w = 2, 8, 16
+    g = torch.Generator().manual_seed(0)
+    rel_h = torch.randn(2 * w - 1, d, generator=g, requires_grad=True)
+    rel_w = torch.randn(2 * w - 1, d, generator=g, requires_grad=True)
+    qkv = torch.randn(1, w * w, 3 * nh * d, generator=g, requires_grad=True)
     if wrapper == "window":
-        call = lambda q: tsa.window_attention_kernel(  # noqa: E731
-            q, torch.zeros(1, w * w, 2 * nh * d), rel, rel, (w, w), nh, 0.5)
-        q = torch.zeros(1, w * w, nh * d, requires_grad=True)
+        c = nh * d
+        out = tsa.sam_window_attention_qkv_split(
+            qkv[..., :c].contiguous(), qkv[..., c:].contiguous(), rel_h,
+            rel_w, (w, w), nh)
     else:
-        call = lambda q: tsa.global_attention_kernel(  # noqa: E731
-            q, rel, rel, (w, w), nh, 0.5)
-        q = torch.zeros(1, w * w, 3 * nh * d, requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        call(q)
-    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
-        call(q)
+        out = tsa.sam_global_attention_qkv(qkv, rel_h, rel_w, (w, w), nh)
+    assert out.grad_fn is not None
+    out.square().sum().backward()
+    assert qkv.grad is not None and all(
+        qkv.grad[..., i * nh * d:(i + 1) * nh * d].abs().max() > 0
+        for i in range(3))
+    if wrapper == "window":
+        assert rel_h.grad.abs().max() > 0 and rel_w.grad.abs().max() > 0
+    else:
+        assert not rel_h.grad.any() and not rel_w.grad.any()

@@ -1,0 +1,75 @@
+"""The port's kernel tools (haff_tpu_torch/tools/kernel_audit.py,
+bench_kernels.py) rehearsed on the CPU, where every wrapper takes its
+plain version: each audit check passes, each bench command runs at a
+small shape and labels its lines as host-clock rehearsals, both tools ask
+for the card by default, and the probe's plain version is exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from haff_tpu_torch.core.config import SamEncoderConfig
+from haff_tpu_torch.tools import bench_kernels as bk
+from haff_tpu_torch.tools import kernel_audit
+
+
+def test_audit_passes_on_the_cpu(capsys):
+    assert kernel_audit.main(["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    lines = [ln for ln in out.splitlines() if ln.startswith(("PASS", "FAIL"))]
+    assert len(lines) == 13 and all(ln.startswith("PASS") for ln in lines)
+    for name in ("flash/bwd dq", "sam_global/fwd", "sam_window/fwd",
+                 "decode/int8", "sam_window_qkv/bw5", "w8a8"):
+        assert any(name in ln for ln in lines), name
+
+
+def test_audit_reports_a_failure(monkeypatch, capsys):
+    from haff_tpu_torch.kernels import sam_attention as sa
+
+    real = sa.sam_global_attention
+    monkeypatch.setattr(sa, "sam_global_attention",
+                        lambda *a, **k: real(*a, **k) + 0.1)
+    assert kernel_audit.main(["--device", "cpu"]) == 1
+    out = capsys.readouterr().out
+    assert "FAIL sam_global/fwd" in out and "FAILURES" in out
+
+
+@pytest.mark.parametrize("tool", [kernel_audit, bk], ids=["audit", "bench"])
+def test_tools_ask_for_the_card_by_default(tool):
+    argv = [] if tool is kernel_audit else ["int8probe"]
+    if not torch.cuda.is_available():
+        assert tool.main(argv) == 2
+
+
+@pytest.mark.parametrize("cmd", ["winprof", "winvar", "attnpath"])
+def test_window_bench_commands_run(cmd, capsys):
+    bench = bk.Bench("cpu", iters=1)
+    rows = bk.COMMANDS[cmd](bench, 1, SamEncoderConfig.preset("tiny"),
+                            torch.float32)
+    assert len(rows) >= 2 and all(t > 0 for t in rows.values())
+    out = capsys.readouterr().out
+    assert out.count("not a device time") == len(rows)
+
+
+@pytest.mark.parametrize("cmd,shape", [("int8probe", (40, 64, 48)),
+                                       ("w8a8", (40, 64, 48)),
+                                       ("w4a16", (2, 128, 64))])
+def test_product_bench_commands_run(cmd, shape, capsys):
+    rows = bk.COMMANDS[cmd](bk.Bench("cpu", iters=1), shape)
+    assert len(rows) >= 3
+    assert "not a device time" in capsys.readouterr().out
+
+
+def test_probe_plain_version_is_exact():
+    rng = np.random.default_rng(0)
+    a = rng.integers(-127, 128, (33, 64), dtype=np.int8)
+    b = rng.integers(-127, 128, (17, 64), dtype=np.int8)
+    got = bk.matmul_probe(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(
+        got.numpy(), a.astype(np.int32) @ b.astype(np.int32).T)
+    x = torch.from_numpy(rng.standard_normal((5, 32)).astype(np.float32))
+    out = bk.matmul_probe(x.bfloat16(), x.bfloat16())
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, x.bfloat16().float() @ x.bfloat16().float().T)
