@@ -14,7 +14,11 @@ Phases (any failure raises and exits non-zero):
    entries; 2048^3 for the matmul probe), in bfloat16, compared in
    float32 (the integer products bit for bit); times the kernel, the
    plain version and one PyTorch library call computing the same function
-   (CUDA events, after warm-up).
+   (CUDA events, after warm-up). Each SAM record also names the kernel
+   path the wrapper chose (`path`: wgmma, mma.sync or scalar) and times
+   the kernel and its SDPA yardstick once more as CUDA graphs
+   (`graph_ms`, `library_graph_ms`: device time without the host's
+   launch cost).
 3b. backward: the SAM attention entries' gradients at ViT-H shapes against
    autograd through the plain version, the global entry's rel-pos tables
    exactly zero; then the ViT-H image encoder alone, forward and backward
@@ -60,6 +64,10 @@ Phases (any failure raises and exits non-zero):
    card against the CPU (logits within 1e-3).
 10. audit and bench: tools/kernel_audit.py in-process (every check must
    pass) and tools/bench_kernels.py int8probe.
+
+The bf16 full-width paths (evaluate in three modes, train, the ViT-B
+predictor, the encoder backward) must run every SAM launch on the tensor
+cores: no `<key>/scalar` launch count.
 
 Prints a {"kernels": [...]} JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Needs no network; the weights are random.
@@ -146,6 +154,30 @@ def cuda_ms(fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters, warmup=2):
+    """Device time of one call of `fn`: `iters` calls captured in one CUDA
+    graph, the graph replayed twice between CUDA events. Unlike `cuda_ms`
+    it leaves out the host's time to launch each call, which bounds a
+    Python wrapper of a sub-0.1 ms kernel; `fn` must be capturable."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (2 * iters)
 
 
 def bound_ms(nbytes, flops, peak=H100_BF16_FLOPS):
@@ -453,8 +485,12 @@ def check_decode(gen):
 def sam_case(gen, scope, entry, b, hw, nh, d, iters):
     """One SAM attention entry (`scope` "window" or "global"; `entry`
     "split", "fused" or "heads") at one shape in bf16: error against the
-    plain version on the float32 values, kernel / plain / SDPA + bias
-    times, and the bound. The operands of the split and per-head entries
+    plain version on the float32 values, the kernel path the wrapper
+    chose, kernel, plain and SDPA + bias times by CUDA events (`ms`,
+    `plain_ms`, `library_ms`: the host's launch time included where it is
+    longer than the call, as on the eager paths), the kernel and SDPA
+    again as CUDA graphs (`graph_ms`, `library_graph_ms`: device time
+    alone), and the bound. The operands of the split and per-head entries
     are separate contiguous tensors, as their callers hold them."""
     from haff_tpu_torch.kernels import sam_attention as sa
 
@@ -469,46 +505,69 @@ def sam_case(gen, scope, entry, b, hw, nh, d, iters):
         fn = (sa.sam_window_attention_qkv if scope == "window"
               else sa.sam_global_attention_qkv)
         run, held = (lambda: fn(qkv, rh, rw, hw, nh)), (qkv,)
+        views = [sa.head_view(qkv, 3, i, nh) for i in range(3)]
     elif entry == "split":
         q3, kv3 = qkv[..., :c].contiguous(), qkv[..., c:].contiguous()
         run = lambda: sa.sam_window_attention_qkv_split(  # noqa: E731
             q3, kv3, rh, rw, hw, nh)
         held = (q3, kv3)
+        views = [sa.head_view(q3, 1, 0, nh), sa.head_view(kv3, 2, 0, nh),
+                 sa.head_view(kv3, 2, 1, nh)]
     else:
         fn = (sa.sam_window_attention if scope == "window"
               else sa.sam_global_attention)
         run, held = (lambda: fn(q, k, v, rh, rw, hw)), (q, k, v)
+        views = [q, k, v]
+    path = sa.PATH_NAMES[sa.kernel_path(scope, *views)]
     name = f"sam {scope} {entry} {(b, l, nh, d)} grid {hw}"
     with torch.no_grad():
         out = run()
         ref = sa.global_attention_plain(qkv.float(), rh, rw, hw, nh, d ** -0.5)
         err = within_bf16(name, out.reshape(b, l, c), ref)
         del ref
-        kern = cuda_ms(run, iters)
+        kern, kern_graph = cuda_ms(run, iters), graph_ms(run, iters)
         plain = cuda_ms(lambda: sa.global_attention_plain(
             qkv, rh.to(bf), rw.to(bf), hw, nh, d ** -0.5), max(iters // 2, 2), 1)
         bias = sa.decomposed_rel_pos_bias(q, rh, rw, hw, hw).to(bf)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=bias, scale=d ** -0.5), iters)
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=bias, scale=d ** -0.5)
+        lib, lib_graph = cuda_ms(sdpa, iters), graph_ms(sdpa, iters)
+        extra = {}
+        if scope == "global":  # the scalar path's band tables, for scale
+            extra["band_tables_ms"] = cuda_ms(
+                lambda: sa.band_tables(q, rh, rw, hw), iters)
     flops = b * nh * (4 * l * l * d + 2 * l * (H + W) * d)
     b_ms, by = bound_ms(nbytes(*held, rh, rw, out), flops)
     layout = {"fused": f"qkv {(b, l, 3 * c)}", "split": f"q3 {(b, l, c)} kv3 "
               f"{(b, l, 2 * c)}", "heads": f"q/k/v {(b, l, nh, d)}"}[entry]
-    return dict(shape=f"{layout} bf16, grid {hw}, {nh} x {d}",
+    return dict(shape=f"{layout} bf16, grid {hw}, {nh} x {d}", path=path,
                 max_abs_err=err, ms=kern, plain_ms=plain, bound_ms=b_ms,
-                bound_by=by, library_ms=lib)
+                bound_by=by, library_ms=lib, graph_ms=kern_graph,
+                library_graph_ms=lib_graph, **extra)
 
 
 def record(name, source, replaces, shapes, **extra):
-    """A kernels-line record whose own numbers are its first shape's."""
+    """A kernels-line record whose own numbers are its first shape's
+    (`path` and the graph times too, where the shapes have them)."""
     main = shapes[0]
+    own = {key: main[key] for key in ("path", "graph_ms", "library_graph_ms")
+           if key in main}
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 shape=main["shape"],
                 max_abs_err=max(r["max_abs_err"] for r in shapes),
                 ms=main["ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                library_ms=main["library_ms"], shapes=shapes, **extra)
+                library_ms=main["library_ms"], **own, shapes=shapes, **extra)
+
+
+# The SAM records' shapes in order, with their kernel ms at PR 4 (scalar
+# kernels; PERF.md's table, NVIDIA H100 80GB HBM3, 700 W, CUDA events):
+# printed beside this run's times, never part of the kernels line.
+PR4_SAM_MS = (("window split ViT-H", 1.6732), ("global fused ViT-H", 16.5093),
+              ("window fused ViT-H", 1.6927), ("window fused 14 x 12", 1.2666),
+              ("window split ViT-B", 1.1877), ("window split small", 0.1492),
+              ("global heads ViT-B", 10.4997), ("window heads ViT-H", 1.6753))
 
 
 def check_sam_entries(gen):
@@ -1343,11 +1402,18 @@ def main():
         for rec in recs if isinstance(recs, list) else [recs]:
             kernels.append(rec)
             for r in rec.get("shapes", [rec]):
+                graph = (f" (path {r['path']}; graph {r['graph_ms']:.4f} ms,"
+                         f" library graph {r['library_graph_ms']:.4f} ms)"
+                         if "path" in r else "")
                 log(f"kernel {rec['name']}: {r['shape']}: max abs err "
                     f"{r['max_abs_err']:.3g}; kernel {r['ms']:.4f} ms, plain "
                     f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
-                    f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+                    f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+                    f"{graph}")
         torch.cuda.empty_cache()
+    log("SAM kernel ms at PR 4, for comparison (copied from PERF.md, "
+        "events, not measured in this run): " + "; ".join(
+            f"{name} {ms}" for name, ms in PR4_SAM_MS))
 
     check_sam_backward(gen)
     for mode in ("bf16", "w8a8", "w4a16"):
@@ -1371,6 +1437,13 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
     paths["train"] = run_train_slice(_build.LAUNCHES)
+    # The bf16 full-width paths run every SAM launch on the tensor cores.
+    for p in ("encoder_backward", "predictor_vit_b", "evaluate_bf16",
+              "evaluate_w8a8", "evaluate_w4a16", "train"):
+        scalar = {k: n for k, n in paths[p].items() if k.endswith("/scalar") and n}
+        if scalar:
+            raise AssertionError(f"{p}: SAM launches on the scalar path {scalar}")
+    log("scalar SAM launches on the bf16 full-width paths: none")
     for rec in kernels:
         name = rec["name"]
         counter = rec.get("counter", name)

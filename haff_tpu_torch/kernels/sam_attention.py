@@ -30,12 +30,23 @@ CPU tensors take the plain version (decomposed bias + softmax attention
 in float32, JAX `_window_xla` semantics); CUDA tensors launch the kernel,
 with no fallback between the two. `force_xla=True` or
 `train_rel_pos=True` asks for the plain version under ordinary autograd
-on either device, as in JAX. A window whose keys, values and scores do not
-fit one block's shared memory (above about 16 x 16 at d = 80) goes to the
-global kernel as a batch of small grids. The TPU-only artefacts (196 ->
-200 tile-pad rows, the -1e30 lane poison, head-half grids, group sizes
-dividing the window count, the 128-lane alignment guards) are not part of
-the port: L is the window area and every geometry runs the kernel.
+on either device, as in JAX. The TPU-only artefacts (196 -> 200 tile-pad
+rows, the -1e30 lane poison, head-half grids, group sizes dividing the
+window count, the 128-lane alignment guards) are not part of the port: L
+is the window area and every geometry runs the kernel.
+
+Each launch takes one path, chosen before it by the pure function
+`kernel_path` (no fallback from one to another): bf16 operands with
+16-byte aligned bases, batch and row strides that are multiples of 8 and
+d % 8 == 0 (`_tensor_core_ok`) run on the tensor cores, the global kernel
+by warpgroup MMA fed by TMA, the window kernel by mma.sync fed by 16-byte
+copies, both with the band built in the kernel from the raw rel-pos
+tables; float32 operands and bf16 views a 16-byte copy cannot read run
+the scalar f32 code. A scalar bf16 launch also counts under
+`<key>/scalar`. A window whose keys and values do not fit
+one block's shared memory on its path (above 21 x 21 at d = 80 on the
+tensor cores, about 16 x 16 on the scalar path) goes to the global kernel
+as a batch of small grids.
 
 Gradients (`RelPosAttentionFn`): the kernels have no backward kernel, as
 the Pallas ones have none. Window entries take the VJP of the plain
@@ -47,9 +58,15 @@ gives the rel-pos tables zero gradients, but only where the JAX package's
 fused global path runs (`global_tables_frozen`); elsewhere it takes the
 plain version's VJP, with true table gradients.
 
-One numeric difference from the Pallas kernels, inside the stated bf16
-tolerance: they scale q and round it, and round the band tables, to the
-operand dtype before the products; these kernels keep both in float32.
+Numerics against the Pallas kernels: both products run on the tensor
+cores with f32 sums, as there. The Pallas kernels round P to bf16 before
+P @ V; that alone puts outputs outside the bf16 tolerance against the
+float32 function at ViT-H shapes, so these kernels keep more of P: bf16
+hi + lo halves (~16 significant bits), or fp16 (11) against V converted
+to fp16 in the window kernel. The Pallas kernels also scale q and round it, and
+round the band tables, to the operand dtype before the products; these
+kernels keep the scale and the band in float32 (the band from bf16 hi +
+lo halves of the f32 tables), inside the stated bf16 tolerance.
 """
 
 from __future__ import annotations
@@ -111,7 +128,7 @@ def head_view(t, parts: int, index: int, num_heads: int):
     if f != parts * c or c % num_heads:
         raise ValueError(f"operand {tuple(t.shape)} is not {parts} x "
                          f"{num_heads} heads wide")
-    return t.view(b, l, parts, num_heads, c // num_heads)[:, :, index]
+    return t.narrow(2, index * c, c).view(b, l, num_heads, c // num_heads)
 
 
 # ---------------------------------------------------------------------------
@@ -154,20 +171,62 @@ def _lib(name):
     if fn.argtypes is None:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = ([vp] * 6 + [i32] * 5 + [i64] * 6
-                       + [ctypes.c_float, i32, vp])
+                       + [ctypes.c_float, i32, i32, vp])
         fn.restype = ctypes.c_int
         smem = getattr(lib, fn.__name__ + "_smem")
-        smem.argtypes = [i32, i32, i32]
+        smem.argtypes = [i32] * 4
         smem.restype = ctypes.c_size_t
     return lib
+
+
+# Kernel paths, as the C entry points number them.
+SCALAR, MMA_SYNC, WGMMA = 0, 1, 2
+PATH_NAMES = ("scalar", "mma.sync", "wgmma")
+
+
+def _tensor_core_ok(q, k, v) -> bool:
+    """Whether the kernels' tensor-core path can read these (B, L, nh, d)
+    operands: bf16, d % 8 == 0, and every row of every head reachable by
+    16-byte copies (base 16-byte aligned, batch and row strides multiples
+    of 8 elements; heads are side by side, so h * d stays aligned too).
+    Pure: dtype, shape, pointers and strides only, on any device."""
+    if q.shape[-1] % 8:
+        return False
+    return all(t.dtype == torch.bfloat16 and t.data_ptr() % 16 == 0
+               and t.stride(0) % 8 == 0 and t.stride(1) % 8 == 0
+               for t in (q, k, v))
+
+
+def kernel_path(kind, q, k, v) -> int:
+    """The path a launch takes: SCALAR unless `_tensor_core_ok`; on the
+    tensor cores the global kernel runs warpgroup MMA (WGMMA) and the
+    window kernel mma.sync, at every grid. Pure, like `_tensor_core_ok`."""
+    if not _tensor_core_ok(q, k, v):
+        return SCALAR
+    return WGMMA if kind == "global" else MMA_SYNC
+
+
+def _table(t, device):
+    """A rel-pos table as the kernels read it: float32, contiguous, on
+    `device`, 16-byte aligned (the window kernel loads 4 floats at a
+    time); a copy only where the caller's tensor is none of these."""
+    t = t.detach().to(device=device, dtype=torch.float32).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _count(counter, q, path):
+    _build.LAUNCHES[counter] += 1
+    if q.dtype == torch.bfloat16 and path == SCALAR:
+        _build.LAUNCHES[counter + "/scalar"] += 1
 
 
 def _check_heads(name, t, like):
     """A (B, L, nh, d) operand the kernels can read in place: head h of
     row i at i * stride(1) + h * d, elements of a head adjacent. Batch and
     row strides are free (fused, split and per-head layouts differ only
-    there). The kernels load single elements, so the only alignment they
-    assume is the element type's, which every tensor has."""
+    there). The scalar paths load single elements, so the only alignment
+    they assume is the element type's; `_tensor_core_ok` decides whether
+    the operands also suit 16-byte copies."""
     if not t.is_cuda or t.device != like.device:
         raise ValueError(f"{name}: operands must be CUDA tensors on one "
                          "device")
@@ -220,41 +279,47 @@ def _operands(name, q, k, v, rel_h, rel_w, hw):
 
 
 def _launch_global(counter, q, k, v, rel_h, rel_w, hw, sm_scale):
-    """csrc/sam_global_attn.cu on (B, L, nh, d) views -> (B, L, nh, d)."""
+    """csrc/sam_global_attn.cu on (B, L, nh, d) views -> (B, L, nh, d).
+    The tensor-core path builds the band in the kernel from the rel-pos
+    tables; the scalar path reads the wrapper's band tables."""
     b, nh, d, strides = _operands(counter, q, k, v, rel_h, rel_w, hw)
     lib = _lib("sam_global_attn")
-    if lib.sam_global_relpos_attn_smem(hw[0], hw[1], d) > _SMEM_LIMIT:
+    path = kernel_path("global", q, k, v)
+    if lib.sam_global_relpos_attn_smem(hw[0], hw[1], d, path) > _SMEM_LIMIT:
         raise ValueError(f"{counter}: grid {hw} x head dim {d} exceeds one "
                          "block's shared memory")
-    bh, bw = band_tables(q, rel_h, rel_w, hw)
+    if path != SCALAR:
+        bh, bw = _table(rel_h, q.device), _table(rel_w, q.device)
+    else:
+        bh, bw = band_tables(q, rel_h, rel_w, hw)
     out = torch.empty((b, q.shape[1], nh, d), dtype=q.dtype, device=q.device)
     ptr = _build.ptr
     err = lib.sam_global_relpos_attn(
         ptr(q), ptr(k), ptr(v), ptr(bh), ptr(bw), ptr(out), b, hw[0], hw[1],
         nh, d, *strides, float(sm_scale), int(q.dtype == torch.bfloat16),
-        _build.stream_handle(q.device))
-    _build.LAUNCHES[counter] += 1
+        path, _build.stream_handle(q.device))
+    _count(counter, q, path)
     _build.check(err, counter)
     return out
 
 
 def _launch_window(counter, q, k, v, rel_h, rel_w, hw, sm_scale):
     """csrc/sam_window_attn.cu on (BW, L, nh, d) views -> (BW, L, nh, d);
-    a window too large for one block's shared memory runs on the global
-    kernel instead (a window is a small grid)."""
+    a window too large for one block's shared memory on its path runs on
+    the global kernel instead (a window is a small grid)."""
     b, nh, d, strides = _operands(counter, q, k, v, rel_h, rel_w, hw)
     lib = _lib("sam_window_attn")
-    if lib.sam_window_relpos_attn_smem(hw[0], hw[1], d) > _SMEM_LIMIT:
+    path = kernel_path("window", q, k, v)
+    if lib.sam_window_relpos_attn_smem(hw[0], hw[1], d, path) > _SMEM_LIMIT:
         return _launch_global(counter, q, k, v, rel_h, rel_w, hw, sm_scale)
-    rh, rw = (t.detach().to(device=q.device, dtype=torch.float32).contiguous()
-              for t in (rel_h, rel_w))
+    rh, rw = _table(rel_h, q.device), _table(rel_w, q.device)
     out = torch.empty((b, q.shape[1], nh, d), dtype=q.dtype, device=q.device)
     ptr = _build.ptr
     err = lib.sam_window_relpos_attn(
         ptr(q), ptr(k), ptr(v), ptr(rh), ptr(rw), ptr(out), b, hw[0], hw[1],
         nh, d, *strides, float(sm_scale), int(q.dtype == torch.bfloat16),
-        _build.stream_handle(q.device))
-    _build.LAUNCHES[counter] += 1
+        path, _build.stream_handle(q.device))
+    _count(counter, q, path)
     _build.check(err, counter)
     return out
 

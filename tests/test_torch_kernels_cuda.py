@@ -41,6 +41,18 @@ def _close(got, ref):
     assert (err <= tol[0] + tol[1] * ref.float().abs()).all(), float(err.max())
 
 
+def _scalar_bf16_launches():
+    """bf16 SAM launches that took the scalar path (`<key>/scalar`)."""
+    return {k: v for k, v in _build.LAUNCHES.items() if k.endswith("/scalar")}
+
+
+def _assert_tensor_cores(dtype, scalar_before):
+    """A bf16 case whose operands suit 16-byte copies runs on the tensor
+    cores: no `/scalar` counter moved."""
+    if dtype == torch.bfloat16:
+        assert _scalar_bf16_launches() == scalar_before
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("nwin,w,nh,d", [(25, 14, 16, 80), (3, 6, 16, 16),
                                          (2, 4, 2, 16), (4, 7, 3, 32)])
@@ -52,9 +64,11 @@ def test_window_kernel_matches_plain(dev, dtype, nwin, w, nh, d):
     rh = 0.2 * torch.randn(2 * w - 1, d, generator=g, device=dev)
     rw = 0.2 * torch.randn(2 * w - 1, d, generator=g, device=dev)
     before = _build.LAUNCHES["sam_window_relpos_attn"]
+    scalar = _scalar_bf16_launches()
     got = sa.sam_window_attention_qkv_split(q3, kv3, rh, rw, (w, w), nh)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["sam_window_relpos_attn"] == before + 1
+    _assert_tensor_cores(dtype, scalar)
     ref = sa.window_attention_plain(q3.float(), kv3.float(), rh, rw, (w, w),
                                     nh, d ** -0.5)
     _close(got, ref)
@@ -62,14 +76,17 @@ def test_window_kernel_matches_plain(dev, dtype, nwin, w, nh, d):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,H,W,nh,d", [(1, 64, 64, 16, 80), (2, 8, 8, 2, 16),
-                                        (1, 32, 32, 2, 128), (1, 10, 6, 3, 24)])
+                                        (1, 32, 32, 2, 128), (1, 10, 6, 3, 24),
+                                        (2, 64, 64, 16, 80)])  # evaluate's batch
 def test_global_kernel_matches_plain(dev, dtype, b, H, W, nh, d):
     g = torch.Generator(dev).manual_seed(H * W + d)
     c = nh * d
     qkv = torch.randn(b, H * W, 3 * c, generator=g, device=dev).to(dtype)
     rh = 0.2 * torch.randn(2 * H - 1, d, generator=g, device=dev)
     rw = 0.2 * torch.randn(2 * W - 1, d, generator=g, device=dev)
+    scalar = _scalar_bf16_launches()
     got = sa.sam_global_attention_qkv(qkv, rh, rw, (H, W), nh)
+    _assert_tensor_cores(dtype, scalar)
     ref = sa.global_attention_plain(qkv.float(), rh, rw, (H, W), nh, d ** -0.5)
     _close(got, ref)
 
@@ -102,6 +119,48 @@ def test_flash_prefill_matches_plain(dev, dtype, b, lq, lk, h, d, causal,
                                       qseg, kseg, causal)
     _close(out, ref)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("scope,b,hw,nh,d", [("window", 4, (14, 14), 4, 80),
+                                            ("global", 1, (64, 64), 2, 64)])
+def test_unaligned_bf16_views_take_the_scalar_path(dev, scope, b, hw, nh, d):
+    """A bf16 fused projection that starts 2 bytes into its storage cannot
+    be read by 16-byte copies: both kernels take their scalar path for it
+    (counted under `<key>/scalar`) and stay within the bf16 tolerance."""
+    g = torch.Generator(dev).manual_seed(7)
+    l, c = hw[0] * hw[1], nh * d
+    buf = torch.randn(b * l * 3 * c + 1, generator=g, device=dev).bfloat16()
+    qkv = buf[1:].view(b, l, 3 * c)
+    rh = 0.2 * torch.randn(2 * hw[0] - 1, d, generator=g, device=dev)
+    rw = 0.2 * torch.randn(2 * hw[1] - 1, d, generator=g, device=dev)
+    q, k, v = (sa.head_view(qkv, 3, i, nh) for i in range(3))
+    assert sa.kernel_path(scope, q, k, v) == sa.SCALAR
+    fn, key = ((sa.sam_window_attention_qkv, sa.WINDOW_FUSED) if scope == "window"
+               else (sa.sam_global_attention_qkv, sa.GLOBAL_FUSED))
+    before = dict(_build.LAUNCHES)
+    got = fn(qkv, rh, rw, hw, nh)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[key] == before.get(key, 0) + 1
+    assert _build.LAUNCHES[key + "/scalar"] == before.get(key + "/scalar", 0) + 1
+    _close(got, sa.global_attention_plain(qkv.float(), rh, rw, hw, nh,
+                                          d ** -0.5))
+
+
+def test_window_kernel_keeps_bf16_where_v_exceeds_fp16(dev):
+    """The window kernel multiplies P V in fp16 when every value of the
+    block's V fits fp16; a window-head whose V holds a value above 65504
+    takes the bf16 product instead and stays within tolerance."""
+    g = torch.Generator(dev).manual_seed(11)
+    nwin, hw, nh, d = 3, (14, 14), 2, 64
+    l, c = hw[0] * hw[1], nh * d
+    qkv = torch.randn(nwin, l, 3 * c, generator=g, device=dev)
+    qkv[1, 5, 2 * c + 3] = 1e5            # one head's V in one window
+    qkv = qkv.bfloat16()
+    rh = 0.2 * torch.randn(2 * hw[0] - 1, d, generator=g, device=dev)
+    rw = 0.2 * torch.randn(2 * hw[1] - 1, d, generator=g, device=dev)
+    got = sa.sam_window_attention_qkv(qkv, rh, rw, hw, nh)
+    _close(got, sa.global_attention_plain(qkv.float(), rh, rw, hw, nh,
+                                          d ** -0.5))
 
 
 def test_wrappers_refuse_unsupported_operands(dev):
@@ -375,7 +434,7 @@ def test_window_entries_agree_on_every_layout(dev, dtype, nwin, hw, nh, d):
     and the plain version within tolerance; each counts under its key."""
     qkv, rh, rw = _sam_inputs(dev, dtype, nwin, hw, nh, d)
     l, c = hw[0] * hw[1], nh * d
-    before = dict(_build.LAUNCHES)
+    before, scalar = dict(_build.LAUNCHES), _scalar_bf16_launches()
     fused = sa.sam_window_attention_qkv(qkv, rh, rw, hw, nh)
     split = sa.sam_window_attention_qkv_split(
         qkv[..., :c].contiguous(), qkv[..., c:].contiguous(), rh, rw, hw, nh)
@@ -389,6 +448,7 @@ def test_window_entries_agree_on_every_layout(dev, dtype, nwin, hw, nh, d):
     for key, n in ((sa.WINDOW_FUSED, 1), (sa.WINDOW_SPLIT, 1),
                    (sa.WINDOW_HEADS, 2)):
         assert _build.LAUNCHES[key] == before.get(key, 0) + n, key
+    _assert_tensor_cores(dtype, scalar)
     assert heads.shape == (nwin, l, nh, d)
     for other in (split, heads.reshape(nwin, l, c), heads_c.reshape(nwin, l, c)):
         assert torch.equal(fused, other)
@@ -405,7 +465,7 @@ def test_window_entries_agree_on_every_layout(dev, dtype, nwin, hw, nh, d):
 def test_global_entries_agree_on_every_layout(dev, dtype, b, hw, nh, d):
     qkv, rh, rw = _sam_inputs(dev, dtype, b, hw, nh, d, seed=1)
     l, c = hw[0] * hw[1], nh * d
-    before = dict(_build.LAUNCHES)
+    before, scalar = dict(_build.LAUNCHES), _scalar_bf16_launches()
     fused = sa.sam_global_attention_qkv(qkv, rh, rw, hw, nh)
     q, k, v = (sa.head_view(qkv, 3, i, nh) for i in range(3))
     heads = sa.sam_global_attention(q, k, v, rh, rw, hw)
@@ -414,6 +474,7 @@ def test_global_entries_agree_on_every_layout(dev, dtype, b, hw, nh, d):
     torch.cuda.synchronize()
     assert _build.LAUNCHES[sa.GLOBAL_FUSED] == before.get(sa.GLOBAL_FUSED, 0) + 1
     assert _build.LAUNCHES[sa.GLOBAL_HEADS] == before.get(sa.GLOBAL_HEADS, 0) + 2
+    _assert_tensor_cores(dtype, scalar)
     assert torch.equal(fused, heads.reshape(b, l, c))
     assert torch.equal(fused, heads_c.reshape(b, l, c))
     _close(fused, sa.global_attention_plain(qkv.float(), rh, rw, hw, nh,
@@ -457,7 +518,7 @@ def test_sam_attention_backward_on_the_card(dev, dtype, entry, hw, nh, d):
     ref_ins = [t.detach().float().requires_grad_() for t in ins]
     ref_out = sa.global_attention_plain(*ref_ins, hw, nh, d ** -0.5)
     ref = torch.autograd.grad(ref_out, ref_ins, go.float())
-    before = dict(_build.LAUNCHES)
+    before, scalar = dict(_build.LAUNCHES), _scalar_bf16_launches()
     if entry == "window_split":
         out = sa.sam_window_attention_qkv_split(
             qkv[..., :c].contiguous(), qkv[..., c:].contiguous(), rh, rw, hw, nh)
@@ -469,6 +530,7 @@ def test_sam_attention_backward_on_the_card(dev, dtype, entry, hw, nh, d):
     got = torch.autograd.grad(out, ins, go)
     torch.cuda.synchronize()
     assert _build.LAUNCHES[key] == before.get(key, 0) + 1
+    _assert_tensor_cores(dtype, scalar)
     _close(out, ref_out)
     frozen = entry == "global" and sa.global_tables_frozen(hw)
     for name, a, r in zip(("qkv", "rel_h", "rel_w"), got, ref):

@@ -162,3 +162,93 @@ def test_kernel_wrappers_refuse_to_drop_a_gradient(wrapper):
         assert rel_h.grad.abs().max() > 0 and rel_w.grad.abs().max() > 0
     else:
         assert not rel_h.grad.any() and not rel_w.grad.any()
+
+
+def _views(dtype, d=16, nh=2, l=16):
+    """Fused, split and per-head (B, L, nh, d) views of one storage."""
+    qkv = torch.zeros(2, l, 3 * nh * d, dtype=dtype)
+    fused = [tsa.head_view(qkv, 3, i, nh) for i in range(3)]
+    c = nh * d
+    q3, kv3 = qkv[..., :c], qkv[..., c:]
+    split = [tsa.head_view(q3, 1, 0, nh), tsa.head_view(kv3, 2, 0, nh),
+             tsa.head_view(kv3, 2, 1, nh)]
+    return qkv, {"fused": fused, "split": split,
+                 "heads": [t.contiguous() for t in fused]}
+
+
+@pytest.mark.parametrize("layout", ["fused", "split", "heads"])
+def test_tensor_core_path_takes_every_aligned_bf16_layout(layout):
+    """`_tensor_core_ok` is a pure function of dtype, d, pointers and
+    strides: fused, split and per-head views of one bf16 storage all
+    qualify (bases 16-byte aligned, strides multiples of 8)."""
+    _, views = _views(torch.bfloat16)
+    assert tsa._tensor_core_ok(*views[layout])
+
+
+@pytest.mark.parametrize("case", ["float32", "d=12", "mixed dtype",
+                                  "misaligned base", "odd row stride",
+                                  "odd batch stride"])
+def test_tensor_core_path_refuses_what_16_byte_copies_cannot_read(case):
+    if case == "float32":
+        _, views = _views(torch.float32)
+        q, k, v = views["fused"]
+    elif case == "d=12":
+        _, views = _views(torch.bfloat16, d=12)
+        q, k, v = views["heads"]
+    elif case == "mixed dtype":
+        _, views = _views(torch.bfloat16)
+        q, k, v = views["heads"]
+        v = v.float()
+    elif case == "misaligned base":
+        # The same layout one element further on: base 2 bytes off.
+        buf = torch.zeros(2 * 16 * 3 * 32 + 1, dtype=torch.bfloat16)
+        qkv = buf[1:].view(2, 16, 96)
+        q, k, v = (tsa.head_view(qkv, 3, i, 2) for i in range(3))
+        assert q.data_ptr() % 16 == 2
+    elif case == "odd row stride":
+        qkv = torch.zeros(2, 16, 3 * 32 + 4, dtype=torch.bfloat16)[..., :96]
+        q, k, v = (tsa.head_view(qkv, 3, i, 2) for i in range(3))
+        assert q.stride(1) == 100
+    else:
+        qkv = torch.zeros(2 * 16 * 96 + 4, dtype=torch.bfloat16)
+        qkv = qkv.as_strided((2, 16, 96), (16 * 96 + 4, 96, 1))
+        q, k, v = (tsa.head_view(qkv, 3, i, 2) for i in range(3))
+    assert not tsa._tensor_core_ok(q, k, v)
+
+
+def test_tensor_core_path_reads_d_24_and_the_scalar_count_key():
+    """d = 24 (a multiple of 8, not of 16) qualifies: the kernel pads the
+    head to 32 columns of zeros. The scalar key is the entry's key with
+    `/scalar`, bumped only by bf16 launches off the tensor cores."""
+    _, views = _views(torch.bfloat16, d=24)
+    assert tsa._tensor_core_ok(*views["split"])
+    before = dict(tsa._build.LAUNCHES)
+    q = views["heads"][0]
+    tsa._count("k", q, tsa.MMA_SYNC)
+    tsa._count("k", q, tsa.WGMMA)
+    tsa._count("k", q.float(), tsa.SCALAR)
+    tsa._count("k", q, tsa.SCALAR)
+    got = {k: v - before.get(k, 0) for k, v in tsa._build.LAUNCHES.items()
+           if v != before.get(k, 0)}
+    assert got == {"k": 4, "k/scalar": 1}
+    for key in ("k", "k/scalar"):
+        tsa._build.LAUNCHES[key] = before.get(key, 0)
+
+
+@pytest.mark.parametrize("kind,hw,nh,d,dtype,want", [
+    ("global", (64, 64), 16, 80, torch.bfloat16, "wgmma"),     # ViT-H
+    ("global", (64, 64), 12, 64, torch.bfloat16, "wgmma"),     # ViT-B / L
+    ("global", (32, 32), 8, 32, torch.bfloat16, "wgmma"),      # small
+    ("global", (12, 64), 2, 80, torch.bfloat16, "wgmma"),      # any H
+    ("global", (64, 32), 2, 80, torch.bfloat16, "wgmma"),      # W != 64
+    ("window", (14, 14), 16, 80, torch.bfloat16, "mma.sync"),
+    ("window", (8, 8), 8, 32, torch.bfloat16, "mma.sync"),
+    ("global", (64, 64), 16, 80, torch.float32, "scalar"),
+    ("window", (14, 14), 16, 80, torch.float32, "scalar")])
+def test_kernel_path_by_kind_grid_and_head_dim(kind, hw, nh, d, dtype, want):
+    """On the tensor cores the global kernel runs warpgroup MMA at every
+    grid and the window kernel mma.sync; float32 runs the scalar code."""
+    l = hw[0] * hw[1]
+    qkv = torch.zeros(1, l, 3 * nh * d, dtype=dtype)
+    q, k, v = (tsa.head_view(qkv, 3, i, nh) for i in range(3))
+    assert tsa.PATH_NAMES[tsa.kernel_path(kind, q, k, v)] == want
