@@ -14,11 +14,11 @@ Phases (any failure raises and exits non-zero):
    entries; 2048^3 for the matmul probe), in bfloat16, compared in
    float32 (the integer products bit for bit); times the kernel, the
    plain version and one PyTorch library call computing the same function
-   (CUDA events, after warm-up). Each SAM record also names the kernel
-   path the wrapper chose (`path`: wgmma, mma.sync or scalar) and times
-   the kernel and its SDPA yardstick once more as CUDA graphs
-   (`graph_ms`, `library_graph_ms`: device time without the host's
-   launch cost).
+   (CUDA events, after warm-up). Each SAM record, and the flash forward
+   and dk/dv records, also names the kernel path the wrapper chose
+   (`path`: wgmma, mma.sync or scalar) and times the kernel and its SDPA
+   yardstick once more as CUDA graphs (`graph_ms`, `library_graph_ms`:
+   device time without the host's launch cost).
 3b. backward: the SAM attention entries' gradients at ViT-H shapes against
    autograd through the plain version, the global entry's rel-pos tables
    exactly zero; then the ViT-H image encoder alone, forward and backward
@@ -66,8 +66,8 @@ Phases (any failure raises and exits non-zero):
    pass) and tools/bench_kernels.py int8probe.
 
 The bf16 full-width paths (evaluate in three modes, train, the ViT-B
-predictor, the encoder backward) must run every SAM launch on the tensor
-cores: no `<key>/scalar` launch count.
+predictor, the encoder backward) must run every SAM, flash forward and
+flash dk/dv launch on the tensor cores: no `<key>/scalar` launch count.
 
 Prints a {"kernels": [...]} JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Needs no network; the weights are random.
@@ -156,16 +156,18 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters, warmup=2):
+def graph_ms(fn, iters, warmup=2, stream=None):
     """Device time of one call of `fn`: `iters` calls captured in one CUDA
     graph, the graph replayed twice between CUDA events. Unlike `cuda_ms`
     it leaves out the host's time to launch each call, which bounds a
-    Python wrapper of a sub-0.1 ms kernel; `fn` must be capturable."""
+    Python wrapper of a sub-0.1 ms kernel; `fn` must be capturable.
+    `stream`: the capture stream (an autograd backward runs its ops on the
+    stream of their forward, so a backward is captured on that one)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -216,6 +218,10 @@ def check_flash(gen):
     # its pad queries are fully-masked rows.
     lengths = torch.tensor([l, l - 100], device=dev)
     seg = (torch.arange(l, device=dev)[None] < lengths[:, None]).to(torch.int32)
+    path = fa.PATH_NAMES[fa.kernel_path(q, k, v)]
+    if path != "wgmma":
+        raise AssertionError(f"flash_prefill_fwd: bf16 phase-3 operands on "
+                             f"the {path} path")
     out, lse = fa.flash_prefill_kernel(q, k, v, None, seg, seg, True)
     ref, ref_lse = fa.attention_plain(q.float(), k.float(), v.float(), None,
                                       seg, seg, True)
@@ -225,16 +231,17 @@ def check_flash(gen):
         raise AssertionError(f"flash_prefill_fwd: lse max abs err {lse_err}")
     if out[1, l - 100:].abs().max() != 0 or lse[1, :, l - 100:].abs().max() != 0:
         raise AssertionError("flash_prefill_fwd: fully-masked rows not zero")
-    kern = cuda_ms(lambda: fa.flash_prefill_kernel(q, k, v, None, seg, seg,
-                                                   True), 20)
+    run = lambda: fa.flash_prefill_kernel(q, k, v, None, seg, seg, True)  # noqa: E731
+    kern, kern_graph = cuda_ms(run, 20), graph_ms(run, 20)
     plain = cuda_ms(lambda: fa.attention_plain(q, k, v, None, seg, seg, True),
                     10)
     causal = torch.ones(l, l, dtype=torch.bool, device=dev).tril()
     mask = (causal[None] & (seg[:, :, None] == seg[:, None, :])
             & (seg[:, None, :] != 0))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask[:, None]), 20)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask[:, None])
+    lib, lib_graph = cuda_ms(sdpa, 20), graph_ms(sdpa, 20)
     pairs = int(mask.sum())  # visible (query, key) pairs of this input
     flops = 4 * d * h * pairs
     b_ms, by = bound_ms(nbytes(q, k, v, seg, seg, out, lse), flops)
@@ -242,9 +249,10 @@ def check_flash(gen):
                 source="haff_tpu_torch/kernels/csrc/flash_prefill.cu",
                 replaces="haff_tpu/kernels/flash_attention.py:105",
                 shape=f"q/k/v {tuple(q.shape)} bf16 causal, lengths "
-                      f"{lengths.tolist()}",
+                      f"{lengths.tolist()}", path=path,
                 max_abs_err=err, ms=kern, plain_ms=plain, bound_ms=b_ms,
-                bound_by=by, library_ms=lib)
+                bound_by=by, library_ms=lib, graph_ms=kern_graph,
+                library_graph_ms=lib_graph)
 
 
 def check_flash_bwd(gen):
@@ -253,7 +261,11 @@ def check_flash_bwd(gen):
     (attention_bwd_dq_plain, attention_bwd_dkv_plain); its library time is
     torch.autograd.grad of one SDPA forward (same boolean mask) for q
     alone or for k and v, timed alone, the forward kept (retain_graph).
-    SDPA's backward computes dq, dk and dv in either call."""
+    SDPA's backward computes dq, dk and dv in either call. The dk/dv
+    record also names its kernel path and times the kernel and its
+    yardstick as CUDA graphs (`graph_ms`, `library_graph_ms`; the
+    yardstick's forward runs on the capture stream, where its backward
+    then runs)."""
     from haff_tpu_torch.kernels import flash_attention as fa
 
     # LLaMA-7B train step, batch 2: 575 spliced tokens, row 1 right-padded
@@ -266,6 +278,10 @@ def check_flash_bwd(gen):
     seg = (torch.arange(l, device=dev)[None] < lengths[:, None]).to(torch.int32)
     out, lse = fa.flash_prefill_kernel(q, k, v, None, seg, seg, True)
     args = (q, k, v, None, seg, seg, out, lse, do, True)
+    path_dkv = fa.PATH_NAMES[fa.kernel_path(q, k, v, do)]
+    if path_dkv != "wgmma":
+        raise AssertionError(f"flash_bwd_dkv: bf16 phase-3 operands on the "
+                             f"{path_dkv} path")
     dq = fa.flash_bwd_dq_kernel(*args)
     dk, dv = fa.flash_bwd_dkv_kernel(*args)
     ref = fa.attention_bwd_plain(q.float(), k.float(), v.float(), None, seg,
@@ -279,7 +295,8 @@ def check_flash_bwd(gen):
     if dk[1, l - 100:].abs().max() != 0 or dv[1, l - 100:].abs().max() != 0:
         raise AssertionError("flash_bwd_dkv: padded key rows not zero")
     ms_dq = cuda_ms(lambda: fa.flash_bwd_dq_kernel(*args), 20)
-    ms_dkv = cuda_ms(lambda: fa.flash_bwd_dkv_kernel(*args), 20)
+    run_dkv = lambda: fa.flash_bwd_dkv_kernel(*args)  # noqa: E731
+    ms_dkv, graph_dkv = cuda_ms(run_dkv, 20), graph_ms(run_dkv, 20)
     plain_dq = cuda_ms(lambda: fa.attention_bwd_dq_plain(*args), 10)
     plain_dkv = cuda_ms(lambda: fa.attention_bwd_dkv_plain(*args), 10)
     causal = torch.ones(l, l, dtype=torch.bool, device=dev).tril()
@@ -294,15 +311,28 @@ def check_flash_bwd(gen):
                                                  retain_graph=True), 20)
     lib_dkv = cuda_ms(lambda: torch.autograd.grad(ot, (kt, vt), dot,
                                                   retain_graph=True), 20)
+    # For the graph: fresh leaves and their forward on the capture stream,
+    # so that no op of the backward (AccumulateGrad included) belongs to
+    # the default stream.
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        ot = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask)
+    lib_dkv_graph = graph_ms(lambda: torch.autograd.grad(
+        ot, (kt, vt), dot, retain_graph=True), 20, stream=side)
     del ot
     pairs = int(mask.sum())  # visible (query, key) pairs of this input
     rows = nbytes(seg, seg, lse, lse)  # segment ids, lse and delta
     recs = []
-    for name, ms, err, outs, flops, plain, lib in (
+    for name, ms, err, outs, flops, plain, lib, own in (
             ("flash_bwd_dq", ms_dq, err_dq, (dq,), 6 * d * h * pairs,
-             plain_dq, lib_dq),
+             plain_dq, lib_dq, {}),
             ("flash_bwd_dkv", ms_dkv, err_dkv, (dk, dv), 8 * d * h * pairs,
-             plain_dkv, lib_dkv)):
+             plain_dkv, lib_dkv, dict(path=path_dkv, graph_ms=graph_dkv,
+                                      library_graph_ms=lib_dkv_graph))):
         b_ms, by = bound_ms(nbytes(q, k, v, do, *outs) + rows, flops)
         recs.append(dict(
             name=name, route="cuda",
@@ -313,7 +343,7 @@ def check_flash_bwd(gen):
             shape=f"q/k/v/dO {tuple(q.shape)} bf16 causal, lengths "
                   f"{lengths.tolist()}",
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-            bound_by=by, library_ms=lib))
+            bound_by=by, library_ms=lib, **own))
     return recs
 
 
@@ -1437,13 +1467,15 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
     paths["train"] = run_train_slice(_build.LAUNCHES)
-    # The bf16 full-width paths run every SAM launch on the tensor cores.
+    # The bf16 full-width paths run every SAM, flash forward and flash
+    # dk/dv launch on the tensor cores.
     for p in ("encoder_backward", "predictor_vit_b", "evaluate_bf16",
               "evaluate_w8a8", "evaluate_w4a16", "train"):
         scalar = {k: n for k, n in paths[p].items() if k.endswith("/scalar") and n}
         if scalar:
-            raise AssertionError(f"{p}: SAM launches on the scalar path {scalar}")
-    log("scalar SAM launches on the bf16 full-width paths: none")
+            raise AssertionError(f"{p}: launches on the scalar path {scalar}")
+    log("scalar SAM, flash_prefill_fwd and flash_bwd_dkv launches on the "
+        "bf16 full-width paths: none")
     for rec in kernels:
         name = rec["name"]
         counter = rec.get("counter", name)

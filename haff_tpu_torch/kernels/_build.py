@@ -10,8 +10,8 @@ tensor builds (or reuses, when the source hash matches) the library. A
 failed build raises `KernelBuildError` with nvcc's output.
 
 Also holds `LAUNCHES`, the launch counter every wrapper adds one to
-where it launches its kernel, so a run can show which kernels its path
-went through.
+where it launches its kernel (`count`), so a run can show which kernels
+its path went through.
 """
 
 from __future__ import annotations
@@ -116,6 +116,14 @@ def library(name: str) -> ctypes.CDLL:
         build_all((name,))
         lib = _LIBS[name]
     return lib
+
+
+def count(name: str, q, path: int) -> None:
+    """Add one launch of kernel `name` to LAUNCHES; a bf16 launch on path
+    0, every kernel's scalar path, also counts under `<name>/scalar`."""
+    LAUNCHES[name] += 1
+    if q.dtype == torch.bfloat16 and path == 0:
+        LAUNCHES[name + "/scalar"] += 1
 
 
 def check(err: int, name: str) -> None:

@@ -20,21 +20,60 @@
 //
 // flash_bwd_dq: one block per (64-query tile, head, batch row); it loops
 // over the 64-key tiles up to the causal diagonal, keeping the tile's dq in
-// registers (32 f32 a thread). flash_bwd_dkv: one block per (64-key tile,
-// head, batch row); it loops over the query tiles at or below the diagonal,
-// keeping dk and dv in registers (64 f32 a thread). Any Lq, Lk >= 1 is
-// taken: ragged edges are masked here, not padded by the caller.
+// registers (32 f32 a thread). Any Lq, Lk >= 1 is taken: ragged edges are
+// masked here, not padded by the caller.
 //
 // What bounds them on Hopper: at the train shapes (B=2, L=575, 32 heads,
 // D=128, causal) the work is 6*D*H*pairs FLOPs (dq) and 8*D*H*pairs (dk/dv)
-// against ~4 (B, L, H, D) tensors of bytes, past the bf16 ridge, so the
-// tensor cores would bound them. This first version runs every product as
-// f32 FMAs out of shared memory (inputs widened to f32 once per tile), so
-// the f32 FMA rate and shared-memory bandwidth bound it; mma.sync / wgmma
-// tiles are later work.
+// against ~4 (B, L, H, D) tensors of bytes: 0.014-0.017 ms of bytes, more
+// than the bf16 tensor cores need for the operations. flash_bwd_dq runs
+// every product as f32 FMAs out of shared memory (inputs widened to f32
+// once per tile), so the f32 FMA rate and shared-memory bandwidth bound
+// it; its tensor-core design is later work.
+//
+// flash_bwd_dkv has two paths, chosen by the wrapper (kernel_path) before
+// the launch:
+//
+// * warpgroup MMA (bf16, D % 16 == 0, D <= 128, 16-byte aligned
+//   operands), FA2/FA3's key-major backward. A block owns 64 keys of one
+//   (batch, head): one consumer warpgroup and a producer warp. The K and V
+//   tiles stay in shared memory (TMA, once); the producer streams the
+//   64-query tiles of Q and dO by TMA (the 128-byte swizzled boxes of
+//   flash_prefill.cu) with their lse (times log2 e), delta and segment
+//   ids through a two-stage ring, from the first tile that can see a key
+//   of the block. Per tile the warpgroup computes S^T = K Q^T and dP^T =
+//   V dO^T (wgmma m64n64k16, both operands from shared memory, keys as
+//   M), then P^T = exp2(S^T scale log2 e - lse log2 e) where visible and
+//   dS^T = P^T (dP^T - delta) scale in registers (the masks as in the
+//   forward: only a warp's tiles that straddle the diagonal, a ragged edge
+//   or a segment boundary take the per-element test), and dV += P^T dO,
+//   dK += dS^T Q (wgmma m64n{D}k16, P^T and dS^T from registers, dO and Q
+//   as transposed operands). P^T and dS^T enter as bf16 hi + lo halves:
+//   rounded to bf16 alone they put ~140 of the dk and dv values outside
+//   the bf16 tolerance at the train shape in a CPU emulation of the
+//   rounding (tests/test_torch_flash_paths.py), at 2.5-2.7x; hi + lo
+//   gives 0.45x, and on the card the largest error against the float32
+//   plain version at that shape is 0.0155 (chip_smoke.py). dK and dV stay
+//   in f32 registers (2 x 64 a thread at D = 128) and are written once,
+//   through shared memory.
+//   Register budget: with those accumulators, S^T and dP^T (2 x 32) and
+//   the A fragments, one consumer warpgroup takes 255 registers a thread
+//   without spilling at D = 128 (ptxas, `chip_smoke.py` build log; 12
+//   bytes of spill with a bias). Two consumer warpgroups of 64 keys a
+//   block, sharing the Q / dO stream, were capped at 168 registers a
+//   thread by the 288-thread block and spilled 672 bytes (ptxas), and ran
+//   slower; moving registers to them with setmaxnreg from a producer
+//   warpgroup left ptxas at 168 with spills. So one warpgroup, one block
+//   an SM.
+// * scalar (float32, and bf16 operands the tensor-core path cannot
+//   read): one block per (64-key tile, head, batch row); it loops over
+//   the query tiles at or below the diagonal, keeping dk and dv in
+//   registers (64 f32 a thread), every product an f32 FMA.
+#include <limits.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "tc.cuh"
 
 namespace {
 
@@ -323,6 +362,257 @@ cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---- flash_bwd_dkv on warpgroup MMA (bf16); the header has the design ----
+
+constexpr int DKV_STAGES = 2;
+constexpr int DKV_CONSUMERS = 128;  // one warpgroup, 64 keys
+constexpr int BOX_BYTES = 64 * 128;  // one 64-row x 64-column box, swizzled
+constexpr int ROWS = 68;             // per stage: 64 values of a row term + a flag
+
+size_t dkv_wg_smem_bytes(int DP) {
+  const size_t tile = (size_t)64 * DP * 2;
+  return 1024 + (2 + 2 * DKV_STAGES) * tile + DKV_STAGES * 3 * ROWS * 4 +
+         (2 * DKV_STAGES + 2) * sizeof(uint64_t) + 4 * 8 * (DP + 8) * 2;
+}
+
+template <int DP, bool BIAS>
+__global__ void __launch_bounds__(DKV_CONSUMERS + 32, 1)
+flash_bwd_dkv_wg_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        const __grid_constant__ CUtensorMap domap, Params p) {
+  namespace tc = haff::tc;
+  constexpr int NO = DP / 8, KS = DP / 16, BOXES = DP / 64, SDS = DP + 8;
+  constexpr int TILE = BOXES * BOX_BYTES;
+  const int Lq = p.Lq, Lk = p.Lk, H = p.H, D = p.D;
+  const int off = Lk - Lq;
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int j0 = blockIdx.y * 64;  // the block's first key
+  const bool seg = p.kseg != nullptr;
+  const int nqt = (Lq + 63) / 64;
+  const int q_first = p.causal ? max(0, j0 - off) / 64 : 0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  extern __shared__ uint4 smem_wg[];
+  uint8_t* smem_raw = reinterpret_cast<uint8_t*>(smem_wg);
+  uint8_t* kv = smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* stages = kv + 2 * TILE;  // after K and V: [stage][Q, dO]
+  float* rows = reinterpret_cast<float*>(stages + DKV_STAGES * 2 * TILE);  // [stage][lse2, delta, qseg]
+  uint64_t* full = reinterpret_cast<uint64_t*>(rows + DKV_STAGES * 3 * ROWS);
+  uint64_t* empty = full + DKV_STAGES;
+  uint64_t* kv_full = empty + DKV_STAGES;
+  __nv_bfloat16* stage_out = reinterpret_cast<__nv_bfloat16*>(kv_full + 2);  // 16-byte aligned
+  if (tid == 0) {
+    for (int s = 0; s < DKV_STAGES; ++s) {
+      tc::mbar_init(&full[s], 1);
+      tc::mbar_init(&empty[s], DKV_CONSUMERS);
+    }
+    tc::mbar_init(kv_full, 1);
+    tc::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == DKV_CONSUMERS / 32) {  // the producer
+    if (lane == 0) {
+      tc::mbar_expect_tx(kv_full, 2 * TILE);
+#pragma unroll
+      for (int x = 0; x < BOXES; ++x) {
+        tc::tma_load_4d(kv + x * BOX_BYTES, &kmap, kv_full, 64 * x, h, j0, b);
+        tc::tma_load_4d(kv + TILE + x * BOX_BYTES, &vmap, kv_full, 64 * x, h, j0, b);
+      }
+    }
+    for (int qt = q_first; qt < nqt; ++qt) {
+      const int it = qt - q_first, s = it % DKV_STAGES, use = it / DKV_STAGES, i0 = qt * 64;
+      if (use > 0) tc::mbar_wait(&empty[s], (use - 1) & 1);
+      float* r = rows + s * 3 * ROWS;
+      int* qs = reinterpret_cast<int*>(r + 2 * ROWS);
+      int mn = INT_MAX, mx = INT_MIN;
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int i = i0 + lane + 32 * x;
+        const int64_t row = ((int64_t)b * H + h) * Lq + i;
+        r[lane + 32 * x] = i < Lq ? p.lse[row] * tc::LOG2E : 0.f;
+        r[ROWS + lane + 32 * x] = i < Lq ? p.delta[row] : 0.f;
+        if (seg) {
+          const int id = i < Lq ? p.qseg[(int64_t)b * Lq + i] : 0;
+          qs[lane + 32 * x] = id;
+          mn = min(mn, id);
+          mx = max(mx, id);
+        }
+      }
+      if (seg) {
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+          mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        }
+        if (lane == 0) qs[64] = (mn == mx && mn != 0) ? mn : -1;
+      }
+      __syncwarp();
+      if (lane == 0) {
+        tc::mbar_expect_tx(&full[s], 2 * TILE);
+        uint8_t* Qs = stages + s * 2 * TILE;
+#pragma unroll
+        for (int x = 0; x < BOXES; ++x) {
+          tc::tma_load_4d(Qs + x * BOX_BYTES, &qmap, &full[s], 64 * x, h, i0, b);
+          tc::tma_load_4d(Qs + TILE + x * BOX_BYTES, &domap, &full[s], 64 * x, h, i0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  const int g = lane >> 2, t = lane & 3;
+  const int jw = j0 + warp * 16;  // the warp's first key
+  int ks[2] = {0, 0}, wseg = -1;  // the rows' (keys') ids; the warp's one id or -1
+  if (seg) {
+    int mn = INT_MAX, mx = INT_MIN;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int j = jw + g + 8 * hf;
+      if (j < Lk) {
+        ks[hf] = p.kseg[(int64_t)b * Lk + j];
+        mn = min(mn, ks[hf]);
+        mx = max(mx, ks[hf]);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+      mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    }
+    wseg = (mn == mx && mn != 0) ? mn : -1;
+  }
+  const float* bias_col[2] = {nullptr, nullptr};  // bias[b, h, :, j] of the thread's keys
+  if constexpr (BIAS)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      bias_col[hf] = p.bias + b * p.bias_sb + h * p.bias_sh +
+                     (int64_t)min(jw + g + 8 * hf, Lk - 1) * p.bias_sj;
+
+  const uint8_t* Kw = kv;
+  const uint8_t* Vw = kv + TILE;
+  float dk[NO * 4], dv[NO * 4];
+#pragma unroll
+  for (int x = 0; x < NO * 4; ++x) dk[x] = dv[x] = 0.f;
+  float sT[32] = {}, dpT[32] = {};
+  const float scale_log2 = p.scale * tc::LOG2E;
+  tc::mbar_wait(kv_full, 0);
+  for (int qt = q_first; qt < nqt; ++qt) {
+    const int it = qt - q_first, st = it % DKV_STAGES, i0 = qt * 64;
+    tc::mbar_wait(&full[st], (it / DKV_STAGES) & 1);
+    const uint8_t* Qs = stages + st * 2 * TILE;
+    const uint8_t* dOs = Qs + TILE;
+    tc::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const int o = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
+      tc::wgmma_ss_n64(sT, tc::wg_desc_sw128(Kw + o, 16, 1024),
+                       tc::wg_desc_sw128(Qs + o, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const int o = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
+      tc::wgmma_ss_n64(dpT, tc::wg_desc_sw128(Vw + o, 16, 1024),
+                       tc::wg_desc_sw128(dOs + o, 16, 1024), kk > 0);
+    }
+    tc::wg_commit();
+    tc::wg_wait<0>();
+    tc::wg_hold(sT);
+    tc::wg_hold(dpT);
+
+    const float* lse2 = rows + st * 3 * ROWS;
+    const float* delta = lse2 + ROWS;
+    const int* qs = reinterpret_cast<const int*>(lse2 + 2 * ROWS);
+    const bool mask = i0 + 64 > Lq || jw + 16 > Lk || (p.causal && jw + 15 > i0 + off) ||
+                      (seg && (wseg < 0 || qs[64] != wseg));
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hf = e >> 1, ii = n * 8 + 2 * t + (e & 1), i = i0 + ii;
+        bool vis = true;
+        if (mask) {
+          const int j = jw + g + 8 * hf;
+          vis = i < Lq && j < Lk && (!p.causal || j <= i + off) &&
+                (!seg || (qs[ii] == ks[hf] && ks[hf] != 0));
+        }
+        float x = fmaf(sT[4 * n + e], scale_log2, -lse2[ii]);
+        if constexpr (BIAS)
+          if (vis) x = fmaf(bias_col[hf][(int64_t)i * p.bias_si], tc::LOG2E, x);
+        const float pr = vis ? tc::exp2_approx(x) : 0.f;
+        sT[4 * n + e] = pr;
+        dpT[4 * n + e] = pr * (dpT[4 * n + e] - delta[ii]) * p.scale;
+      }
+    uint32_t phi[4][4], plo[4][4], dhi[4][4], dlo[4][4];
+#pragma unroll
+    for (int k4 = 0; k4 < 4; ++k4) {
+      tc::split_p(reinterpret_cast<const float(&)[8][4]>(sT), k4, phi[k4], plo[k4]);
+      tc::split_p(reinterpret_cast<const float(&)[8][4]>(dpT), k4, dhi[k4], dlo[k4]);
+    }
+    tc::wg_fence();
+#pragma unroll
+    for (int k4 = 0; k4 < 4; ++k4) {
+      const uint64_t ddo = tc::wg_desc_sw128(dOs + k4 * 2048, BOX_BYTES, 1024);
+      const uint64_t dqq = tc::wg_desc_sw128(Qs + k4 * 2048, BOX_BYTES, 1024);
+      if constexpr (DP == 128) {
+        tc::wgmma_n128<1>(dv, phi[k4], ddo, 1);
+        tc::wgmma_n128<1>(dv, plo[k4], ddo, 1);
+        tc::wgmma_n128<1>(dk, dhi[k4], dqq, 1);
+        tc::wgmma_n128<1>(dk, dlo[k4], dqq, 1);
+      } else {
+        tc::wgmma_n64<1>(dv, phi[k4], ddo, 1);
+        tc::wgmma_n64<1>(dv, plo[k4], ddo, 1);
+        tc::wgmma_n64<1>(dk, dhi[k4], dqq, 1);
+        tc::wgmma_n64<1>(dk, dlo[k4], dqq, 1);
+      }
+    }
+    tc::wg_commit();
+    tc::wg_wait<0>();
+    tc::wg_hold(dv);
+    tc::wg_hold(dk);
+    tc::wg_hold(phi);
+    tc::wg_hold(plo);
+    tc::wg_hold(dhi);
+    tc::wg_hold(dlo);
+    tc::mbar_arrive(&empty[st]);  // this thread is done with the stage
+  }
+
+  const float one[2] = {1.f, 1.f};
+  const int64_t base = ((int64_t)b * Lk * H + h) * D;
+  __nv_bfloat16* stage = stage_out + warp * 8 * SDS;
+  tc::store_acc_staged<NO, SDS>(dk, one, static_cast<__nv_bfloat16*>(p.dk) + base,
+                                (long long)H * D, jw, Lk, D / 8, stage, lane);
+  tc::store_acc_staged<NO, SDS>(dv, one, static_cast<__nv_bfloat16*>(p.dv) + base,
+                                (long long)H * D, jw, Lk, D / 8, stage, lane);
+}
+
+template <int DP, bool BIAS>
+cudaError_t launch_dkv_wg_as(const Params& p, cudaStream_t stream) {
+  namespace tc = haff::tc;
+  CUtensorMap qmap, kmap, vmap, domap;
+  if (!tc::bhld_map_sw128(&qmap, p.q, p.D, p.H, p.Lq, p.B) ||
+      !tc::bhld_map_sw128(&kmap, p.k, p.D, p.H, p.Lk, p.B) ||
+      !tc::bhld_map_sw128(&vmap, p.v, p.D, p.H, p.Lk, p.B) ||
+      !tc::bhld_map_sw128(&domap, p.dout, p.D, p.H, p.Lq, p.B))
+    return cudaErrorInvalidValue;
+  const size_t smem = dkv_wg_smem_bytes(DP);
+  cudaError_t e = haff::allow_smem(flash_bwd_dkv_wg_kernel<DP, BIAS>, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid(p.B * p.H, (p.Lk + 63) / 64);
+  flash_bwd_dkv_wg_kernel<DP, BIAS>
+      <<<grid, DKV_CONSUMERS + 32, smem, stream>>>(qmap, kmap, vmap, domap, p);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dkv_wg(const Params& p, cudaStream_t stream) {
+  if (p.D % 16 || p.D > 128) return cudaErrorInvalidValue;
+  if (p.D > 64)
+    return p.bias ? launch_dkv_wg_as<128, true>(p, stream)
+                  : launch_dkv_wg_as<128, false>(p, stream);
+  return p.bias ? launch_dkv_wg_as<64, true>(p, stream) : launch_dkv_wg_as<64, false>(p, stream);
+}
+
 Params make_params(const void* q, const void* k, const void* v, const void* bias,
                    int64_t bias_sb, int64_t bias_sh, int64_t bias_si, int64_t bias_sj,
                    const void* qseg, const void* kseg, const void* dout, const void* lse,
@@ -374,20 +664,27 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
 }
 
 // Same operands as flash_bwd_dq; writes dk (like k) and dv (like v).
+// Paths (the wrapper's kernel_path): 0 scalar (bf16 or f32), 1 warpgroup
+// MMA (bf16, D % 16 == 0, 16-byte aligned q, k, v, dout, dk and dv).
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* bias,
                              int64_t bias_sb, int64_t bias_sh, int64_t bias_si,
                              int64_t bias_sj, const void* qseg, const void* kseg,
                              const void* dout, const void* lse, const void* delta, void* dk,
                              void* dv, int B, int Lq, int Lk, int H, int D, float scale,
-                             int causal, int is_bf16, void* stream) {
+                             int causal, int is_bf16, int path, void* stream) {
   Params p = make_params(q, k, v, bias, bias_sb, bias_sh, bias_si, bias_sj, qseg, kseg, dout,
                          lse, delta, B, Lq, Lk, H, D, scale, causal);
   p.dk = dk;
   p.dv = dv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (path == 1) return is_bf16 ? (int)launch_dkv_wg(p, s) : (int)cudaErrorInvalidValue;
+  if (path != 0) return (int)cudaErrorInvalidValue;
   if (is_bf16) return (int)launch_dkv<__nv_bfloat16>(p, s);
   return (int)launch_dkv<float>(p, s);
 }
 
 extern "C" size_t flash_bwd_dq_smem(int D) { return dq_smem_bytes(D); }
-extern "C" size_t flash_bwd_dkv_smem(int D) { return dkv_smem_bytes(D); }
+// Dynamic shared memory one block of the dk/dv path needs at head dim D.
+extern "C" size_t flash_bwd_dkv_smem(int D, int path) {
+  return path == 1 ? dkv_wg_smem_bytes(D > 64 ? 128 : 64) : dkv_smem_bytes(D);
+}

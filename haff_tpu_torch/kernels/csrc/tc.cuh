@@ -1,10 +1,12 @@
-// Tensor-core building blocks of the bf16 SAM attention kernels
-// (sam_window_attn.cu, sam_global_attn.cu): 16-byte cp.async with zero
+// Tensor-core building blocks of the bf16 attention kernels
+// (sam_window_attn.cu, sam_global_attn.cu, flash_prefill.cu,
+// flash_bwd.cu): 16-byte cp.async with zero
 // fill, ldmatrix, mma.sync m16n8k16 (bf16 or fp16 operands, f32 sums), the
 // band of the decomposed relative-position bias on the tensor cores, the
 // online softmax of a warp's 16 query rows over a tile of keys, and the
 // pieces of the warpgroup-MMA path: wgmma with register A operands,
-// matrix descriptors, mbarriers and TMA loads.
+// matrix descriptors (unswizzled and 128-byte swizzled), mbarriers, TMA
+// loads and the (B, L, H, D) tensor map.
 //
 // Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major): a0 = A[g][2t..2t+1],   a1 = A[g+8][2t..],
@@ -14,6 +16,7 @@
 // so a warp owns 16 query rows, and each thread two of them (g, g + 8).
 #pragma once
 
+#include <cuda.h>
 #include <cuda_fp16.h>
 #include <stdint.h>
 
@@ -499,6 +502,80 @@ __device__ __forceinline__ void wgmma_n80(float (&d)[40], const uint32_t (&a)[4]
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate), "n"(TRANS_B));
 }
 
+
+// d (m64 x n128, f32) {+}= a (m64 x k16, bf16 registers) @ B (k16 x n128, bf16
+// in shared memory, `desc`); trans_b = 1 when B's n index is contiguous.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate), "n"(TRANS_B));
+}
+
+// d (m64 x n64, f32) {+}= A (m64 x k16) @ B (k16 x n64), both bf16 in shared
+// memory (`da`, `db`), both with k contiguous (K-major).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// ---- 128-byte swizzled operands (the flash kernels) ----
+//
+// A tile of rows of 64 bf16 columns (128 bytes a row), as TMA writes it
+// with CU_TENSOR_MAP_SWIZZLE_128B: 16-byte chunk c of row r lands at
+// r * 128 + (c ^ r % 8) * 16, in 1 KB atoms of 8 rows; tiles start on
+// 1 KB boundaries, so the swizzle's base offset is 0. A 64-row tile is 8
+// KB. K-major operand (k contiguous: K in S = Q K^T, Q in S^T = K Q^T):
+// stride byte offset 1024 (next 8 rows), leading byte offset unused; the
+// k-step of 16 columns adds 32 bytes to the start address, and columns
+// 64.. are the next tile. MN-major operand (n contiguous: V in O += P V):
+// stride byte offset 1024 (next 8 rows of k), leading byte offset the
+// distance from one 64-column tile to the next; the k-step of 16 rows
+// adds 2048 bytes.
+__device__ __forceinline__ uint64_t wg_desc_sw128(const void* p, uint32_t lbo, uint32_t sbo) {
+  return wg_desc(p, lbo, sbo) | (1ull << 62);  // layout type 1: 128-byte swizzle
+}
+
+// Rows of a warp's 16-row f32 accumulator block (wgmma / mma layout, NO
+// column blocks of 8), each row half hf times inv[hf], as bf16 into
+// out[i * row + c] for rows i = row0 + r < L and the first `nchunk`
+// 16-byte chunks of each row, through the warp's staging area (8 rows,
+// stride SDS elements, 16-byte aligned): each store instruction writes
+// whole 16-byte chunks. Needs a 16-byte aligned `out` and row stride.
+template <int NO, int SDS>
+__device__ __forceinline__ void store_acc_staged(const float (&acc)[NO * 4], const float (&inv)[2],
+                                                 __nv_bfloat16* out, long long row, int row0,
+                                                 int L, int nchunk, __nv_bfloat16* stage,
+                                                 int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    __syncwarp();  // the area's last readers are done
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<uint32_t*>(stage + g * SDS + n * 8 + 2 * t) =
+          pack_bf16(acc[4 * n + 2 * hf] * inv[hf], acc[4 * n + 2 * hf + 1] * inv[hf]);
+    __syncwarp();
+    for (int o = lane; o < 8 * nchunk; o += 32) {
+      const int r = o / nchunk, c = (o - r * nchunk) * 8, i = row0 + hf * 8 + r;
+      if (i < L)
+        *reinterpret_cast<uint4*>(out + i * row + c) =
+            *reinterpret_cast<const uint4*>(stage + r * SDS + c);
+    }
+  }
+}
+
 // store_rows through a warp's staging area (8 rows, row stride DS): each
 // store instruction writes whole 16-byte chunks of rows (needs a 16-byte
 // aligned base and row stride).
@@ -560,6 +637,47 @@ __device__ __forceinline__ void store_rows(RowState<NO>& st, __nv_bfloat16* out,
       }
     }
   }
+}
+
+// ---- host side: tensor maps ----
+
+// cuTensorMapEncodeTiled, a driver function, through the runtime's entry
+// point table (no link against libcuda).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A contiguous bf16 (B, L, H, D) tensor as the 4-d map (D, H, L, B) with
+// boxes of 64 columns x 1 head x 64 rows, 128-byte swizzle (the layout
+// wg_desc_sw128 reads). Columns past D and rows past L read as zeros, so
+// D < 64 and the ragged last tile need no masking of the copy. Needs a
+// 16-byte aligned base and D % 8 == 0.
+inline bool bhld_map_sw128(CUtensorMap* map, const void* base, int D, int H, int L, int B) {
+  EncodeTiledFn encode = encode_tiled_fn();
+  if (!encode) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                 (cuuint64_t)L * H * D * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace tc

@@ -12,6 +12,12 @@ csrc/flash_prefill.cu (`flash_prefill_fwd`); when grad mode is on and q, k
 or v requires grad it goes through `FlashAttentionFn`, whose backward is
 csrc/flash_bwd.cu (`flash_bwd_dq`, `flash_bwd_dkv`), the counterpart of
 the JAX `custom_vjp`.
+
+The forward and dk/dv kernels have two paths, chosen before the launch by
+`kernel_path` from dtype, head dim, pointers and strides: warpgroup MMA
+fed by TMA for bf16 operands it can address, the scalar f32-FMA code for
+the rest (float32 included). A bf16 launch on the scalar path also counts
+under `<kernel>/scalar` in `_build.LAUNCHES`. The dq kernel is scalar.
 """
 
 from __future__ import annotations
@@ -26,6 +32,9 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _KERNEL = "flash_prefill_fwd"
 _DQ, _DKV = "flash_bwd_dq", "flash_bwd_dkv"
 _SMEM_LIMIT = 227 * 1024
+# Kernel paths, as the C entry points number them.
+SCALAR, WGMMA = 0, 1
+PATH_NAMES = ("scalar", "wgmma")
 
 
 def _mask(b, lq, lk, causal, q_seg, kv_seg, device):
@@ -153,21 +162,45 @@ def _lib(name):
     if name == "flash_prefill" and lib.flash_prefill_fwd.argtypes is None:
         lib.flash_prefill_fwd.argtypes = [
             vp, vp, vp, vp, i64, i64, i64, i64, vp, vp, vp, vp,
-            i32, i32, i32, i32, i32, f32, i32, i32, vp]
+            i32, i32, i32, i32, i32, f32, i32, i32, i32, vp]
         lib.flash_prefill_fwd.restype = i32
-        lib.flash_prefill_fwd_smem.argtypes = [i32]
+        lib.flash_prefill_fwd_smem.argtypes = [i32, i32]
         lib.flash_prefill_fwd_smem.restype = ctypes.c_size_t
     if name == "flash_bwd" and lib.flash_bwd_dq.argtypes is None:
         head = [vp, vp, vp, vp, i64, i64, i64, i64, vp, vp, vp, vp, vp]
         tail = [i32, i32, i32, i32, i32, f32, i32, i32, vp]
         lib.flash_bwd_dq.argtypes = head + [vp] + tail
-        lib.flash_bwd_dkv.argtypes = head + [vp, vp] + tail
+        lib.flash_bwd_dkv.argtypes = head + [vp, vp] + tail[:-1] + [i32, vp]
         for fn in (lib.flash_bwd_dq, lib.flash_bwd_dkv):
             fn.restype = i32
+        lib.flash_bwd_dq_smem.argtypes = [i32]
+        lib.flash_bwd_dkv_smem.argtypes = [i32, i32]
         for fn in (lib.flash_bwd_dq_smem, lib.flash_bwd_dkv_smem):
-            fn.argtypes = [i32]
             fn.restype = ctypes.c_size_t
     return lib
+
+
+def _tensor_core_ok(*ts) -> bool:
+    """Whether the warpgroup-MMA paths can read these (B, L, H, D)
+    operands through TMA: bf16, D % 16 == 0 and D <= 128, every base
+    16-byte aligned, the last stride 1 and every other stride of a dim
+    longer than 1 a multiple of 8 elements (16 bytes). Pure: dtype,
+    shape, pointers and strides only, on any device."""
+    d = ts[0].shape[-1]
+    if d % 16 or d > 128:
+        return False
+    return all(t.dtype == torch.bfloat16 and t.shape[-1] == d
+               and t.data_ptr() % 16 == 0 and t.stride(-1) == 1
+               and all(st % 8 == 0 for n, st in zip(t.shape[:-1], t.stride())
+                       if n > 1)
+               for t in ts)
+
+
+def kernel_path(*operands) -> int:
+    """The path of a forward (q, k, v) or dk/dv (q, k, v, dO) launch:
+    WGMMA where `_tensor_core_ok`, else SCALAR. Pure, like
+    `_tensor_core_ok`."""
+    return WGMMA if _tensor_core_ok(*operands) else SCALAR
 
 
 def _operands(name, q, k, v, bias, q_segment_ids, kv_segment_ids):
@@ -223,7 +256,8 @@ def flash_prefill_kernel(q, k, v, bias=None, q_segment_ids=None,
     if sm_scale is None:
         sm_scale = d ** -0.5
     lib = _lib("flash_prefill")
-    if lib.flash_prefill_fwd_smem(d) > _SMEM_LIMIT:
+    path = kernel_path(q, k, v)
+    if lib.flash_prefill_fwd_smem(d, path) > _SMEM_LIMIT:
         raise ValueError(f"flash_prefill_kernel: head dim {d} too large")
     out = torch.empty_like(q)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
@@ -232,8 +266,8 @@ def flash_prefill_kernel(q, k, v, bias=None, q_segment_ids=None,
         ptr(q), ptr(k), ptr(v), ptr(bias), *strides, ptr(q_segment_ids),
         ptr(kv_segment_ids), ptr(out), ptr(lse), b, lq, lk, h, d,
         float(sm_scale), int(bool(causal)), int(q.dtype == torch.bfloat16),
-        _build.stream_handle(q.device))
-    _build.LAUNCHES[_KERNEL] += 1
+        path, _build.stream_handle(q.device))
+    _build.count(_KERNEL, q, path)
     _build.check(err, _KERNEL)
     return out, lse
 
@@ -266,19 +300,24 @@ def _bwd_operands(q, k, v, bias, q_segment_ids, kv_segment_ids, out, lse,
 
 def _bwd_launch(name, operands, causal, outputs):
     """Launch kernel `name` of csrc/flash_bwd.cu on `_bwd_operands`'s
-    result, writing `outputs`."""
+    result, writing `outputs`; `flash_bwd_dkv` on `kernel_path(q, k, v,
+    dO)`, `flash_bwd_dq` (scalar only) as it was."""
     q, k, v, bias, strides, qs, ks, do, lse, delta, sm_scale = operands
     b, lq, h, d = q.shape
     lib = _lib("flash_bwd")
-    if getattr(lib, name + "_smem")(d) > _SMEM_LIMIT:
+    path = (kernel_path(q, k, v, do),) if name == _DKV else ()
+    if getattr(lib, name + "_smem")(d, *path) > _SMEM_LIMIT:
         raise ValueError(f"{name}: head dim {d} too large")
     ptr = _build.ptr
     err = getattr(lib, name)(
         ptr(q), ptr(k), ptr(v), ptr(bias), *strides, ptr(qs), ptr(ks),
         ptr(do), ptr(lse), ptr(delta), *(ptr(t) for t in outputs), b, lq,
         k.shape[1], h, d, sm_scale, int(bool(causal)),
-        int(q.dtype == torch.bfloat16), _build.stream_handle(q.device))
-    _build.LAUNCHES[name] += 1
+        int(q.dtype == torch.bfloat16), *path, _build.stream_handle(q.device))
+    if path:
+        _build.count(name, q, path[0])
+    else:
+        _build.LAUNCHES[name] += 1
     _build.check(err, name)
 
 

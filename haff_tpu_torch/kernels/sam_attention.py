@@ -214,12 +214,6 @@ def _table(t, device):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _count(counter, q, path):
-    _build.LAUNCHES[counter] += 1
-    if q.dtype == torch.bfloat16 and path == SCALAR:
-        _build.LAUNCHES[counter + "/scalar"] += 1
-
-
 def _check_heads(name, t, like):
     """A (B, L, nh, d) operand the kernels can read in place: head h of
     row i at i * stride(1) + h * d, elements of a head adjacent. Batch and
@@ -298,7 +292,7 @@ def _launch_global(counter, q, k, v, rel_h, rel_w, hw, sm_scale):
         ptr(q), ptr(k), ptr(v), ptr(bh), ptr(bw), ptr(out), b, hw[0], hw[1],
         nh, d, *strides, float(sm_scale), int(q.dtype == torch.bfloat16),
         path, _build.stream_handle(q.device))
-    _count(counter, q, path)
+    _build.count(counter, q, path)
     _build.check(err, counter)
     return out
 
@@ -319,7 +313,7 @@ def _launch_window(counter, q, k, v, rel_h, rel_w, hw, sm_scale):
         ptr(q), ptr(k), ptr(v), ptr(rh), ptr(rw), ptr(out), b, hw[0], hw[1],
         nh, d, *strides, float(sm_scale), int(q.dtype == torch.bfloat16),
         path, _build.stream_handle(q.device))
-    _count(counter, q, path)
+    _build.count(counter, q, path)
     _build.check(err, counter)
     return out
 

@@ -72,11 +72,6 @@ class LisaOutputs(NamedTuple):
 
 
 class LisaModel(nn.Module):
-    # Submodules whose forward always runs under torch.no_grad(): a
-    # trainable parameter there would get no gradient
-    # (train/trainer.py partition_params refuses one).
-    NO_GRAD_MODULES = ("vision_tower", "mm_projector")
-
     def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16,
                  device="cuda", generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -131,16 +126,18 @@ class LisaModel(nn.Module):
 
     def splice_inputs(self, batch: TrainBatch, remat: bool = False):
         """Vision encoders over the unique images, expanded to
-        conversations by `image_index`, and the multimodal splice. The
-        CLIP tower keeps no autograd graph; the SAM encoder keeps one
-        (recomputing each block in the backward with `remat`) only when
-        one of its parameters requires grad. Returns (SAM embeddings per
-        conversation, SplicedBatch)."""
+        conversations by `image_index`, and the multimodal splice. Each
+        encoder keeps an autograd graph only when one of its parameters
+        requires grad: the SAM encoder (recomputing each block in the
+        backward with `remat`), and the CLIP tower with its projector.
+        Returns (SAM embeddings per conversation, SplicedBatch)."""
+        grad = torch.is_grad_enabled()
         encoder = self.visual_model.image_encoder
         train_sam = any(p.requires_grad for p in encoder.parameters())
-        with torch.set_grad_enabled(train_sam and torch.is_grad_enabled()):
+        with torch.set_grad_enabled(train_sam and grad):
             sam_emb = self.encode_sam(batch.images_sam, remat)
-        with torch.no_grad():
+        clip = (*self.vision_tower.parameters(), *self.mm_projector.parameters())
+        with torch.set_grad_enabled(grad and any(p.requires_grad for p in clip)):
             clip_emb = self.encode_clip(batch.images_clip)
         index = batch.image_index.long()
         sam_emb, clip_emb = sam_emb[index], clip_emb[index]

@@ -60,6 +60,8 @@ class ClipLayer(nn.Module):
 class ClipVisionTower(nn.Module):
     """(B, S, S, 3) normalized pixels -> (B, num_patches, hidden)."""
 
+    compute_dtype = None  # see nn/layers.py: set when held in float32
+
     def __init__(self, cfg: ClipVisionConfig):
         super().__init__()
         num_run = cfg.num_layers + cfg.select_layer + 1
@@ -74,7 +76,7 @@ class ClipVisionTower(nn.Module):
         self.layers = nn.ModuleList(ClipLayer(cfg) for _ in range(num_run))
 
     def forward(self, pixels):
-        dt = self.class_embedding.dtype
+        dt = self.compute_dtype or self.class_embedding.dtype
         b = pixels.shape[0]
         patches = conv_nhwc(self.patch_embedding, pixels)
         patches = patches.reshape(b, -1, patches.shape[-1])

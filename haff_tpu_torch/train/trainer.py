@@ -53,20 +53,12 @@ def partition_params(model: nn.Module, exclude: Tuple[str, ...] = (),
     parameters are converted to float32 and their modules' `compute_dtype`
     is set to the model's dtype, so they are cast back to it at use.
 
-    Raises if a parameter would be trainable inside a module whose forward
-    the model always runs without autograd (`model.NO_GRAD_MODULES`: the
-    CLIP tower and its projector): its gradient would silently be none.
-    The SAM image encoder runs with autograd exactly when one of its
-    parameters is trainable (`extra=("image_encoder",)`)."""
+    The SAM image encoder, and the CLIP tower with its projector, run
+    with autograd exactly when one of their parameters is trainable
+    (`extra=("image_encoder",)`, `("vision_tower",)`, `("mm_projector",)`)."""
     trainable, frozen = {}, {}
     for name, p in model.named_parameters():
         keep = trainable_mask_path(tuple(name.split(".")), exclude, extra)
-        if keep and name.startswith(
-                tuple(m + "." for m in getattr(model, "NO_GRAD_MODULES", ()))):
-            raise ValueError(
-                f"{name} would be trainable, but the model runs "
-                f"{name.split('.')[0]} under torch.no_grad(): its gradient "
-                "would be dropped")
         p.requires_grad_(keep)
         (trainable if keep else frozen)[name] = p
     compute = getattr(model, "dtype", torch.float32)

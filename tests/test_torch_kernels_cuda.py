@@ -91,14 +91,46 @@ def test_global_kernel_matches_plain(dev, dtype, b, H, W, nh, d):
     _close(got, ref)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,lq,lk,h,d,causal,bias,seg", [
+def _segments(dev, b, lq, lk, seg):
+    """Segment ids (B, Lq), (B, Lk) or None: row 0 whole, later rows
+    right-padded by 70 (at least one token); `seg == "empty"` makes row 1
+    all padding."""
+    if not seg:
+        return None, None
+    qlen = [lq] + [max(lq - 70, 1)] * (b - 1)
+    klen = [lk] + [max(lk - 70, 1)] * (b - 1)
+    if seg == "empty":
+        qlen[1] = klen[1] = 0
+    qlen, klen = (torch.tensor(x, device=dev) for x in (qlen, klen))
+    return ((torch.arange(lq, device=dev)[None] < qlen[:, None]).int(),
+            (torch.arange(lk, device=dev)[None] < klen[:, None]).int())
+
+
+def _flash_path(dtype, *operands):
+    """bf16 operands (all of these take D % 16 == 0) run on the warpgroup
+    MMA path, float32 on the scalar one."""
+    want = fa.WGMMA if dtype == torch.bfloat16 else fa.SCALAR
+    assert fa.kernel_path(*operands) == want
+
+
+# The prefill shape; tiny and ragged tiles; Lq > Lk and Lq < Lk with the
+# causal offset; an exact multiple of the 128-row block; a batch row that
+# is all padding; D = 16, 32, 64, 128; with and without a bias.
+FLASH_CASES = [
     (2, 575, 575, 32, 128, True, False, True),
     (2, 5, 5, 4, 16, True, False, True),
     (1, 70, 70, 2, 64, False, True, False),
     (2, 9, 130, 4, 32, True, True, True),
     (1, 130, 9, 2, 16, True, False, False),
-])
+    (2, 256, 256, 4, 128, True, False, True),
+    (2, 100, 300, 4, 64, True, True, True),
+    (3, 150, 150, 2, 128, True, False, "empty"),
+    (2, 200, 200, 2, 16, True, True, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,lq,lk,h,d,causal,bias,seg", FLASH_CASES)
 def test_flash_prefill_matches_plain(dev, dtype, b, lq, lk, h, d, causal,
                                      bias, seg):
     g = torch.Generator(dev).manual_seed(lq * lk)
@@ -107,18 +139,20 @@ def test_flash_prefill_matches_plain(dev, dtype, b, lq, lk, h, d, causal,
     v = torch.randn(b, lk, h, d, generator=g, device=dev).to(dtype)
     bias_t = (torch.randn(1, h, 1, lk, generator=g, device=dev)
               if bias else None)
-    qseg = kseg = None
-    if seg:
-        qlen = torch.tensor([lq] + [max(lq - 70, 1)] * (b - 1), device=dev)
-        klen = torch.tensor([lk] + [max(lk - 70, 1)] * (b - 1), device=dev)
-        qseg = (torch.arange(lq, device=dev)[None] < qlen[:, None]).int()
-        kseg = (torch.arange(lk, device=dev)[None] < klen[:, None]).int()
+    qseg, kseg = _segments(dev, b, lq, lk, seg)
+    _flash_path(dtype, q, k, v)
+    scalar = _scalar_bf16_launches()
     out, lse = fa.flash_attention(q, k, v, bias_t, qseg, kseg, causal,
                                   return_lse=True)
+    torch.cuda.synchronize()
+    _assert_tensor_cores(dtype, scalar)
     ref, ref_lse = fa.attention_plain(q.float(), k.float(), v.float(), bias_t,
                                       qseg, kseg, causal)
     _close(out, ref)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-3)
+    if seg and b > 1:  # pad query rows: exactly zero
+        n = int(qseg[1].sum())
+        assert not out[1, n:].any() and not lse[1, :, n:].any()
 
 
 @pytest.mark.parametrize("scope,b,hw,nh,d", [("window", 4, (14, 14), 4, 80),
@@ -182,30 +216,29 @@ def test_wrappers_refuse_unsupported_operands(dev):
     (1, 70, 70, 2, 64, False, True, False),
     (2, 130, 130, 4, 32, True, False, True),
     (1, 9, 130, 2, 16, True, False, False),
-])
+] + FLASH_CASES[5:])
 def test_flash_backward_matches_plain(dev, dtype, b, lq, lk, h, d, causal,
                                       bias, seg):
     """dq (flash_bwd_dq) and dk/dv (flash_bwd_dkv) against
     attention_bwd_plain on the float32 values of the same operands; pad
-    query rows give exactly-zero dq, pad keys exactly-zero dk/dv."""
+    query rows give exactly-zero dq, pad keys exactly-zero dk/dv. dk/dv
+    runs bf16 on the warpgroup MMA path, float32 on the scalar one."""
     g = torch.Generator(dev).manual_seed(7 * lq + lk)
     rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(dtype)  # noqa: E731
     q, do = rnd(b, lq, h, d), rnd(b, lq, h, d)
     k, v = rnd(b, lk, h, d), rnd(b, lk, h, d)
     bias_t = (torch.randn(1, h, 1, lk, generator=g, device=dev)
               if bias else None)
-    qseg = kseg = None
-    if seg:
-        qlen = torch.tensor([lq] + [max(lq - 70, 1)] * (b - 1), device=dev)
-        klen = torch.tensor([lk] + [max(lk - 70, 1)] * (b - 1), device=dev)
-        qseg = (torch.arange(lq, device=dev)[None] < qlen[:, None]).int()
-        kseg = (torch.arange(lk, device=dev)[None] < klen[:, None]).int()
+    qseg, kseg = _segments(dev, b, lq, lk, seg)
     out, lse = fa.flash_prefill_kernel(q, k, v, bias_t, qseg, kseg, causal)
     args = (q, k, v, bias_t, qseg, kseg, out, lse, do, causal)
+    _flash_path(dtype, q, k, v, do)
+    scalar = _scalar_bf16_launches()
     before = dict(_build.LAUNCHES)
     dq = fa.flash_bwd_dq_kernel(*args)
     dk, dv = fa.flash_bwd_dkv_kernel(*args)
     torch.cuda.synchronize()
+    _assert_tensor_cores(dtype, scalar)
     assert _build.LAUNCHES["flash_bwd_dq"] == before.get("flash_bwd_dq", 0) + 1
     assert _build.LAUNCHES["flash_bwd_dkv"] == before.get("flash_bwd_dkv", 0) + 1
     ref = fa.attention_bwd_plain(q.float(), k.float(), v.float(), bias_t,
@@ -218,6 +251,40 @@ def test_flash_backward_matches_plain(dev, dtype, b, lq, lk, h, d, causal,
         assert not dq[1, int(qseg[1].sum()):].any()
         assert not dk[1, int(kseg[1].sum()):].any()
         assert not dv[1, int(kseg[1].sum()):].any()
+
+
+def test_unaligned_bf16_flash_operands_take_the_scalar_path(dev):
+    """bf16 q, k, v and dO that start 2 bytes into their storage cannot be
+    read by TMA: the forward and dk/dv kernels take their scalar path
+    (counted under `<key>/scalar`) and stay within the bf16 tolerance."""
+    g = torch.Generator(dev).manual_seed(5)
+    b, l, h, d = 2, 70, 2, 64
+    n = b * l * h * d
+
+    def view():
+        buf = torch.randn(n + 1, generator=g, device=dev).bfloat16()
+        return buf[1:].view(b, l, h, d)
+
+    q, k, v, do = view(), view(), view(), view()
+    assert fa.kernel_path(q, k, v) == fa.kernel_path(q, k, v, do) == fa.SCALAR
+    seg = torch.ones(b, l, dtype=torch.int32, device=dev)
+    seg[1, 40:] = 0
+    before = dict(_build.LAUNCHES)
+    out, lse = fa.flash_prefill_kernel(q, k, v, None, seg, seg, True)
+    dk, dv = fa.flash_bwd_dkv_kernel(q, k, v, None, seg, seg, out, lse, do,
+                                     True)
+    torch.cuda.synchronize()
+    for key in ("flash_prefill_fwd", "flash_bwd_dkv"):
+        for k_ in (key, key + "/scalar"):
+            assert _build.LAUNCHES[k_] == before.get(k_, 0) + 1, k_
+    ref = fa.attention_plain(q.float(), k.float(), v.float(), None, seg, seg,
+                             True)[0]
+    _close(out, ref)
+    _, rdk, rdv = fa.attention_bwd_plain(q.float(), k.float(), v.float(), None,
+                                         seg, seg, out.float(), lse,
+                                         do.float(), True)
+    _close(dk, rdk)
+    _close(dv, rdv)
 
 
 def test_flash_attention_autograd_on_the_card(dev):

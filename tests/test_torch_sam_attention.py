@@ -224,10 +224,10 @@ def test_tensor_core_path_reads_d_24_and_the_scalar_count_key():
     assert tsa._tensor_core_ok(*views["split"])
     before = dict(tsa._build.LAUNCHES)
     q = views["heads"][0]
-    tsa._count("k", q, tsa.MMA_SYNC)
-    tsa._count("k", q, tsa.WGMMA)
-    tsa._count("k", q.float(), tsa.SCALAR)
-    tsa._count("k", q, tsa.SCALAR)
+    tsa._build.count("k", q, tsa.MMA_SYNC)
+    tsa._build.count("k", q, tsa.WGMMA)
+    tsa._build.count("k", q.float(), tsa.SCALAR)
+    tsa._build.count("k", q, tsa.SCALAR)
     got = {k: v - before.get(k, 0) for k, v in tsa._build.LAUNCHES.items()
            if v != before.get(k, 0)}
     assert got == {"k": 4, "k/scalar": 1}

@@ -73,3 +73,26 @@ def test_probe_plain_version_is_exact():
     out = bk.matmul_probe(x.bfloat16(), x.bfloat16())
     assert out.dtype == torch.float32
     torch.testing.assert_close(out, x.bfloat16().float() @ x.bfloat16().float().T)
+
+
+def test_flash_ab_arguments_and_cases():
+    """tools/flash_ab.py: its arguments, its case table (chip_smoke.py's
+    phase-3 flash shapes) and the operands it builds, on the CPU; without
+    a card it refuses to time."""
+    from haff_tpu_torch.tools import flash_ab
+
+    args = flash_ab.parse(["--label", "new", "--iters", "7"])
+    assert (args.label, args.iters) == ("new", 7)
+    assert (flash_ab.parse([]).label, flash_ab.parse([]).iters) == ("", 20)
+    assert [c[0] for c in flash_ab.CASES] == ["flash_prefill_fwd",
+                                              "flash_bwd_dkv"]
+    for case in flash_ab.CASES:
+        assert case[1:] == (2, 575, 32, 128, True, (575, 475))
+    small = ("flash_bwd_dkv", 2, 9, 2, 16, True, (9, 4))
+    q, k, v, do, seg = flash_ab.operands(
+        small, torch.Generator().manual_seed(0), device="cpu")
+    assert all(t.shape == (2, 9, 2, 16) and t.dtype == torch.bfloat16
+               for t in (q, k, v, do))
+    assert seg.dtype == torch.int32 and seg.sum(1).tolist() == [9, 4]
+    if not torch.cuda.is_available():
+        assert flash_ab.main([]) == 2

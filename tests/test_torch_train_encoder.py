@@ -3,8 +3,8 @@
 haff_tpu on the same bridged float32 weights and batch: the trainable set,
 every gradient (within 1e-3 of the leaf's largest magnitude; the rel-pos
 tables get true gradients at tiny, where JAX's attention leaves its fused
-path), one whole train step's metrics, `exclude`, and the guard against a
-trainable parameter in a module the model runs without autograd.
+path), one whole train step's metrics and `exclude`. The CLIP tower and
+projector's counterparts are in test_torch_train_clip.py.
 """
 
 import jax
@@ -95,14 +95,6 @@ def test_exclude_removes_keys(setup):
         params, exclude=("mask_decoder_left", "mask_decoder_right"))[0]))
     assert set(trainable) == ref
     assert any("mask_decoder_left" in n for n in frozen)
-
-
-@pytest.mark.parametrize("extra", [("vision_tower",), ("mm_projector",)])
-def test_trainable_parameter_under_no_grad_raises(setup, extra):
-    cfg, params, _ = setup
-    port = _port(params, cfg)
-    with pytest.raises(ValueError, match="no_grad"):
-        ttrainer.partition_params(port, extra=extra)
 
 
 def test_frozen_encoder_keeps_no_graph(setup):
