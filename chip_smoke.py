@@ -14,11 +14,11 @@ Phases (any failure raises and exits non-zero):
    entries; 2048^3 for the matmul probe), in bfloat16, compared in
    float32 (the integer products bit for bit); times the kernel, the
    plain version and one PyTorch library call computing the same function
-   (CUDA events, after warm-up). Each SAM record, and the flash forward
-   and dk/dv records, also names the kernel path the wrapper chose
-   (`path`: wgmma, mma.sync or scalar) and times the kernel and its SDPA
-   yardstick once more as CUDA graphs (`graph_ms`, `library_graph_ms`:
-   device time without the host's launch cost).
+   (CUDA events, after warm-up). Each SAM record, the three flash
+   records and each w8a8 shape also name the kernel path the wrapper
+   chose (`path`: wgmma, mma.sync, skinny or scalar) and time the kernel
+   and its library yardstick once more as CUDA graphs (`graph_ms`,
+   `library_graph_ms`: device time without the host's launch cost).
 3b. backward: the SAM attention entries' gradients at ViT-H shapes against
    autograd through the plain version, the global entry's rel-pos tables
    exactly zero; then the ViT-H image encoder alone, forward and backward
@@ -35,7 +35,10 @@ Phases (any failure raises and exits non-zero):
 5b. small: evaluate() at the small preset with the trained weights of
    artifacts/overfit_small_params.npz on the card against the CPU
    (identical tokens, masks within 1e-3), and 3 train steps with the SAM
-   encoder unfrozen on the card against the CPU within 1e-3.
+   encoder unfrozen on the card against the CPU within 1e-3. Then the
+   bf16 SAM encoder at small on the card against haff_tpu's bf16 and
+   float32 outputs (artifacts/sam_small_encoder_reference.npz): at most
+   twice the JAX bf16 output's distance to the float32 one.
 6. slice: evaluate() at the full 7b preset (LLaMA-7B, CLIP ViT-L/14,
    SAM ViT-H) in bfloat16 with seeded random weights, 2 batches of 2
    requests (prompt 320, 16 new tokens); checks shapes, finiteness and the
@@ -66,8 +69,9 @@ Phases (any failure raises and exits non-zero):
    pass) and tools/bench_kernels.py int8probe.
 
 The bf16 full-width paths (evaluate in three modes, train, the ViT-B
-predictor, the encoder backward) must run every SAM, flash forward and
-flash dk/dv launch on the tensor cores: no `<key>/scalar` launch count.
+predictor, the encoder backward) must run every SAM, flash forward, dq
+and dk/dv launch, and every w8a8 launch with M > 16, on the tensor cores:
+no `<key>/scalar` launch count.
 
 Prints a {"kernels": [...]} JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Needs no network; the weights are random.
@@ -262,10 +266,10 @@ def check_flash_bwd(gen):
     torch.autograd.grad of one SDPA forward (same boolean mask) for q
     alone or for k and v, timed alone, the forward kept (retain_graph).
     SDPA's backward computes dq, dk and dv in either call. The dk/dv
-    record also names its kernel path and times the kernel and its
-    yardstick as CUDA graphs (`graph_ms`, `library_graph_ms`; the
-    yardstick's forward runs on the capture stream, where its backward
-    then runs)."""
+    record and the dq record also name their kernel path and time the
+    kernel and its yardstick as CUDA graphs (`graph_ms`,
+    `library_graph_ms`; the yardstick's forward runs on the capture
+    stream, where its backward then runs)."""
     from haff_tpu_torch.kernels import flash_attention as fa
 
     # LLaMA-7B train step, batch 2: 575 spliced tokens, row 1 right-padded
@@ -280,7 +284,7 @@ def check_flash_bwd(gen):
     args = (q, k, v, None, seg, seg, out, lse, do, True)
     path_dkv = fa.PATH_NAMES[fa.kernel_path(q, k, v, do)]
     if path_dkv != "wgmma":
-        raise AssertionError(f"flash_bwd_dkv: bf16 phase-3 operands on the "
+        raise AssertionError(f"flash_bwd: bf16 phase-3 operands on the "
                              f"{path_dkv} path")
     dq = fa.flash_bwd_dq_kernel(*args)
     dk, dv = fa.flash_bwd_dkv_kernel(*args)
@@ -294,7 +298,8 @@ def check_flash_bwd(gen):
         raise AssertionError("flash_bwd_dq: padded query rows not zero")
     if dk[1, l - 100:].abs().max() != 0 or dv[1, l - 100:].abs().max() != 0:
         raise AssertionError("flash_bwd_dkv: padded key rows not zero")
-    ms_dq = cuda_ms(lambda: fa.flash_bwd_dq_kernel(*args), 20)
+    run_dq = lambda: fa.flash_bwd_dq_kernel(*args)  # noqa: E731
+    ms_dq, graph_dq = cuda_ms(run_dq, 20), graph_ms(run_dq, 20)
     run_dkv = lambda: fa.flash_bwd_dkv_kernel(*args)  # noqa: E731
     ms_dkv, graph_dkv = cuda_ms(run_dkv, 20), graph_ms(run_dkv, 20)
     plain_dq = cuda_ms(lambda: fa.attention_bwd_dq_plain(*args), 10)
@@ -321,6 +326,8 @@ def check_flash_bwd(gen):
                       for x in (q, k, v))
         ot = torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask)
+    lib_dq_graph = graph_ms(lambda: torch.autograd.grad(
+        ot, (qt,), dot, retain_graph=True), 20, stream=side)
     lib_dkv_graph = graph_ms(lambda: torch.autograd.grad(
         ot, (kt, vt), dot, retain_graph=True), 20, stream=side)
     del ot
@@ -329,7 +336,8 @@ def check_flash_bwd(gen):
     recs = []
     for name, ms, err, outs, flops, plain, lib, own in (
             ("flash_bwd_dq", ms_dq, err_dq, (dq,), 6 * d * h * pairs,
-             plain_dq, lib_dq, {}),
+             plain_dq, lib_dq, dict(path=path_dkv, graph_ms=graph_dq,
+                                    library_graph_ms=lib_dq_graph)),
             ("flash_bwd_dkv", ms_dkv, err_dkv, (dk, dv), 8 * d * h * pairs,
              plain_dkv, lib_dkv, dict(path=path_dkv, graph_ms=graph_dkv,
                                       library_graph_ms=lib_dkv_graph))):
@@ -348,12 +356,15 @@ def check_flash_bwd(gen):
 
 
 def check_w8a8(gen):
-    """The w8a8 product at a prefill, a decode, the lm_head and a SAM
-    encoder shape. The float32 output must equal the plain version's bit
-    for bit (the int32 sum is exact); the record's numbers are the
-    prefill shape's, the others are listed under `shapes`. Library:
-    torch._int_mm on the same int8 operands (M padded to 32 and N to a
-    multiple of 8 outside the timed call, as it requires) + the rescale."""
+    """The w8a8 product at a prefill, a decode, the lm_head, the down
+    projection's prefill and a SAM encoder shape, each on the path
+    `w8a8_path` gives it (the int8 tensor cores for M > 16, the skinny
+    dp4a kernel at decode). The float32 output must equal the plain
+    version's bit for bit (the int32 sum is exact); the record's numbers
+    are the prefill shape's, the others are listed under `shapes`, each
+    with its path and CUDA-graph times. Library: torch._int_mm on the
+    same int8 operands (M padded to 32 and N to a multiple of 8 outside
+    the timed call, as it requires) + the rescale."""
     from haff_tpu_torch.nn import quant
 
     dev, bf = "cuda", torch.bfloat16
@@ -361,6 +372,7 @@ def check_w8a8(gen):
     for what, m, k, n in (("prefill", 1150, 4096, 4096),
                           ("decode", 2, 4096, 4096),
                           ("lm_head", 1150, 4096, 32004),
+                          ("down_proj", 1150, 11008, 4096),
                           ("sam qkv", 9800, 1280, 3840)):
         x = torch.randn(m, k, generator=gen, device=dev).to(bf)
         w = torch.randn(n, k, generator=gen, device=dev) * k ** -0.5
@@ -368,6 +380,9 @@ def check_w8a8(gen):
         del w
         xq, sx = quant.quantize_activation(x)
         sx = sx[:, 0].contiguous()
+        path = quant.W8A8_PATH_NAMES[quant.w8a8_path(xq, q)]
+        if path != ("skinny" if m <= quant.SKINNY_M else "wgmma"):
+            raise AssertionError(f"w8a8_matmul {what}: on the {path} path")
         exact = quant.int8_matmul_plain(xq, q, sx, sw, torch.float32)
         if not torch.equal(quant.int8_matmul_kernel(xq, q, sx, sw,
                                                     torch.float32), exact):
@@ -377,8 +392,8 @@ def check_w8a8(gen):
         err = within_bf16(f"w8a8_matmul {what}", out, exact)
         del exact
         iters = 20 if m * n * k < 3e10 else 5
-        kern = cuda_ms(lambda: quant.int8_matmul_kernel(xq, q, sx, sw, bf),
-                       iters)
+        run = lambda: quant.int8_matmul_kernel(xq, q, sx, sw, bf)  # noqa: E731
+        kern, kern_graph = cuda_ms(run, iters), graph_ms(run, iters)
         plain = cuda_ms(lambda: quant.int8_matmul_plain(xq, q, sx, sw, bf), 3, 1)
         mp, np_ = max(32, -(-m // 8) * 8), -(-n // 8) * 8
         xq_p = torch.zeros(mp, k, dtype=torch.int8, device=dev)
@@ -392,23 +407,27 @@ def check_w8a8(gen):
         lib_fn = lambda: (torch._int_mm(xq_p, q_p.T).float() * sx_p  # noqa: E731
                           * sw_p).to(bf)
         lib_err = float((lib_fn()[:m, :n].float() - out.float()).abs().max())
-        lib = cuda_ms(lib_fn, iters)
+        lib, lib_graph = cuda_ms(lib_fn, iters), graph_ms(lib_fn, iters)
         b_ms, by = bound_ms(nbytes(xq, q, sx, sw, out), 2.0 * m * n * k,
                             H100_INT8_OPS)
         shapes.append(dict(what=what, shape=f"xq ({m}, {k}) int8, w ({n}, {k}) "
-                           "int8 -> bf16", max_abs_err=err, ms=kern,
+                           "int8 -> bf16", path=path, max_abs_err=err, ms=kern,
                            plain_ms=plain, bound_ms=b_ms, bound_by=by,
-                           library_ms=lib, library_max_abs_diff=lib_err))
+                           library_ms=lib, graph_ms=kern_graph,
+                           library_graph_ms=lib_graph,
+                           library_max_abs_diff=lib_err))
         del x, q, xq, out, xq_p, q_p
         torch.cuda.empty_cache()
     main = shapes[0]
     return dict(name="w8a8_matmul", route="cuda",
                 source="haff_tpu_torch/kernels/csrc/w8a8_matmul.cu",
                 replaces="haff_tpu/nn/quant.py:68", shape=main["shape"],
+                path=main["path"],
                 max_abs_err=max(r["max_abs_err"] for r in shapes),
                 ms=main["ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                library_ms=main["library_ms"], shapes=shapes)
+                library_ms=main["library_ms"], graph_ms=main["graph_ms"],
+                library_graph_ms=main["library_graph_ms"], shapes=shapes)
 
 
 def check_w4a16(gen):
@@ -841,6 +860,54 @@ def check_small(launches):
         f"{[round(m['grad_norm'], 4) for m in m_gpu]} vs "
         f"{[round(m['grad_norm'], 4) for m in m_cpu]}")
     return dict(launches)
+
+
+def check_sam_reference():
+    """The port's bf16 SAM encoder at the small preset (trained weights of
+    artifacts/overfit_small_params.npz) on the card against haff_tpu's, on
+    the seeded image of artifacts/sam_small_encoder_reference.npz (made on
+    a CPU host by tests/make_sam_encoder_reference.py: JAX at bfloat16
+    with its Pallas kernels in interpret mode, and at float32). The port's
+    distance to the JAX float32 output, relative L2 and max abs, must be
+    at most twice the JAX bf16 output's own. Returns both distances."""
+    import os
+
+    from haff_tpu_torch.core.config import SamDecoderConfig, SamEncoderConfig
+    from haff_tpu_torch.nn.sam import Sam
+    from haff_tpu_torch.tools.bridge import load_jax_params
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "artifacts")
+    with np.load(os.path.join(root, "sam_small_encoder_reference.npz")) as z:
+        seed, image_sum = int(z["seed"]), float(z["image_sum"])
+        ref, jax_bf16 = z["out_f32"], z["out_bf16"]
+    x = np.random.RandomState(seed).randn(1, 512, 512, 3).astype(np.float32)
+    if abs(x.astype(np.float64).sum() - image_sum) > 1e-6 * np.abs(x).sum():
+        raise AssertionError("sam reference: the seeded image is not the one "
+                             "the reference was made from")
+    sam = load_jax_params(Sam(SamEncoderConfig.preset("small"),
+                              SamDecoderConfig()),
+                          os.path.join(root, "overfit_small_params.npz"),
+                          scope="visual_model")
+    enc = sam.image_encoder.to(device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():
+        got = enc(torch.from_numpy(x).cuda()).float().cpu().numpy()
+
+    def dist(a):
+        return (float(np.linalg.norm(a - ref) / np.linalg.norm(ref)),
+                float(np.abs(a - ref).max()))
+
+    (port_l2, port_max), (jax_l2, jax_max) = dist(got), dist(jax_bf16)
+    log(f"sam reference: small encoder, bf16, against haff_tpu's float32 "
+        f"output: port (card kernels) relative L2 {port_l2:.6g}, max abs "
+        f"{port_max:.6g}; haff_tpu bf16 (Pallas, interpret) relative L2 "
+        f"{jax_l2:.6g}, max abs {jax_max:.6g}")
+    if (got.shape != ref.shape or not np.isfinite(got).all()
+            or port_l2 > 2 * jax_l2 or port_max > 2 * jax_max):
+        raise AssertionError("sam reference: the port's bf16 encoder is more "
+                             "than twice as far from the float32 output as "
+                             "haff_tpu's bf16 encoder")
+    return dict(port_rel_l2=port_l2, port_max_abs=port_max,
+                jax_rel_l2=jax_l2, jax_max_abs=jax_max)
 
 
 def sam_launches(launches):
@@ -1457,6 +1524,7 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     paths["small"] = check_small(_build.LAUNCHES)
+    check_sam_reference()
     paths["predictor_tiny"] = check_tiny_predictor(_build.LAUNCHES)
     paths["predictor_vit_b"] = run_predictor_slice(_build.LAUNCHES)
     paths["audit"], paths["bench"] = run_tools(_build.LAUNCHES)
@@ -1467,15 +1535,15 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
     paths["train"] = run_train_slice(_build.LAUNCHES)
-    # The bf16 full-width paths run every SAM, flash forward and flash
-    # dk/dv launch on the tensor cores.
+    # The bf16 full-width paths run every SAM and flash launch, and every
+    # w8a8 launch with M > 16, on the tensor cores.
     for p in ("encoder_backward", "predictor_vit_b", "evaluate_bf16",
               "evaluate_w8a8", "evaluate_w4a16", "train"):
         scalar = {k: n for k, n in paths[p].items() if k.endswith("/scalar") and n}
         if scalar:
             raise AssertionError(f"{p}: launches on the scalar path {scalar}")
-    log("scalar SAM, flash_prefill_fwd and flash_bwd_dkv launches on the "
-        "bf16 full-width paths: none")
+    log("scalar SAM, flash_prefill_fwd, flash_bwd_dq, flash_bwd_dkv and "
+        "w8a8_matmul launches on the bf16 full-width paths: none")
     for rec in kernels:
         name = rec["name"]
         counter = rec.get("counter", name)

@@ -18,21 +18,51 @@
 // lse = 0 and p = 0, so its dq is exactly 0; a key that no query sees gets
 // dk = dv = 0 exactly. The bias is a constant (JAX returns zeros for it).
 //
-// flash_bwd_dq: one block per (64-query tile, head, batch row); it loops
-// over the 64-key tiles up to the causal diagonal, keeping the tile's dq in
-// registers (32 f32 a thread). Any Lq, Lk >= 1 is taken: ragged edges are
-// masked here, not padded by the caller.
-//
 // What bounds them on Hopper: at the train shapes (B=2, L=575, 32 heads,
 // D=128, causal) the work is 6*D*H*pairs FLOPs (dq) and 8*D*H*pairs (dk/dv)
 // against ~4 (B, L, H, D) tensors of bytes: 0.014-0.017 ms of bytes, more
-// than the bf16 tensor cores need for the operations. flash_bwd_dq runs
-// every product as f32 FMAs out of shared memory (inputs widened to f32
-// once per tile), so the f32 FMA rate and shared-memory bandwidth bound
-// it; its tensor-core design is later work.
+// than the bf16 tensor cores need for the operations. Both kernels have
+// two paths, chosen by the wrapper (kernel_path) before the launch: the
+// warpgroup-MMA path for bf16 with D % 16 == 0, D <= 128 and 16-byte
+// aligned operands, the scalar path for float32 and the bf16 operands TMA
+// cannot address. Any Lq, Lk >= 1 is taken: ragged edges are masked here,
+// not padded by the caller.
 //
-// flash_bwd_dkv has two paths, chosen by the wrapper (kernel_path) before
-// the launch:
+// flash_bwd_dq:
+//
+// * warpgroup MMA, the query-major counterpart of dk/dv's path below. A
+//   block owns 64 queries of one (batch, head): one consumer warpgroup and
+//   a producer warp; blocks are launched longest causal rows first. Q and
+//   dO stay in shared memory (TMA, once, the 128-byte swizzled boxes);
+//   the producer streams the 64-key tiles of K and V through a two-stage
+//   ring from tile 0 to the last tile a row of the block can see, and
+//   stages each tile's key segment ids with a one-id flag. The rows' lse
+//   (times log2 e), delta and segment ids sit in registers. Per tile the
+//   warpgroup computes S = Q K^T and dP = dO V^T (wgmma m64n64k16, both
+//   operands K-major in shared memory, as the forward's Q K^T), then P =
+//   exp2(S scale log2 e - lse log2 e) where visible and dS = P (dP -
+//   delta) scale in registers, with dk/dv's masks (only a warp's tiles
+//   that straddle the diagonal, a ragged edge or a segment boundary test
+//   elements), and dQ += dS K (wgmma m64n{D}k16, dS from registers as bf16
+//   hi + lo, K as the transposed operand, as the forward's V). dQ stays in
+//   f32 registers (64 a thread at D = 128) and is written once, staged
+//   through shared memory in 16-byte chunks. No atomics: dq is not summed
+//   inside the dk/dv kernel (FA3's design), so it does not depend on the
+//   order blocks run in, and the two kernels stay JAX's two. Registers:
+//   dQ (64), S and dP (2 x 32) and the dS fragments (32); the block is
+//   160 threads and the register budget is set for two blocks an SM
+//   (DQ_MIN_BLOCKS): ptxas gives 163 registers at D = 128, 168 with a
+//   bias, no spills (chip_smoke.py's build log). A 128-query block of two
+//   consumer warpgroups sharing the K / V stream, one block an SM, passed
+//   the card tests but was slower by CUDA graph at the train shape
+//   (tools/flash_ab.py against a scratch tree that differed in that
+//   alone), so the block stays one warpgroup.
+// * scalar: one block per (64-query tile, head, batch row); it loops over
+//   the 64-key tiles up to the causal diagonal, keeping the tile's dq in
+//   registers (32 f32 a thread), every product an f32 FMA out of shared
+//   memory (inputs widened to f32 once per tile).
+//
+// flash_bwd_dkv:
 //
 // * warpgroup MMA (bf16, D % 16 == 0, D <= 128, 16-byte aligned
 //   operands), FA2/FA3's key-major backward. A block owns 64 keys of one
@@ -613,6 +643,242 @@ cudaError_t launch_dkv_wg(const Params& p, cudaStream_t stream) {
   return p.bias ? launch_dkv_wg_as<64, true>(p, stream) : launch_dkv_wg_as<64, false>(p, stream);
 }
 
+// ---- flash_bwd_dq on warpgroup MMA (bf16); the header has the design ----
+
+constexpr int DQ_STAGES = 2;
+constexpr int DQ_CONSUMERS = 128;  // one warpgroup, 64 queries
+constexpr int DQ_MIN_BLOCKS = 2;   // blocks an SM the register budget is set for
+
+// Q and dO, the K / V ring, mbarriers (padded to an even count), the
+// stages' key segment ids ([stage][64 ids + the tile's one id or -1 + 3]),
+// each consumer warp's output staging; 1 KB of slack for the swizzle atom.
+size_t dq_wg_smem_bytes(int DP) {
+  const size_t tile = (size_t)64 * DP * 2;
+  return 1024 + (2 + 2 * DQ_STAGES) * tile + (2 * DQ_STAGES + 2) * sizeof(uint64_t) +
+         DQ_STAGES * 68 * sizeof(int) + 4 * 8 * (DP + 8) * 2;
+}
+
+template <int DP, bool BIAS>
+__global__ void __launch_bounds__(DQ_CONSUMERS + 32, DQ_MIN_BLOCKS)
+flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       const __grid_constant__ CUtensorMap domap, Params p) {
+  namespace tc = haff::tc;
+  constexpr int NO = DP / 8, KS = DP / 16, BOXES = DP / 64, SDS = DP + 8;
+  constexpr int TILE = BOXES * BOX_BYTES;
+  const int Lq = p.Lq, Lk = p.Lk, H = p.H, D = p.D;
+  const int off = Lk - Lq;
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int i0 = (gridDim.y - 1 - blockIdx.y) * 64;  // longest rows first
+  const bool seg = p.kseg != nullptr;
+  // Last key any row of the block may see under the causal mask.
+  const int k_end = p.causal ? min(Lk, off + i0 + 64) : Lk;
+  const int ntiles = k_end > 0 ? (k_end + 63) / 64 : 0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  extern __shared__ uint4 smem_wg[];
+  uint8_t* smem_raw = reinterpret_cast<uint8_t*>(smem_wg);
+  uint8_t* qdo = smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);  // [Q, dO]
+  uint8_t* ring = qdo + 2 * TILE;  // [stage][K, V]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + DQ_STAGES * 2 * TILE);
+  uint64_t* empty = full + DQ_STAGES;
+  uint64_t* qdo_full = empty + DQ_STAGES;
+  int* kseg_s = reinterpret_cast<int*>(full + 2 * DQ_STAGES + 2);
+  __nv_bfloat16* stage_out = reinterpret_cast<__nv_bfloat16*>(kseg_s + DQ_STAGES * 68);
+  if (tid == 0) {
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      tc::mbar_init(&full[s], 1);
+      tc::mbar_init(&empty[s], DQ_CONSUMERS);
+    }
+    tc::mbar_init(qdo_full, 1);
+    tc::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == DQ_CONSUMERS / 32) {  // the producer
+    if (lane == 0) {
+      tc::mbar_expect_tx(qdo_full, 2 * TILE);
+#pragma unroll
+      for (int x = 0; x < BOXES; ++x) {
+        tc::tma_load_4d(qdo + x * BOX_BYTES, &qmap, qdo_full, 64 * x, h, i0, b);
+        tc::tma_load_4d(qdo + TILE + x * BOX_BYTES, &domap, qdo_full, 64 * x, h, i0, b);
+      }
+    }
+    for (int tile = 0; tile < ntiles; ++tile) {
+      const int s = tile % DQ_STAGES, use = tile / DQ_STAGES, j0 = tile * 64;
+      if (use > 0) tc::mbar_wait(&empty[s], (use - 1) & 1);
+      if (seg) {  // the tile's key ids, and the id if the tile holds one
+        int* ks = kseg_s + s * 68;
+        int mn = INT_MAX, mx = INT_MIN;
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int j = j0 + lane + 32 * x;
+          const int id = j < Lk ? p.kseg[(int64_t)b * Lk + j] : 0;
+          ks[lane + 32 * x] = id;
+          mn = min(mn, id);
+          mx = max(mx, id);
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+          mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        }
+        if (lane == 0) ks[64] = (mn == mx && mn != 0) ? mn : -1;
+      }
+      __syncwarp();
+      if (lane == 0) {
+        tc::mbar_expect_tx(&full[s], 2 * TILE);
+        uint8_t* Ks = ring + s * 2 * TILE;
+#pragma unroll
+        for (int x = 0; x < BOXES; ++x) {
+          tc::tma_load_4d(Ks + x * BOX_BYTES, &kmap, &full[s], 64 * x, h, j0, b);
+          tc::tma_load_4d(Ks + TILE + x * BOX_BYTES, &vmap, &full[s], 64 * x, h, j0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = i0 + warp * 16;  // the warp's first query
+  float lse2[2], dlt[2];            // the thread's rows' lse (log2 units) and delta
+  int qs[2] = {0, 0}, wseg = -1;    // the rows' ids; the warp's one id or -1
+  int mn = INT_MAX, mx = INT_MIN;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int i = row0 + g + 8 * hf;
+    const int64_t row = ((int64_t)b * H + h) * Lq + i;
+    lse2[hf] = i < Lq ? p.lse[row] * tc::LOG2E : 0.f;
+    dlt[hf] = i < Lq ? p.delta[row] : 0.f;
+    if (seg && i < Lq) {
+      qs[hf] = p.qseg[(int64_t)b * Lq + i];
+      mn = min(mn, qs[hf]);
+      mx = max(mx, qs[hf]);
+    }
+  }
+  if (seg) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+      mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    }
+    wseg = (mn == mx && mn != 0) ? mn : -1;
+  }
+  const float* bias_row[2] = {nullptr, nullptr};  // bias[b, h, i, :] of the thread's rows
+  if constexpr (BIAS)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      bias_row[hf] = p.bias + b * p.bias_sb + h * p.bias_sh +
+                     (int64_t)min(row0 + g + 8 * hf, Lq - 1) * p.bias_si;
+
+  const uint8_t* Qs = qdo;
+  const uint8_t* dOs = qdo + TILE;
+  float dq[NO * 4];
+#pragma unroll
+  for (int x = 0; x < NO * 4; ++x) dq[x] = 0.f;
+  float s[32] = {}, dp[32] = {};
+  const float scale_log2 = p.scale * tc::LOG2E;
+  tc::mbar_wait(qdo_full, 0);
+  for (int tile = 0; tile < ntiles; ++tile) {
+    const int st = tile % DQ_STAGES, j0 = tile * 64;
+    tc::mbar_wait(&full[st], (tile / DQ_STAGES) & 1);
+    const uint8_t* Ks = ring + st * 2 * TILE;
+    const uint8_t* Vs = Ks + TILE;
+    tc::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const int o = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
+      tc::wgmma_ss_n64(s, tc::wg_desc_sw128(Qs + o, 16, 1024),
+                       tc::wg_desc_sw128(Ks + o, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const int o = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
+      tc::wgmma_ss_n64(dp, tc::wg_desc_sw128(dOs + o, 16, 1024),
+                       tc::wg_desc_sw128(Vs + o, 16, 1024), kk > 0);
+    }
+    tc::wg_commit();
+    tc::wg_wait<0>();
+    tc::wg_hold(s);
+    tc::wg_hold(dp);
+
+    const int* ks = kseg_s + st * 68;
+    const bool mask = j0 + 64 > Lk || row0 + 16 > Lq || (p.causal && j0 + 63 > row0 + off) ||
+                      (seg && (wseg < 0 || ks[64] != wseg));
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hf = e >> 1, jj = n * 8 + 2 * t + (e & 1), j = j0 + jj;
+        bool vis = true;
+        if (mask) {
+          const int i = row0 + g + 8 * hf;
+          vis = j < Lk && i < Lq && (!p.causal || j <= i + off) &&
+                (!seg || (ks[jj] == qs[hf] && qs[hf] != 0));
+        }
+        float x = fmaf(s[4 * n + e], scale_log2, -lse2[hf]);
+        if constexpr (BIAS)
+          if (vis) x = fmaf(bias_row[hf][(int64_t)j * p.bias_sj], tc::LOG2E, x);
+        const float pr = vis ? tc::exp2_approx(x) : 0.f;
+        s[4 * n + e] = pr * (dp[4 * n + e] - dlt[hf]) * p.scale;  // dS
+      }
+    uint32_t dhi[4][4], dlo[4][4];
+#pragma unroll
+    for (int k4 = 0; k4 < 4; ++k4)
+      tc::split_p(reinterpret_cast<const float(&)[8][4]>(s), k4, dhi[k4], dlo[k4]);
+    tc::wg_fence();
+#pragma unroll
+    for (int k4 = 0; k4 < 4; ++k4) {
+      const uint64_t dk = tc::wg_desc_sw128(Ks + k4 * 2048, BOX_BYTES, 1024);
+      if constexpr (DP == 128) {
+        tc::wgmma_n128<1>(dq, dhi[k4], dk, 1);
+        tc::wgmma_n128<1>(dq, dlo[k4], dk, 1);
+      } else {
+        tc::wgmma_n64<1>(dq, dhi[k4], dk, 1);
+        tc::wgmma_n64<1>(dq, dlo[k4], dk, 1);
+      }
+    }
+    tc::wg_commit();
+    tc::wg_wait<0>();
+    tc::wg_hold(dq);
+    tc::wg_hold(dhi);
+    tc::wg_hold(dlo);
+    tc::mbar_arrive(&empty[st]);  // this thread is done with the stage
+  }
+
+  const float one[2] = {1.f, 1.f};
+  tc::store_acc_staged<NO, SDS>(
+      dq, one, static_cast<__nv_bfloat16*>(p.dq) + ((int64_t)b * Lq * H + h) * D,
+      (long long)H * D, row0, Lq, D / 8, stage_out + warp * 8 * SDS, lane);
+}
+
+template <int DP, bool BIAS>
+cudaError_t launch_dq_wg_as(const Params& p, cudaStream_t stream) {
+  namespace tc = haff::tc;
+  CUtensorMap qmap, kmap, vmap, domap;
+  if (!tc::bhld_map_sw128(&qmap, p.q, p.D, p.H, p.Lq, p.B) ||
+      !tc::bhld_map_sw128(&kmap, p.k, p.D, p.H, p.Lk, p.B) ||
+      !tc::bhld_map_sw128(&vmap, p.v, p.D, p.H, p.Lk, p.B) ||
+      !tc::bhld_map_sw128(&domap, p.dout, p.D, p.H, p.Lq, p.B))
+    return cudaErrorInvalidValue;
+  const size_t smem = dq_wg_smem_bytes(DP);
+  cudaError_t e = haff::allow_smem(flash_bwd_dq_wg_kernel<DP, BIAS>, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid(p.B * p.H, (p.Lq + 63) / 64);
+  flash_bwd_dq_wg_kernel<DP, BIAS>
+      <<<grid, DQ_CONSUMERS + 32, smem, stream>>>(qmap, kmap, vmap, domap, p);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dq_wg(const Params& p, cudaStream_t stream) {
+  if (p.D % 16 || p.D > 128) return cudaErrorInvalidValue;
+  if (p.D > 64)
+    return p.bias ? launch_dq_wg_as<128, true>(p, stream)
+                  : launch_dq_wg_as<128, false>(p, stream);
+  return p.bias ? launch_dq_wg_as<64, true>(p, stream) : launch_dq_wg_as<64, false>(p, stream);
+}
+
 Params make_params(const void* q, const void* k, const void* v, const void* bias,
                    int64_t bias_sb, int64_t bias_sh, int64_t bias_si, int64_t bias_sj,
                    const void* qseg, const void* kseg, const void* dout, const void* lse,
@@ -649,16 +915,20 @@ Params make_params(const void* q, const void* k, const void* v, const void* bias
 // and delta (B, H, Lq) f32; bias f32 addressed as
 // bias[b*sb + h*sh + i*si + j*sj] or null; qseg (B, Lq), kseg (B, Lk)
 // int32, both null or both given. D <= 128. Writes dq (like q).
+// Paths (the wrapper's kernel_path): 0 scalar (bf16 or f32), 1 warpgroup
+// MMA (bf16, D % 16 == 0, 16-byte aligned q, k, v, dout and dq).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* bias,
                             int64_t bias_sb, int64_t bias_sh, int64_t bias_si,
                             int64_t bias_sj, const void* qseg, const void* kseg,
                             const void* dout, const void* lse, const void* delta, void* dq,
                             int B, int Lq, int Lk, int H, int D, float scale, int causal,
-                            int is_bf16, void* stream) {
+                            int is_bf16, int path, void* stream) {
   Params p = make_params(q, k, v, bias, bias_sb, bias_sh, bias_si, bias_sj, qseg, kseg, dout,
                          lse, delta, B, Lq, Lk, H, D, scale, causal);
   p.dq = dq;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (path == 1) return is_bf16 ? (int)launch_dq_wg(p, s) : (int)cudaErrorInvalidValue;
+  if (path != 0) return (int)cudaErrorInvalidValue;
   if (is_bf16) return (int)launch_dq<__nv_bfloat16>(p, s);
   return (int)launch_dq<float>(p, s);
 }
@@ -683,7 +953,10 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
   return (int)launch_dkv<float>(p, s);
 }
 
-extern "C" size_t flash_bwd_dq_smem(int D) { return dq_smem_bytes(D); }
+// Dynamic shared memory one block of the dq path needs at head dim D.
+extern "C" size_t flash_bwd_dq_smem(int D, int path) {
+  return path == 1 ? dq_wg_smem_bytes(D > 64 ? 128 : 64) : dq_smem_bytes(D);
+}
 // Dynamic shared memory one block of the dk/dv path needs at head dim D.
 extern "C" size_t flash_bwd_dkv_smem(int D, int path) {
   return path == 1 ? dkv_wg_smem_bytes(D > 64 ? 128 : 64) : dkv_smem_bytes(D);

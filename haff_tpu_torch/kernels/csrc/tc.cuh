@@ -6,7 +6,8 @@
 // online softmax of a warp's 16 query rows over a tile of keys, and the
 // pieces of the warpgroup-MMA path: wgmma with register A operands,
 // matrix descriptors (unswizzled and 128-byte swizzled), mbarriers, TMA
-// loads and the (B, L, H, D) tensor map.
+// loads and the (B, L, H, D) tensor map; and for w8a8_matmul.cu the s8
+// wgmma with int32 sums, the 2-d TMA load and the (rows, K) int8 map.
 //
 // Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major): a0 = A[g][2t..2t+1],   a1 = A[g+8][2t..],
@@ -639,6 +640,49 @@ __device__ __forceinline__ void store_rows(RowState<NO>& st, __nv_bfloat16* out,
   }
 }
 
+// ---- int8 operands (w8a8_matmul.cu) ----
+//
+// A (rows, K) int8 matrix in shared memory as TMA writes a box of 128
+// bytes of K x rows with the 128-byte swizzle: the same 1 KB atoms of 8
+// rows x 128 bytes as the bf16 tiles above. One k32 step of an s8 wgmma
+// reads 32 bytes of each row, as a bf16 k16 step does, so a K-major
+// operand's descriptor is built and stepped exactly as Q's or K's are:
+// stride byte offset 1024 (next 8 rows), +32 bytes a k-step, the next
+// 128 bytes of K in the next box.
+__device__ __forceinline__ uint64_t kmajor_desc_sw128(const void* p) {
+  return wg_desc_sw128(p, 16, 1024);
+}
+
+// d (m64 x n128, s32) {+}= A (m64 x k32) @ B (k32 x n128), both int8 in
+// shared memory (`da`, `db`), both K-major (8-bit operands have no
+// transposed form). The int32 sums are exact (no saturation below 2^31).
+__device__ __forceinline__ void wgmma_s8_n128(int32_t (&d)[64], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void wg_hold(int32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// A 2-d box of a tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* tmap, uint64_t* bar, int c0,
+                                            int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // ---- host side: tensor maps ----
 
 // cuTensorMapEncodeTiled, a driver function, through the runtime's entry
@@ -676,6 +720,24 @@ inline bool bhld_map_sw128(CUtensorMap* map, const void* base, int D, int H, int
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
                 strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A contiguous row-major int8 (rows, K) matrix as the 2-d map (K, rows)
+// with boxes of 128 bytes of K x `box_rows` rows, 128-byte swizzle (the
+// layout kmajor_desc_sw128 reads). Rows past `rows` and bytes past K read
+// as zeros. Needs a 16-byte aligned base and K % 16 == 0 (TMA's stride
+// rule).
+inline bool rows_map_sw128(CUtensorMap* map, const void* base, int rows, int K, int box_rows) {
+  EncodeTiledFn encode = encode_tiled_fn();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K};
+  const cuuint32_t box[2] = {128, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

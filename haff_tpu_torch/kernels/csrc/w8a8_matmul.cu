@@ -15,24 +15,49 @@
 // output equals the plain version's bit for bit.
 //
 // What bounds it on Hopper: at prefill and in the SAM encoder (M in the
-// thousands) the operations, at decode (M = 2) the weight bytes. This
-// first version uses __dp4a (four int8 multiply-adds an instruction, int32
-// accumulate) on CUDA cores, not the int8 tensor cores, so the large-M
-// shape is bound by the dp4a instruction rate, far under the card's int8
-// tensor-core peak. Two launch shapes:
-//   * tile (M > 16): a 128 x 64 output tile a block, K walked in 64-byte
-//     steps through shared memory, each thread an 8 x 4 register tile;
-//     ragged M, N and K edges are zero-filled on load and masked on store;
+// thousands) the operations: 2 M N K int8 operations against the int8
+// tensor cores' 1979 TOP/s (LLaMA-7B prefill, 1150 x 4096 x 4096: 0.0195
+// ms, where the bytes take 0.0069); at decode (M = 2) the weight bytes.
+// Three paths, chosen by the wrapper (nn/quant.py w8a8_path) before the
+// launch:
+//   * wgmma (M > 16, K % 16 == 0, 16-byte aligned bases): int8 warpgroup
+//     MMA fed by TMA. Output tiles of 128 x 128; a persistent grid of one
+//     block an SM walks them M-fastest, so the blocks in flight share
+//     weight tiles in L2 (lm_head's 131 MB weight is read once). A block
+//     is a producer warp and two consumer warpgroups of 64 rows. The
+//     producer keeps a ring of STAGES = 4 stages in flight, each an A
+//     box (128 rows x 128 bytes of K) and a B box (128 weight rows) from
+//     2-d tensor maps of xq and w read in place, with the 128-byte
+//     swizzle; it runs ahead into the next tile while the consumers
+//     finish one. 8-bit wgmma operands have no transposed form, so both
+//     are K-major, as the layouts already are. Each consumer runs four
+//     m64n128k32 products a stage into 64 int32 accumulators a thread,
+//     keeps one stage's products in flight while it waits for the next,
+//     and releases a stage when its products retire. TMA's zero fill
+//     covers the ragged edges (M = 1150 = 8 x 128 + 126, lm_head's N =
+//     32004, K past the last 128 bytes). The epilogue converts each sum
+//     to float, times sx[m], times sw[n], rounds to the output type and
+//     stages 8 rows at a time through shared memory, then stores whole
+//     16-, 8-, 4- or 2-byte chunks of rows: the widest the row pitch
+//     allows (a bf16 row of 32004 values is 64008 bytes, so 8), masked
+//     at the ragged edges.
 //   * skinny (M <= 16): a warp owns one output column and streams that
 //     weight row once, 16 bytes a lane a step, against up to 8 activation
 //     rows (read through L1; they are a few KB), then a warp reduction:
-//     the weight is read from device memory once.
-// 16-byte vector loads need K % 16 == 0 and 16-byte aligned bases; other
-// shapes (the tiny preset, odd K) take byte loads in the same kernels.
-// Tensor-core mma / wgmma tiles are later work.
-#include "common.cuh"
-
+//     the weight is read from device memory once (__dp4a, four int8
+//     multiply-adds an instruction).
+//   * tile (M > 16 where the wgmma path cannot read the operands: odd K,
+//     unaligned bases such as an output-column split of a weight at an
+//     odd row): a 128 x 64 output tile a block, K walked in 64-byte steps
+//     through padded shared memory, each thread an 8 x 4 register tile of
+//     __dp4a; ragged M, N and K edges zero-filled on load and masked on
+//     store.
+// The skinny and tile kernels take 16-byte vector loads where K % 16 ==
+// 0 and the bases are aligned, byte loads otherwise.
 #include <stdint.h>
+
+#include "common.cuh"
+#include "tc.cuh"
 
 namespace {
 
@@ -168,33 +193,209 @@ w8a8_skinny_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ w,
   }
 }
 
+// ---- the wgmma path; the header has the design ----
+
+constexpr int TC_STAGES = 4;
+constexpr int TC_CONSUMERS = 256;              // two warpgroups of 64 rows
+constexpr int TC_THREADS = TC_CONSUMERS + 32;  // and the producer warp
+constexpr int TC_BOX = 128 * 128;              // bytes of an A or a B box
+constexpr int TC_SDS = 136;                    // staging row pitch (elements)
+
+// Ring, mbarriers, each consumer warp's staging area (8 rows of the
+// widest output type); 1 KB of slack to align the ring to the swizzle atom.
+constexpr size_t TC_SMEM = 1024 + TC_STAGES * 2 * TC_BOX + 2 * TC_STAGES * sizeof(uint64_t) +
+                           (TC_CONSUMERS / 32) * 8 * TC_SDS * sizeof(float);
+
+template <typename T, int VB>
+__device__ __forceinline__ void store_chunk(T* dst, const T* src) {
+  if constexpr (VB == 16) *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+  else if constexpr (VB == 8) *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+  else if constexpr (VB == 4)
+    *reinterpret_cast<uint32_t*>(dst) = *reinterpret_cast<const uint32_t*>(src);
+  else *reinterpret_cast<uint16_t*>(dst) = *reinterpret_cast<const uint16_t*>(src);
+}
+
+// 8 staged rows (pitch TC_SDS) of 128 columns into out rows m0.. from
+// column n0, in chunks of VB bytes; rows >= M and chunks at or past N are
+// not stored (N is a multiple of the chunk).
+template <typename T, int VB>
+__device__ __forceinline__ void store_rows8(const T* stage, T* out, long long m0, int M, int n0,
+                                            int N, int lane) {
+  constexpr int E = VB / (int)sizeof(T), CH = 128 / E;
+#pragma unroll 4
+  for (int o = lane; o < 8 * CH; o += 32) {
+    const int r = o / CH, c = (o - r * CH) * E;
+    if (m0 + r < M && n0 + c < N)
+      store_chunk<T, VB>(out + (m0 + r) * (long long)N + n0 + c, stage + r * TC_SDS + c);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+w8a8_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
+                  const __grid_constant__ CUtensorMap bmap, const float* __restrict__ sx,
+                  const float* __restrict__ sw, T* __restrict__ out, int M, int N, int K,
+                  int vb) {
+  namespace tc = haff::tc;
+  const int tiles_m = (M + 127) / 128, ntiles = tiles_m * ((N + 127) / 128);
+  const int kiters = (K + 127) / 128;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  extern __shared__ uint4 smem_tc[];
+  uint8_t* smem_raw = reinterpret_cast<uint8_t*>(smem_tc);
+  uint8_t* ring = smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + TC_STAGES * 2 * TC_BOX);
+  uint64_t* empty = full + TC_STAGES;
+  T* stage = reinterpret_cast<T*>(empty + TC_STAGES) + warp * 8 * TC_SDS;
+  if (tid == 0) {
+    for (int s = 0; s < TC_STAGES; ++s) {
+      tc::mbar_init(&full[s], 1);
+      tc::mbar_init(&empty[s], TC_CONSUMERS);
+    }
+    tc::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == TC_CONSUMERS / 32) {  // the producer
+    if (lane == 0) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        const int m0 = (tile % tiles_m) * 128, n0 = (tile / tiles_m) * 128;
+        for (int kb = 0; kb < kiters; ++kb, ++it) {
+          const int s = it % TC_STAGES, use = it / TC_STAGES;
+          if (use > 0) tc::mbar_wait(&empty[s], (use - 1) & 1);
+          tc::mbar_expect_tx(&full[s], 2 * TC_BOX);
+          uint8_t* A = ring + s * 2 * TC_BOX;
+          tc::tma_load_2d(A, &amap, &full[s], kb * 128, m0);
+          tc::tma_load_2d(A + TC_BOX, &bmap, &full[s], kb * 128, n0);
+        }
+      }
+    }
+    return;
+  }
+
+  const int g = lane >> 2, t = lane & 3, wg = warp >> 2;
+  int32_t acc[64];
+  int it = 0;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int m0 = (tile % tiles_m) * 128, n0 = (tile / tiles_m) * 128;
+#pragma unroll
+    for (int x = 0; x < 64; ++x) acc[x] = 0;
+    for (int kb = 0; kb < kiters; ++kb, ++it) {
+      const int s = it % TC_STAGES;
+      tc::mbar_wait(&full[s], (it / TC_STAGES) & 1);
+      const uint8_t* A = ring + s * 2 * TC_BOX + wg * 64 * 128;
+      const uint8_t* B = ring + s * 2 * TC_BOX + TC_BOX;
+      tc::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        tc::wgmma_s8_n128(acc, tc::kmajor_desc_sw128(A + kk * 32),
+                          tc::kmajor_desc_sw128(B + kk * 32), 1);
+      tc::wg_commit();
+      tc::wg_wait<1>();  // the previous stage's products have retired
+      if (kb > 0) tc::mbar_arrive(&empty[(it - 1) % TC_STAGES]);
+    }
+    tc::wg_wait<0>();
+    tc::wg_hold(acc);
+    tc::mbar_arrive(&empty[(it - 1) % TC_STAGES]);
+
+    // Epilogue: the warp's 16 rows, 8 at a time through its staging area.
+    const long long r0 = m0 + wg * 64 + (warp & 3) * 16;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const long long m = r0 + g + 8 * hf;
+      const float s_m = m < M ? sx[m] : 0.f;
+      __syncwarp();  // the area's last readers are done
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        const int c = n * 8 + 2 * t, col = n0 + c;
+        const float s0 = col < N ? sw[col] : 0.f, s1 = col + 1 < N ? sw[col + 1] : 0.f;
+        const float v0 = (float)acc[4 * n + 2 * hf] * s_m * s0;
+        const float v1 = (float)acc[4 * n + 2 * hf + 1] * s_m * s1;
+        if constexpr (sizeof(T) == 2)
+          *reinterpret_cast<uint32_t*>(stage + g * TC_SDS + c) = haff::tc::pack_bf16(v0, v1);
+        else
+          *reinterpret_cast<float2*>(stage + g * TC_SDS + c) = make_float2(v0, v1);
+      }
+      __syncwarp();
+      const long long mr = r0 + 8 * hf;
+      if (vb == 16) store_rows8<T, 16>(stage, out, mr, M, n0, N, lane);
+      else if (vb == 8) store_rows8<T, 8>(stage, out, mr, M, n0, N, lane);
+      else if (vb == 4) store_rows8<T, 4>(stage, out, mr, M, n0, N, lane);
+      else if constexpr (sizeof(T) == 2) store_rows8<T, 2>(stage, out, mr, M, n0, N, lane);
+    }
+  }
+}
+
+int sm_count() {
+  static int n = 0;
+  if (!n) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      n = 132;
+  }
+  return n;
+}
+
+template <typename T>
+cudaError_t launch_wgmma(const int8_t* a, const int8_t* b, const float* fx, const float* fw,
+                         T* out, int M, int N, int K, cudaStream_t stream) {
+  if (K % 16 || reinterpret_cast<uintptr_t>(a) % 16 || reinterpret_cast<uintptr_t>(b) % 16)
+    return cudaErrorInvalidValue;
+  CUtensorMap amap, bmap;
+  if (!haff::tc::rows_map_sw128(&amap, a, M, K, 128) ||
+      !haff::tc::rows_map_sw128(&bmap, b, N, K, 128))
+    return cudaErrorInvalidValue;
+  // The widest store the output's row pitch and base allow.
+  int vb = 16;
+  while (vb > (int)sizeof(T) &&
+         (((long long)N * sizeof(T)) % vb || reinterpret_cast<uintptr_t>(out) % vb))
+    vb >>= 1;
+  cudaError_t e = haff::allow_smem(w8a8_wgmma_kernel<T>, TC_SMEM);
+  if (e != cudaSuccess) return e;
+  const int ntiles = ((M + 127) / 128) * ((N + 127) / 128);
+  const int grid = ntiles < sm_count() ? ntiles : sm_count();
+  w8a8_wgmma_kernel<T><<<grid, TC_THREADS, TC_SMEM, stream>>>(
+      amap, bmap, fx, fw, out, M, N, K, vb);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch(const void* xq, const void* w, const void* sx, const void* sw,
-                   void* out, int M, int N, int K, cudaStream_t stream) {
+                   void* out, int M, int N, int K, int path, cudaStream_t stream) {
   const int8_t* a = static_cast<const int8_t*>(xq);
   const int8_t* b = static_cast<const int8_t*>(w);
   const float* fx = static_cast<const float*>(sx);
   const float* fw = static_cast<const float*>(sw);
+  T* o = static_cast<T*>(out);
   const int vec = K % 16 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(b) % 16 == 0;
-  if (M <= SKINNY_M) {
+  if (path == 1) return launch_wgmma<T>(a, b, fx, fw, o, M, N, K, stream);
+  if (path == 2) {
+    if (M > SKINNY_M) return cudaErrorInvalidValue;
     dim3 grid((N + THREADS / 32 - 1) / (THREADS / 32),
               (M + SKINNY_ROWS - 1) / SKINNY_ROWS);
-    w8a8_skinny_kernel<T><<<grid, THREADS, 0, stream>>>(a, b, fx, fw,
-                                                        static_cast<T*>(out), M, N, K, vec);
-  } else {
+    w8a8_skinny_kernel<T><<<grid, THREADS, 0, stream>>>(a, b, fx, fw, o, M, N, K, vec);
+  } else if (path == 0) {
     dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    w8a8_tile_kernel<T><<<grid, THREADS, 0, stream>>>(a, b, fx, fw,
-                                                      static_cast<T*>(out), M, N, K, vec);
+    w8a8_tile_kernel<T><<<grid, THREADS, 0, stream>>>(a, b, fx, fw, o, M, N, K, vec);
+  } else {
+    return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// Paths (the wrapper's w8a8_path): 0 the dp4a tile kernel, 1 int8
+// warpgroup MMA (K % 16 == 0, 16-byte aligned xq and w), 2 the skinny
+// dp4a kernel (M <= 16). xq (M, K) and w (N, K) int8 row-major, sx (M,)
+// and sw (N,) f32, out (M, N) bf16 (out_bf16) or f32.
 extern "C" int w8a8_matmul(const void* xq, const void* w, const void* sx, const void* sw,
-                           void* out, int M, int N, int K, int out_bf16, void* stream) {
+                           void* out, int M, int N, int K, int out_bf16, int path,
+                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (out_bf16) return (int)launch<__nv_bfloat16>(xq, w, sx, sw, out, M, N, K, s);
-  return (int)launch<float>(xq, w, sx, sw, out, M, N, K, s);
+  if (out_bf16) return (int)launch<__nv_bfloat16>(xq, w, sx, sw, out, M, N, K, path, s);
+  return (int)launch<float>(xq, w, sx, sw, out, M, N, K, path, s);
 }

@@ -13,11 +13,11 @@ or v requires grad it goes through `FlashAttentionFn`, whose backward is
 csrc/flash_bwd.cu (`flash_bwd_dq`, `flash_bwd_dkv`), the counterpart of
 the JAX `custom_vjp`.
 
-The forward and dk/dv kernels have two paths, chosen before the launch by
+Each of the three kernels has two paths, chosen before the launch by
 `kernel_path` from dtype, head dim, pointers and strides: warpgroup MMA
 fed by TMA for bf16 operands it can address, the scalar f32-FMA code for
 the rest (float32 included). A bf16 launch on the scalar path also counts
-under `<kernel>/scalar` in `_build.LAUNCHES`. The dq kernel is scalar.
+under `<kernel>/scalar` in `_build.LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -168,12 +168,12 @@ def _lib(name):
         lib.flash_prefill_fwd_smem.restype = ctypes.c_size_t
     if name == "flash_bwd" and lib.flash_bwd_dq.argtypes is None:
         head = [vp, vp, vp, vp, i64, i64, i64, i64, vp, vp, vp, vp, vp]
-        tail = [i32, i32, i32, i32, i32, f32, i32, i32, vp]
+        tail = [i32, i32, i32, i32, i32, f32, i32, i32, i32, vp]
         lib.flash_bwd_dq.argtypes = head + [vp] + tail
-        lib.flash_bwd_dkv.argtypes = head + [vp, vp] + tail[:-1] + [i32, vp]
+        lib.flash_bwd_dkv.argtypes = head + [vp, vp] + tail
         for fn in (lib.flash_bwd_dq, lib.flash_bwd_dkv):
             fn.restype = i32
-        lib.flash_bwd_dq_smem.argtypes = [i32]
+        lib.flash_bwd_dq_smem.argtypes = [i32, i32]
         lib.flash_bwd_dkv_smem.argtypes = [i32, i32]
         for fn in (lib.flash_bwd_dq_smem, lib.flash_bwd_dkv_smem):
             fn.restype = ctypes.c_size_t
@@ -197,8 +197,8 @@ def _tensor_core_ok(*ts) -> bool:
 
 
 def kernel_path(*operands) -> int:
-    """The path of a forward (q, k, v) or dk/dv (q, k, v, dO) launch:
-    WGMMA where `_tensor_core_ok`, else SCALAR. Pure, like
+    """The path of a forward (q, k, v) or backward dq or dk/dv (q, k, v,
+    dO) launch: WGMMA where `_tensor_core_ok`, else SCALAR. Pure, like
     `_tensor_core_ok`."""
     return WGMMA if _tensor_core_ok(*operands) else SCALAR
 
@@ -300,24 +300,20 @@ def _bwd_operands(q, k, v, bias, q_segment_ids, kv_segment_ids, out, lse,
 
 def _bwd_launch(name, operands, causal, outputs):
     """Launch kernel `name` of csrc/flash_bwd.cu on `_bwd_operands`'s
-    result, writing `outputs`; `flash_bwd_dkv` on `kernel_path(q, k, v,
-    dO)`, `flash_bwd_dq` (scalar only) as it was."""
+    result, writing `outputs`, on `kernel_path(q, k, v, dO)`."""
     q, k, v, bias, strides, qs, ks, do, lse, delta, sm_scale = operands
     b, lq, h, d = q.shape
     lib = _lib("flash_bwd")
-    path = (kernel_path(q, k, v, do),) if name == _DKV else ()
-    if getattr(lib, name + "_smem")(d, *path) > _SMEM_LIMIT:
+    path = kernel_path(q, k, v, do)
+    if getattr(lib, name + "_smem")(d, path) > _SMEM_LIMIT:
         raise ValueError(f"{name}: head dim {d} too large")
     ptr = _build.ptr
     err = getattr(lib, name)(
         ptr(q), ptr(k), ptr(v), ptr(bias), *strides, ptr(qs), ptr(ks),
         ptr(do), ptr(lse), ptr(delta), *(ptr(t) for t in outputs), b, lq,
         k.shape[1], h, d, sm_scale, int(bool(causal)),
-        int(q.dtype == torch.bfloat16), *path, _build.stream_handle(q.device))
-    if path:
-        _build.count(name, q, path[0])
-    else:
-        _build.LAUNCHES[name] += 1
+        int(q.dtype == torch.bfloat16), path, _build.stream_handle(q.device))
+    _build.count(name, q, path)
     _build.check(err, name)
 
 

@@ -19,7 +19,11 @@ package's bit for bit on the same input.
 Two hand-written CUDA kernels run the products on the card:
 
 * `int8_matmul` -> csrc/w8a8_matmul.cu (`w8a8_matmul`), replacing
-  haff_tpu/nn/quant.py `_w8a8_kernel`, for every M;
+  haff_tpu/nn/quant.py `_w8a8_kernel`, for every M, on the path
+  `w8a8_path` picks: int8 warpgroup MMA fed by TMA (M > 16, K % 16 == 0,
+  16-byte aligned operands), the skinny `dp4a` kernel (M <= 16), or the
+  `dp4a` tile kernel for the rest (odd K, unaligned row blocks), whose
+  launches also count under `w8a8_matmul/scalar`;
 * `int4_matmul` -> csrc/w4a16_matmul.cu (`w4a16_matmul`), replacing
   `_w4a16_kernel`, for flattened M <= SMALL_M and group % 16 == 0; larger
   M (prefill) dequantizes the weight and calls `torch.matmul`, as the JAX
@@ -44,6 +48,10 @@ from ..kernels import _build
 
 _W8A8 = "w8a8_matmul"
 _W4A16 = "w4a16_matmul"
+# w8a8 kernel paths, as the C entry point numbers them.
+W8A8_SCALAR, W8A8_WGMMA, W8A8_SKINNY = 0, 1, 2
+W8A8_PATH_NAMES = ("scalar", "wgmma", "skinny")
+SKINNY_M = 16  # the largest M of the skinny path
 # int4_matmul launches its kernel up to this flattened M (decode steps);
 # above it (prefill) the dequantized weight goes to torch.matmul.
 SMALL_M = 256
@@ -204,9 +212,26 @@ def _out_code(name, dtype) -> int:
     return int(dtype == torch.bfloat16)
 
 
+def w8a8_path(xq, q) -> int:
+    """The path of a w8a8 launch on xq (M, K) and the weight q (N, K),
+    both row-major int8: W8A8_SKINNY for M <= SKINNY_M (decode);
+    W8A8_WGMMA where TMA can read both operands (K % 16 == 0, its stride
+    rule, and 16-byte aligned bases); W8A8_SCALAR, the `dp4a` tile kernel,
+    for the rest. Pure: shape, pointers and strides only, on any device."""
+    m, k = xq.shape
+    if m <= SKINNY_M:
+        return W8A8_SKINNY
+    if (k % 16 == 0 and xq.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0
+            and xq.stride() == (k, 1) and q.stride() == (k, 1)):
+        return W8A8_WGMMA
+    return W8A8_SCALAR
+
+
 def int8_matmul_kernel(xq, q, s_x, scale, dtype):
-    """Launch csrc/w8a8_matmul.cu: xq (M, K) int8, q (N, K) int8, s_x (M,)
-    and scale (N,) float32 -> (M, N) in `dtype`."""
+    """Launch csrc/w8a8_matmul.cu on `w8a8_path(xq, q)`: xq (M, K) int8,
+    q (N, K) int8, s_x (M,) and scale (N,) float32 -> (M, N) in `dtype`.
+    A launch on the tile path (M > 16) also counts under
+    `w8a8_matmul/scalar`."""
     m, k = xq.shape
     n = q.shape[0]
     check = _build.check_operand
@@ -216,13 +241,16 @@ def int8_matmul_kernel(xq, q, s_x, scale, dtype):
     check(_W8A8, "scale", scale, torch.float32, (n,))
     code = _out_code(_W8A8, dtype)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn = _lib(_W8A8, _W8A8, [vp, vp, vp, vp, vp, i32, i32, i32, i32, vp])
+    fn = _lib(_W8A8, _W8A8, [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, vp])
     out = torch.empty((m, n), dtype=dtype, device=xq.device)
     if m and n:
+        path = w8a8_path(xq, q)
         ptr = _build.ptr
         err = fn(ptr(xq), ptr(q), ptr(s_x), ptr(scale), ptr(out), m, n, k,
-                 code, _build.stream_handle(xq.device))
+                 code, path, _build.stream_handle(xq.device))
         _build.LAUNCHES[_W8A8] += 1
+        if path == W8A8_SCALAR:
+            _build.LAUNCHES[_W8A8 + "/scalar"] += 1
         _build.check(err, _W8A8)
     return out
 

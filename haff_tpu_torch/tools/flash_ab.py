@@ -1,7 +1,8 @@
-"""Times the flash forward (`flash_prefill_kernel`) and dk/dv
-(`flash_bwd_dkv_kernel`) entries of whichever `haff_tpu_torch` comes first
-on the import path, at `chip_smoke.py`'s phase-3 shapes, on the card; for
-comparing two trees of the port in one chip call, in turns:
+"""Times the flash forward (`flash_prefill_kernel`), dq
+(`flash_bwd_dq_kernel`) and dk/dv (`flash_bwd_dkv_kernel`) entries of
+whichever `haff_tpu_torch` comes first on the import path, at
+`chip_smoke.py`'s phase-3 shapes, on the card; for comparing two trees of
+the port in one chip call, in turns:
 
     for t in old new new old; do
         PYTHONPATH=$t python haff_tpu_torch/tools/flash_ab.py --label $t
@@ -30,6 +31,7 @@ import torch
 # step of 2 requests, row 1 right-padded by 100.
 CASES = (
     ("flash_prefill_fwd", 2, 575, 32, 128, True, (575, 475)),
+    ("flash_bwd_dq", 2, 575, 32, 128, True, (575, 475)),
     ("flash_bwd_dkv", 2, 575, 32, 128, True, (575, 475)),
 )
 
@@ -109,7 +111,9 @@ def main(argv=None) -> int:
                 q, k, v, None, seg, seg, causal)
         else:
             out, lse = fa.flash_prefill_kernel(q, k, v, None, seg, seg, causal)
-            run = lambda: fa.flash_bwd_dkv_kernel(  # noqa: E731
+            bwd = (fa.flash_bwd_dq_kernel if rec == "flash_bwd_dq"
+                   else fa.flash_bwd_dkv_kernel)
+            run = lambda: bwd(  # noqa: E731
                 q, k, v, None, seg, seg, out, lse, do, causal)
         ev, gr = events_ms(run, args.iters), graph_ms(run, args.iters)
         print(json.dumps(dict(label=args.label, record=rec, shape=[b, l, h, d],

@@ -1,27 +1,32 @@
 """The design choices of the port's tensor-core flash kernels
-(haff_tpu_torch/kernels/csrc/flash_prefill.cu, flash_bwd.cu: the forward
-and flash_bwd_dkv), checked on the CPU before the card sees them:
+(haff_tpu_torch/kernels/csrc/flash_prefill.cu, flash_bwd.cu: the forward,
+flash_bwd_dq and flash_bwd_dkv), checked on the CPU before the card sees
+them:
 
 * the pure path function (`kernel_path`): bf16 operands with D % 16 == 0,
   D <= 128 and 16-byte aligned bases and strides take the warpgroup-MMA
   path; float32, other head dims and misaligned operands stay scalar;
+  both backward kernels take the path of (q, k, v, dO);
 * a plain-torch emulation of the kernels' rounding at the train and
   prefill shape (L = 575, D = 128, two heads, causal, row 1 short by
   100): the forward's online softmax over 64-key tiles with P entering
-  P V as bf16 hi + lo halves, the backward's P^T and dS^T entering their
-  products as bf16 hi + lo, f32 sums and bf16 outputs, all within the
-  card's bf16 tolerance |err| <= 1e-3 + 2^-7 |ref| of the float32 plain
-  versions; P, P^T or dS^T rounded to bf16 alone, as the JAX kernel
-  rounds P (`p.astype(v.dtype)`), leave it;
-* the emulated forward against haff_tpu's `flash_attention` at bf16 in
-  interpret mode at a small shape: with the Pallas kernel's rounding it
-  reproduces the kernel's output within the same tolerance; with the
-  port's it is closer to the float32 plain version than the Pallas kernel.
+  P V as bf16 hi + lo halves, the backward's dS (dq), P^T and dS^T
+  (dk/dv) entering their products as bf16 hi + lo, f32 sums and bf16
+  outputs, all within the card's bf16 tolerance |err| <= 1e-3 + 2^-7 |ref|
+  of the float32 plain versions; P, dS, P^T or dS^T rounded to bf16
+  alone, as the JAX kernel rounds P (`p.astype(v.dtype)`), leave it;
+* the emulated forward and dq against haff_tpu's `flash_attention` and
+  its `jax.vjp` at bf16 in interpret mode at a small shape: with the
+  Pallas kernel's rounding the forward reproduces the kernel's output
+  within the same tolerance, with the port's it is closer to the float32
+  plain version than the Pallas kernel; the emulated dq is within the
+  tolerance of the Pallas dq and of the float32 plain version.
 """
 
 import importlib
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -79,11 +84,11 @@ def emulate_forward(q, k, v, q_seg, kv_seg, causal, split=True):
     return out.permute(0, 2, 1, 3).bfloat16().float()
 
 
-def emulate_dkv(q, k, v, q_seg, kv_seg, out, lse, do, causal, split=True):
-    """flash_bwd_dkv's arithmetic: P^T = exp2(S^T scale log2 e - lse log2
-    e) where visible, dS^T = P^T (dP^T - delta) scale in f32, both rounded
-    (`split`: hi + lo) before dV = P^T dO and dK = dS^T Q with f32 sums,
-    dK and dV rounded to bf16."""
+def _emulate_p_ds(q, k, v, q_seg, kv_seg, out, lse, do, causal):
+    """The backward kernels' P and dS (B, H, Lq, Lk): S and dP from
+    bf16-valued operands with f32 sums, P = exp2(S scale log2 e - lse log2
+    e) where visible, dS = P (dP - delta) scale in f32, delta =
+    rowsum(dO * O) as the wrapper computes it."""
     b, lq, h, d = q.shape
     scale = d ** -0.5
     s = torch.einsum("bqhd,bkhd->bhqk", q, k)
@@ -92,6 +97,22 @@ def emulate_dkv(q, k, v, q_seg, kv_seg, out, lse, do, causal, split=True):
     p = p.masked_fill(~mask, 0.0)
     delta = (do * out).sum(-1).permute(0, 2, 1)
     ds = p * (torch.einsum("bqhd,bkhd->bhqk", do, v) - delta[..., None]) * scale
+    return p, ds
+
+
+def emulate_dq(q, k, v, q_seg, kv_seg, out, lse, do, causal, split=True):
+    """flash_bwd_dq's arithmetic: dS (`_emulate_p_ds`) rounded (`split`:
+    hi + lo) before dQ = dS K with f32 sums, dQ rounded to bf16."""
+    _, ds = _emulate_p_ds(q, k, v, q_seg, kv_seg, out, lse, do, causal)
+    dq = torch.einsum("bhqk,bkhd->bqhd", _rounded(ds, split), k)
+    return dq.bfloat16().float()
+
+
+def emulate_dkv(q, k, v, q_seg, kv_seg, out, lse, do, causal, split=True):
+    """flash_bwd_dkv's arithmetic: P^T and dS^T (`_emulate_p_ds`, read
+    key-major) rounded (`split`: hi + lo) before dV = P^T dO and dK = dS^T
+    Q with f32 sums, dK and dV rounded to bf16."""
+    p, ds = _emulate_p_ds(q, k, v, q_seg, kv_seg, out, lse, do, causal)
     dk = torch.einsum("bhqk,bqhd->bkhd", _rounded(ds, split), q)
     dv = torch.einsum("bhqk,bqhd->bkhd", _rounded(p, split), do)
     return dk.bfloat16().float(), dv.bfloat16().float()
@@ -115,6 +136,14 @@ def train_shape():
     return q, k, v, do, seg, ref, out, lse, dk, dv
 
 
+@pytest.fixture(scope="module")
+def train_dq(train_shape):
+    """The float32 plain dq at the train shape."""
+    q, k, v, do, seg, _, out, lse, *_ = train_shape
+    return fa.attention_bwd_dq_plain(q, k, v, None, seg, seg, out, lse, do,
+                                     True)
+
+
 @pytest.mark.parametrize("dtype,d,offset,stride_pad,path", [
     (torch.bfloat16, 128, 0, 0, fa.WGMMA),
     (torch.bfloat16, 64, 0, 0, fa.WGMMA),
@@ -134,8 +163,22 @@ def test_kernel_path(dtype, d, offset, stride_pad, path):
         assert buf.data_ptr() % 16 == 0 and t.data_ptr() % 16 != 0
     ok = torch.zeros(b, l, h, d, dtype=dtype)
     assert fa.kernel_path(t, ok, ok) == path
-    assert fa.kernel_path(ok, ok, ok, t) == path  # dk/dv: dO checked too
+    assert fa.kernel_path(ok, ok, ok, t) == path  # dq, dk/dv: dO checked too
     assert fa.PATH_NAMES[path] in ("scalar", "wgmma")
+
+
+@pytest.mark.parametrize("odd", ["none", "q", "k", "v", "dO"])
+def test_backward_path_reads_every_operand(odd):
+    """Both backward kernels launch on `kernel_path(q, k, v, dO)`: the
+    tensor cores when all four are bf16 tensors TMA can address, the
+    scalar code when any one of them starts 2 bytes off 16."""
+    b, l, h, d = 2, 9, 3, 64
+    ops = {}
+    for name in ("q", "k", "v", "dO"):
+        buf = torch.zeros(b * l * h * d + 1, dtype=torch.bfloat16)
+        ops[name] = (buf[1:] if name == odd else buf[:-1]).view(b, l, h, d)
+    want = fa.WGMMA if odd == "none" else fa.SCALAR
+    assert fa.kernel_path(*ops.values()) == want
 
 
 def test_emulated_forward_is_within_tolerance(train_shape):
@@ -152,13 +195,25 @@ def test_emulated_dkv_is_within_tolerance(train_shape):
     assert not gdk[1, 475:].any() and not gdv[1, 475:].any()
 
 
-def test_bf16_products_alone_leave_the_tolerance(train_shape):
-    """Why the kernels split P, P^T and dS^T: rounded to bf16 alone, each
-    puts outputs outside the tolerance at this shape."""
+def test_emulated_dq_is_within_tolerance(train_shape, train_dq):
+    q, k, v, do, seg, _, out, lse, *_ = train_shape
+    got = emulate_dq(q, k, v, seg, seg, out, lse, do, True)
+    bad, worst = _bad(got, train_dq)
+    assert bad == 0 and worst < 0.5
+    assert not got[1, 475:].any()
+
+
+def test_bf16_products_alone_leave_the_tolerance(train_shape, train_dq):
+    """Why the kernels split P, dS, P^T and dS^T: rounded to bf16 alone,
+    each puts outputs outside the tolerance at this shape (dq: 33 values,
+    worst 2.5x the tolerance, where hi + lo stays under 0.5x)."""
     q, k, v, do, seg, ref, out, lse, dk, dv = train_shape
     assert _bad(emulate_forward(q, k, v, seg, seg, True, split=False), ref)[0]
     gdk, gdv = emulate_dkv(q, k, v, seg, seg, out, lse, do, True, split=False)
     assert _bad(gdk, dk)[0] and _bad(gdv, dv)[0]
+    bad, worst = _bad(emulate_dq(q, k, v, seg, seg, out, lse, do, True,
+                                 split=False), train_dq)
+    assert bad and worst > 1.0
 
 
 def test_emulated_forward_against_pallas_at_bf16():
@@ -187,3 +242,36 @@ def test_emulated_forward_against_pallas_at_bf16():
     ref = fa.attention_plain(tq, tk, tv, None, ts, ts, True)[0]
     bad, worst = _bad(emulate_forward(tq, tk, tv, ts, ts, True), ref)
     assert bad == 0 and worst < _bad(pallas, ref)[1]
+
+
+def test_emulated_dq_against_pallas_at_bf16():
+    """The dq emulation against haff_tpu's dq: `jax.vjp` of the Pallas
+    `flash_attention` in q on bf16 operands in interpret mode (causal, row
+    1 right-padded past a tile), its backward fed the Pallas forward's
+    bf16 output. The emulation, given that output, is within the
+    tolerance of the Pallas dq (whose products are f32: the two differ by
+    dS's hi + lo rounding and the bf16 output's) and of the float32 plain
+    dq; padded query rows are exactly 0 in both."""
+    b, l, h, d = 2, 64, 2, 32
+    rng = np.random.default_rng(5)
+    q, k, v, do = (rng.standard_normal((b, l, h, d)).astype(np.float32)
+                   for _ in range(4))
+    seg = (np.arange(l)[None] < np.array([[l], [l - 20]])).astype(np.int32)
+    jq, jk, jv, jdo = (jnp.asarray(x, dtype=jnp.bfloat16)
+                       for x in (q, k, v, do))
+    jseg = jnp.asarray(seg)
+    out, vjp = jax.vjp(lambda x: jfa.flash_attention(
+        x, jk, jv, q_segment_ids=jseg, kv_segment_ids=jseg, causal=True,
+        block_q=32, block_k=32, interpret=True), jq)
+    pallas = torch.from_numpy(np.asarray(vjp(jdo)[0], dtype=np.float32))
+    tq, tk, tv, tdo = (torch.from_numpy(x).bfloat16().float()
+                       for x in (q, k, v, do))
+    ts = torch.from_numpy(seg)
+    tout = torch.from_numpy(np.asarray(out, dtype=np.float32))
+    lse = fa.attention_plain(tq, tk, tv, None, ts, ts, True)[1]
+    got = emulate_dq(tq, tk, tv, ts, ts, tout, lse, tdo, True)
+    assert _bad(got, pallas)[0] == 0
+    ref = fa.attention_bwd_dq_plain(tq, tk, tv, None, ts, ts, tout, lse, tdo,
+                                    True)
+    assert _bad(got, ref)[0] == 0
+    assert not got[1, l - 20:].any() and not pallas[1, l - 20:].any()

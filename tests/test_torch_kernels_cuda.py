@@ -221,8 +221,9 @@ def test_flash_backward_matches_plain(dev, dtype, b, lq, lk, h, d, causal,
                                       bias, seg):
     """dq (flash_bwd_dq) and dk/dv (flash_bwd_dkv) against
     attention_bwd_plain on the float32 values of the same operands; pad
-    query rows give exactly-zero dq, pad keys exactly-zero dk/dv. dk/dv
-    runs bf16 on the warpgroup MMA path, float32 on the scalar one."""
+    query rows give exactly-zero dq, pad keys exactly-zero dk/dv. Both
+    kernels run bf16 on the warpgroup MMA path (no `/scalar` count
+    moves), float32 on the scalar one."""
     g = torch.Generator(dev).manual_seed(7 * lq + lk)
     rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(dtype)  # noqa: E731
     q, do = rnd(b, lq, h, d), rnd(b, lq, h, d)
@@ -255,7 +256,7 @@ def test_flash_backward_matches_plain(dev, dtype, b, lq, lk, h, d, causal,
 
 def test_unaligned_bf16_flash_operands_take_the_scalar_path(dev):
     """bf16 q, k, v and dO that start 2 bytes into their storage cannot be
-    read by TMA: the forward and dk/dv kernels take their scalar path
+    read by TMA: the forward, dq and dk/dv kernels take their scalar path
     (counted under `<key>/scalar`) and stay within the bf16 tolerance."""
     g = torch.Generator(dev).manual_seed(5)
     b, l, h, d = 2, 70, 2, 64
@@ -271,18 +272,21 @@ def test_unaligned_bf16_flash_operands_take_the_scalar_path(dev):
     seg[1, 40:] = 0
     before = dict(_build.LAUNCHES)
     out, lse = fa.flash_prefill_kernel(q, k, v, None, seg, seg, True)
+    dq = fa.flash_bwd_dq_kernel(q, k, v, None, seg, seg, out, lse, do, True)
     dk, dv = fa.flash_bwd_dkv_kernel(q, k, v, None, seg, seg, out, lse, do,
                                      True)
     torch.cuda.synchronize()
-    for key in ("flash_prefill_fwd", "flash_bwd_dkv"):
+    for key in ("flash_prefill_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         for k_ in (key, key + "/scalar"):
             assert _build.LAUNCHES[k_] == before.get(k_, 0) + 1, k_
     ref = fa.attention_plain(q.float(), k.float(), v.float(), None, seg, seg,
                              True)[0]
     _close(out, ref)
-    _, rdk, rdv = fa.attention_bwd_plain(q.float(), k.float(), v.float(), None,
-                                         seg, seg, out.float(), lse,
-                                         do.float(), True)
+    rdq, rdk, rdv = fa.attention_bwd_plain(q.float(), k.float(), v.float(),
+                                           None, seg, seg, out.float(), lse,
+                                           do.float(), True)
+    _close(dq, rdq)
+    assert not dq[1, 40:].any()
     _close(dk, rdk)
     _close(dv, rdv)
 
@@ -316,16 +320,26 @@ def test_flash_attention_autograd_on_the_card(dev):
 @pytest.mark.parametrize("m,k,n", [
     (1, 64, 1), (2, 4096, 4096), (2, 100, 7), (16, 37, 33), (17, 64, 130),
     (256, 1280, 7), (300, 52, 65), (2, 4096, 32004), (1150, 128, 32004),
-    (9800, 1280, 3840), (129, 11008, 64)])
+    (9800, 1280, 3840), (129, 11008, 64), (1150, 11008, 4096),
+    (8192, 1280, 5120), (17, 4096, 4096)])
 def test_w8a8_kernel_matches_plain(dev, dtype, m, k, n):
+    """Each shape on the path `w8a8_path` gives it: M <= 16 skinny, K % 16
+    == 0 the int8 tensor cores, odd K the dp4a tile (also counted under
+    `w8a8_matmul/scalar`)."""
     g = torch.Generator(dev).manual_seed(m * 7 + k + n)
     x = torch.randn(m, k, generator=g, device=dev).to(dtype)
     w = torch.randn(n, k, generator=g, device=dev) * k ** -0.5
     q, s = quant.quantize_kernel(w)
-    before = _build.LAUNCHES["w8a8_matmul"]
+    want = (quant.W8A8_SKINNY if m <= 16 else
+            quant.W8A8_WGMMA if k % 16 == 0 else quant.W8A8_SCALAR)
+    assert quant.w8a8_path(quant.quantize_activation(x).values, q) == want
+    before = dict(_build.LAUNCHES)
     got = quant.int8_matmul(x, q, s)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["w8a8_matmul"] == before + 1
+    assert _build.LAUNCHES["w8a8_matmul"] == before.get("w8a8_matmul", 0) + 1
+    scalar = "w8a8_matmul/scalar"
+    assert _build.LAUNCHES[scalar] == (before.get(scalar, 0)
+                                       + (want == quant.W8A8_SCALAR))
     assert got.dtype == dtype and got.shape == (m, n)
     xq, s_x = quant.quantize_activation(x)
     exact = quant.int8_matmul_plain(xq, q, s_x[:, 0], s, torch.float32)
@@ -337,11 +351,14 @@ def test_w8a8_kernel_matches_plain(dev, dtype, m, k, n):
 
 def test_w8a8_kernel_on_an_unaligned_row_block(dev):
     """An out_split piece starting at a row whose byte offset is not a
-    multiple of 16 (K = 40, row 3) takes the byte-load path."""
+    multiple of 16 (K = 40, row 3) takes the dp4a tile's byte-load path,
+    counted under `w8a8_matmul/scalar`."""
     g = torch.Generator(dev).manual_seed(5)
     x = torch.randn(20, 40, generator=g, device=dev)
     q, s = quant.quantize_kernel(torch.randn(50, 40, generator=g, device=dev))
+    before = _build.LAUNCHES["w8a8_matmul/scalar"]
     got = quant.int8_matmul(x, q[3:], s[3:])
+    assert _build.LAUNCHES["w8a8_matmul/scalar"] == before + 1
     xq, s_x = quant.quantize_activation(x)
     assert torch.equal(got, quant.int8_matmul_plain(xq, q[3:], s_x[:, 0],
                                                     s[3:], torch.float32))

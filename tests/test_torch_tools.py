@@ -1,8 +1,9 @@
 """The port's kernel tools (haff_tpu_torch/tools/kernel_audit.py,
-bench_kernels.py) rehearsed on the CPU, where every wrapper takes its
-plain version: each audit check passes, each bench command runs at a
-small shape and labels its lines as host-clock rehearsals, both tools ask
-for the card by default, and the probe's plain version is exact.
+bench_kernels.py, flash_ab.py, w8a8_ab.py) rehearsed on the CPU, where
+every wrapper takes its plain version: each audit check passes, each
+bench command runs at a small shape and labels its lines as host-clock
+rehearsals, the tools ask for the card by default, the A/B tools' cases
+and operands are chip_smoke.py's, and the probe's plain version is exact.
 """
 
 import numpy as np
@@ -85,7 +86,7 @@ def test_flash_ab_arguments_and_cases():
     assert (args.label, args.iters) == ("new", 7)
     assert (flash_ab.parse([]).label, flash_ab.parse([]).iters) == ("", 20)
     assert [c[0] for c in flash_ab.CASES] == ["flash_prefill_fwd",
-                                              "flash_bwd_dkv"]
+                                              "flash_bwd_dq", "flash_bwd_dkv"]
     for case in flash_ab.CASES:
         assert case[1:] == (2, 575, 32, 128, True, (575, 475))
     small = ("flash_bwd_dkv", 2, 9, 2, 16, True, (9, 4))
@@ -96,3 +97,32 @@ def test_flash_ab_arguments_and_cases():
     assert seg.dtype == torch.int32 and seg.sum(1).tolist() == [9, 4]
     if not torch.cuda.is_available():
         assert flash_ab.main([]) == 2
+
+
+def test_w8a8_ab_arguments_and_cases():
+    """tools/w8a8_ab.py: its arguments, its case table (chip_smoke.py's
+    phase-3 w8a8 shapes) and the operands it builds, on the CPU, where
+    their product by the plain version is the exact one; without a card
+    it refuses to time."""
+    from haff_tpu_torch.nn import quant
+    from haff_tpu_torch.tools import w8a8_ab
+
+    args = w8a8_ab.parse(["--label", "old", "--iters", "3"])
+    assert (args.label, args.iters) == ("old", 3)
+    assert (w8a8_ab.parse([]).label, w8a8_ab.parse([]).iters) == ("", 20)
+    assert w8a8_ab.CASES == (("prefill", 1150, 4096, 4096),
+                             ("decode", 2, 4096, 4096),
+                             ("lm_head", 1150, 4096, 32004),
+                             ("sam qkv", 9800, 1280, 3840))
+    xq, q, sx, sw = w8a8_ab.operands(("small", 20, 48, 7),
+                                     torch.Generator().manual_seed(0),
+                                     device="cpu")
+    assert xq.shape == (20, 48) and q.shape == (7, 48)
+    assert xq.dtype == q.dtype == torch.int8
+    assert sx.shape == (20,) and sw.shape == (7,)
+    assert quant.w8a8_path(xq, q) == quant.W8A8_WGMMA
+    exact = (xq.int() @ q.int().T).float() * sx[:, None] * sw[None, :]
+    assert torch.equal(quant.int8_matmul_plain(xq, q, sx, sw, torch.float32),
+                       exact)
+    if not torch.cuda.is_available():
+        assert w8a8_ab.main([]) == 2
