@@ -16,9 +16,10 @@ Phases (any failure raises and exits non-zero):
    plain version and one PyTorch library call computing the same function
    (CUDA events, after warm-up). Each SAM record, the three flash
    records and each w8a8 shape also name the kernel path the wrapper
-   chose (`path`: wgmma, mma.sync, skinny or scalar) and time the kernel
-   and its library yardstick once more as CUDA graphs (`graph_ms`,
-   `library_graph_ms`: device time without the host's launch cost).
+   chose (`path`: wgmma, mma.sync, skinny or scalar); every record but
+   the probe's times the kernel and its library yardstick once more as
+   CUDA graphs (`graph_ms`, `library_graph_ms`: device time without the
+   host's launch cost).
 3b. backward: the SAM attention entries' gradients at ViT-H shapes against
    autograd through the plain version, the global entry's rel-pos tables
    exactly zero; then the ViT-H image encoder alone, forward and backward
@@ -70,8 +71,9 @@ Phases (any failure raises and exits non-zero):
 
 The bf16 full-width paths (evaluate in three modes, train, the ViT-B
 predictor, the encoder backward) must run every SAM, flash forward, dq
-and dk/dv launch, and every w8a8 launch with M > 16, on the tensor cores:
-no `<key>/scalar` launch count.
+and dk/dv launch on the tensor cores, and every w8a8 launch on the
+tensor cores (M > 16) or the streamed skinny kernel (decode): no
+`<key>/scalar` launch count (the first skinny kernel counts there).
 
 Prints a {"kernels": [...]} JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Needs no network; the weights are random.
@@ -357,14 +359,20 @@ def check_flash_bwd(gen):
 
 def check_w8a8(gen):
     """The w8a8 product at a prefill, a decode, the lm_head, the down
-    projection's prefill and a SAM encoder shape, each on the path
-    `w8a8_path` gives it (the int8 tensor cores for M > 16, the skinny
-    dp4a kernel at decode). The float32 output must equal the plain
+    projection's prefill, a SAM encoder shape, every other LLaMA-7B decode
+    product (gate/up, down, lm_head at M = 2; 4096 x 4096 at the skinny
+    path's largest M, 16), and a decode shape with K % 16 != 0, each on the
+    path it must take: the int8 tensor cores for M > 16 and the streamed
+    skinny kernel at decode where K % 16 == 0, the first port's skinny
+    kernel (the scalar path, counted under `w8a8_matmul/scalar`) at odd K;
+    the run fails on any other. The float32 output must equal the plain
     version's bit for bit (the int32 sum is exact); the record's numbers
     are the prefill shape's, the others are listed under `shapes`, each
-    with its path and CUDA-graph times. Library: torch._int_mm on the
-    same int8 operands (M padded to 32 and N to a multiple of 8 outside
-    the timed call, as it requires) + the rescale."""
+    with its path, the CUDA-graph times and the share of its bound the
+    graph time reaches. Library: torch._int_mm on the same int8 operands (M
+    padded to 32, N and K to multiples of 8 outside the timed call, as it
+    requires) + the rescale."""
+    from haff_tpu_torch.kernels import _build
     from haff_tpu_torch.nn import quant
 
     dev, bf = "cuda", torch.bfloat16
@@ -373,7 +381,12 @@ def check_w8a8(gen):
                           ("decode", 2, 4096, 4096),
                           ("lm_head", 1150, 4096, 32004),
                           ("down_proj", 1150, 11008, 4096),
-                          ("sam qkv", 9800, 1280, 3840)):
+                          ("sam qkv", 9800, 1280, 3840),
+                          ("decode gate/up", 2, 4096, 11008),
+                          ("decode down", 2, 11008, 4096),
+                          ("decode lm_head", 2, 4096, 32004),
+                          ("decode M=16", 16, 4096, 4096),
+                          ("decode odd K", 2, 4100, 4096)):
         x = torch.randn(m, k, generator=gen, device=dev).to(bf)
         w = torch.randn(n, k, generator=gen, device=dev) * k ** -0.5
         q, sw = quant.quantize_kernel(w)
@@ -381,13 +394,20 @@ def check_w8a8(gen):
         xq, sx = quant.quantize_activation(x)
         sx = sx[:, 0].contiguous()
         path = quant.W8A8_PATH_NAMES[quant.w8a8_path(xq, q)]
-        if path != ("skinny" if m <= quant.SKINNY_M else "wgmma"):
+        want = ("scalar" if k % 16 else
+                "skinny" if m <= quant.SKINNY_M else "wgmma")
+        if path != want:
             raise AssertionError(f"w8a8_matmul {what}: on the {path} path")
         exact = quant.int8_matmul_plain(xq, q, sx, sw, torch.float32)
+        scalar = _build.LAUNCHES["w8a8_matmul/scalar"]
         if not torch.equal(quant.int8_matmul_kernel(xq, q, sx, sw,
                                                     torch.float32), exact):
             raise AssertionError(f"w8a8_matmul {what}: float32 output differs "
                                  "from the exact int32 product")
+        scalar = _build.LAUNCHES["w8a8_matmul/scalar"] - scalar
+        if scalar != (path == "scalar"):
+            raise AssertionError(f"w8a8_matmul {what}: the scalar count "
+                                 "does not match the path")
         out = quant.int8_matmul_kernel(xq, q, sx, sw, bf)
         err = within_bf16(f"w8a8_matmul {what}", out, exact)
         del exact
@@ -396,10 +416,11 @@ def check_w8a8(gen):
         kern, kern_graph = cuda_ms(run, iters), graph_ms(run, iters)
         plain = cuda_ms(lambda: quant.int8_matmul_plain(xq, q, sx, sw, bf), 3, 1)
         mp, np_ = max(32, -(-m // 8) * 8), -(-n // 8) * 8
-        xq_p = torch.zeros(mp, k, dtype=torch.int8, device=dev)
-        xq_p[:m] = xq
-        q_p = torch.zeros(np_, k, dtype=torch.int8, device=dev)
-        q_p[:n] = q
+        kp = -(-k // 8) * 8
+        xq_p = torch.zeros(mp, kp, dtype=torch.int8, device=dev)
+        xq_p[:m, :k] = xq
+        q_p = torch.zeros(np_, kp, dtype=torch.int8, device=dev)
+        q_p[:n, :k] = q
         sx_p = torch.ones(mp, 1, device=dev)
         sx_p[:m, 0] = sx
         sw_p = torch.ones(np_, device=dev)
@@ -415,25 +436,19 @@ def check_w8a8(gen):
                            plain_ms=plain, bound_ms=b_ms, bound_by=by,
                            library_ms=lib, graph_ms=kern_graph,
                            library_graph_ms=lib_graph,
+                           bound_share=b_ms / kern_graph,
                            library_max_abs_diff=lib_err))
         del x, q, xq, out, xq_p, q_p
         torch.cuda.empty_cache()
-    main = shapes[0]
-    return dict(name="w8a8_matmul", route="cuda",
-                source="haff_tpu_torch/kernels/csrc/w8a8_matmul.cu",
-                replaces="haff_tpu/nn/quant.py:68", shape=main["shape"],
-                path=main["path"],
-                max_abs_err=max(r["max_abs_err"] for r in shapes),
-                ms=main["ms"], plain_ms=main["plain_ms"],
-                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                library_ms=main["library_ms"], graph_ms=main["graph_ms"],
-                library_graph_ms=main["library_graph_ms"], shapes=shapes)
+    return record("w8a8_matmul", "haff_tpu_torch/kernels/csrc/w8a8_matmul.cu",
+                  "haff_tpu/nn/quant.py:68", shapes)
 
 
 def check_w4a16(gen):
     """The w4a16 product at the decode shape of the widest LLaMA-7B layer
     (M = 2) and at the largest M the kernel takes (256). Library: the
-    dequantize + torch.matmul route (int4_matmul_dequant)."""
+    dequantize + torch.matmul route (int4_matmul_dequant). Kernel and
+    library are also timed as CUDA graphs."""
     from haff_tpu_torch.nn import quant
 
     dev, bf, group = "cuda", torch.bfloat16, 64
@@ -448,39 +463,41 @@ def check_w4a16(gen):
         out = quant.int4_matmul_kernel(x, packed, sc, group, bf)
         # Same rounded weight, float32 accumulation, unrounded sum.
         err = within_bf16(f"w4a16_matmul M={m}", out, x.float() @ wd.T)
-        kern = cuda_ms(lambda: quant.int4_matmul_kernel(x, packed, sc, group,
-                                                        bf), 20)
+        run = lambda: quant.int4_matmul_kernel(x, packed, sc, group, bf)  # noqa: E731
+        kern, kern_graph = cuda_ms(run, 20), graph_ms(run, 20)
         plain = cuda_ms(lambda: quant.int4_matmul_plain(x, packed, sc, group,
                                                         bf), 5)
-        lib = cuda_ms(lambda: quant.int4_matmul_dequant(x, packed, sc, group,
-                                                        bf), 5)
+        lib_fn = lambda: quant.int4_matmul_dequant(x, packed, sc, group, bf)  # noqa: E731
+        lib, lib_graph = cuda_ms(lib_fn, 5), graph_ms(lib_fn, 5)
         b_ms, by = bound_ms(nbytes(x, packed, sc, out), 2.0 * m * n * k)
         shapes.append(dict(shape=f"x ({m}, {k}) bf16, packed ({n}, {k // 2}) "
                            f"uint8, group {group}", max_abs_err=err, ms=kern,
                            plain_ms=plain, bound_ms=b_ms, bound_by=by,
-                           library_ms=lib))
-    main = shapes[0]
-    return dict(name="w4a16_matmul", route="cuda",
-                source="haff_tpu_torch/kernels/csrc/w4a16_matmul.cu",
-                replaces="haff_tpu/nn/quant.py:134", shape=main["shape"],
-                max_abs_err=max(r["max_abs_err"] for r in shapes),
-                ms=main["ms"], plain_ms=main["plain_ms"],
-                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                library_ms=main["library_ms"], shapes=shapes)
+                           library_ms=lib, graph_ms=kern_graph,
+                           library_graph_ms=lib_graph))
+    return record("w4a16_matmul",
+                  "haff_tpu_torch/kernels/csrc/w4a16_matmul.cu",
+                  "haff_tpu/nn/quant.py:134", shapes)
 
 
 def check_decode(gen):
     """Decode attention at LLaMA-7B's shape with 591 cache slots (575
     spliced + 16 new), an int8 and a bf16 cache, ragged live lengths: row
-    0 nearly full, row 1 a single live slot. The bound counts the live
-    slots only. Library: SDPA over the dequantized cache laid out
-    (B, nh, L, hd) with a boolean key mask, prepared outside the timed
-    call. The record's numbers are the int8 cache's."""
+    0 nearly full, row 1 a single live slot; and both rows nearly full
+    over the int8 cache. The bound counts the live slots only. Library:
+    SDPA over the dequantized cache laid out (B, nh, L, hd) with a boolean
+    key mask, prepared outside the timed call. Kernel and library are
+    also timed as CUDA graphs; each shape names the split the kernel ran
+    (`decode_plan`: splits, slots a split). The record's numbers are the
+    first shape's."""
     from haff_tpu_torch.kernels import decode_attention as da
     from haff_tpu_torch.nn import quant
 
     b, lmax, nh, hd = 2, 591, 32, 128
     dev, bf = "cuda", torch.bfloat16
+    if da.decode_plan(b, nh, nh, lmax)[0] < 2:
+        raise AssertionError("decode_attn: the 7b decode step does not split "
+                             "its slots over blocks")
     q = (0.5 * torch.randn(b, nh, hd, generator=gen, device=dev)).to(bf)
     kf = 0.5 * torch.randn(b, lmax, nh, hd, generator=gen, device=dev)
     vf = torch.randn(b, lmax, nh, hd, generator=gen, device=dev)
@@ -499,36 +516,32 @@ def check_decode(gen):
         out = da.decode_attention_kernel(q, k, v, mask, scale)
         ref = da.decode_attention_plain(q.float(), k, v, mask, scale)
         err = within_bf16(f"decode_attn {kind}", out, ref)
-        kern = cuda_ms(lambda: da.decode_attention_kernel(q, k, v, mask,
-                                                          scale), 50)
+        run = lambda: da.decode_attention_kernel(q, k, v, mask, scale)  # noqa: E731
+        kern, kern_graph = cuda_ms(run, 50), graph_ms(run, 50)
         plain = cuda_ms(lambda: da.decode_attention_plain(q, k, v, mask,
                                                           scale), 10)
         kd, vd = (da.dequantize_cache(c).to(bf).transpose(1, 2) for c in (k, v))
         key_mask = (mask > 0)[:, None, None, :]
-        lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q[:, :, None], kd, vd, attn_mask=key_mask, scale=scale), 50)
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q[:, :, None], kd, vd, attn_mask=key_mask, scale=scale)
+        lib, lib_graph = cuda_ms(sdpa, 50), graph_ms(sdpa, 50)
         live = int(mask.sum())
         b_ms, by = bound_ms(live * per_slot + nbytes(q, mask, out),
                             4.0 * hd * nh * live)
         shapes.append(dict(shape=f"q {tuple(q.shape)} bf16, {kind} cache "
                            f"{(b, lmax, nh, hd)}, live {list(lengths)}",
+                           plan=list(da.decode_plan(b, nh, nh, lmax)),
                            max_abs_err=err, ms=kern, plain_ms=plain,
-                           bound_ms=b_ms, bound_by=by, library_ms=lib))
+                           bound_ms=b_ms, bound_by=by, library_ms=lib,
+                           graph_ms=kern_graph, library_graph_ms=lib_graph))
     # A row with no live slot gives 0, not NaN.
     mask = torch.zeros(b, lmax, dtype=torch.int32, device=dev)
     mask[0, :7] = 1
     out = da.decode_attention_kernel(q, kf.to(bf), vf.to(bf), mask, hd ** -0.5)
     if out[1].abs().max() != 0 or not torch.isfinite(out.float()).all():
         raise AssertionError("decode_attn: a row without live slots is not 0")
-    main = shapes[0]
-    return dict(name="decode_attn", route="cuda",
-                source="haff_tpu_torch/kernels/csrc/decode_attn.cu",
-                replaces="haff_tpu/kernels/decode_attention.py:41",
-                shape=main["shape"],
-                max_abs_err=max(r["max_abs_err"] for r in shapes),
-                ms=main["ms"], plain_ms=main["plain_ms"],
-                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                library_ms=main["library_ms"], shapes=shapes)
+    return record("decode_attn", "haff_tpu_torch/kernels/csrc/decode_attn.cu",
+                  "haff_tpu/kernels/decode_attention.py:41", shapes)
 
 
 def sam_case(gen, scope, entry, b, hw, nh, d, iters):
@@ -1499,9 +1512,10 @@ def main():
         for rec in recs if isinstance(recs, list) else [recs]:
             kernels.append(rec)
             for r in rec.get("shapes", [rec]):
-                graph = (f" (path {r['path']}; graph {r['graph_ms']:.4f} ms,"
-                         f" library graph {r['library_graph_ms']:.4f} ms)"
-                         if "path" in r else "")
+                graph = (f" (path {r.get('path', '-')}; graph "
+                         f"{r['graph_ms']:.4f} ms, library graph "
+                         f"{r['library_graph_ms']:.4f} ms)"
+                         if "graph_ms" in r else "")
                 log(f"kernel {rec['name']}: {r['shape']}: max abs err "
                     f"{r['max_abs_err']:.3g}; kernel {r['ms']:.4f} ms, plain "
                     f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
@@ -1536,7 +1550,8 @@ def main():
         torch.cuda.empty_cache()
     paths["train"] = run_train_slice(_build.LAUNCHES)
     # The bf16 full-width paths run every SAM and flash launch, and every
-    # w8a8 launch with M > 16, on the tensor cores.
+    # w8a8 launch, on the tensor cores or (decode) the streamed skinny
+    # kernel: the first skinny kernel and the tile count under /scalar.
     for p in ("encoder_backward", "predictor_vit_b", "evaluate_bf16",
               "evaluate_w8a8", "evaluate_w4a16", "train"):
         scalar = {k: n for k, n in paths[p].items() if k.endswith("/scalar") and n}

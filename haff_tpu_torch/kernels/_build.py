@@ -147,7 +147,11 @@ def check_operand(name: str, what: str, t, dtype, shape) -> None:
 
 
 def stream_handle(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    """The current CUDA stream of `device` (a CUDA tensor's device, so its
+    index is set) as the raw cudaStream_t the C entry points take. torch's
+    raw accessor, not `torch.cuda.current_stream`, which builds a Stream
+    object and costs several times a short kernel's host time."""
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(device.index))
 
 
 def ptr(t) -> Optional[ctypes.c_void_p]:

@@ -8,24 +8,50 @@
 //   s[j]  = scale * q[b, h] . K[b, j, kvh]          for live slots j
 //   o     = softmax_j(s) @ V[b, :, kvh]
 // over the slots with mask[b, j] > 0 only; a row with no live slot gives
-// 0. An int8 cache is dequantized in registers, value times the f32 scale
-// of its token-head with no rounding, so no float copy of the cache ever
-// exists in device memory. Softmax and both products run in f32.
+// exactly 0. An int8 cache is dequantized in registers, value times the
+// f32 scale of its token-head with no rounding, so no float copy of the
+// cache ever exists in device memory. Softmax and both products run in f32.
 //
 // What bounds it on Hopper: the bytes of the live part of the cache, each
-// read once (one query row a head: about one multiply-add a byte). The
-// design: one block a (query head, batch row); its 8 warps take the slots
-// round-robin, a warp reading one slot's K row then V row coalesced (lane
-// l holds elements l, l + 32, ...; head_dim <= 128), skipping dead slots
-// before any load; each warp keeps its own running max, sum and output
-// (online softmax), and the 8 partial states are merged through shared
-// memory. Query heads sharing a kv head (GQA) are separate blocks and
-// share the cache rows through L2. Any cache length, no padding. Splitting
-// one head's slots over several blocks (to fill the card at small batch)
-// is later work.
-#include "common.cuh"
-
+// read once (one query row a head: about one multiply-add a byte, far
+// below the ~295 operations a byte where tensor cores would matter; no
+// MMA here). At LLaMA-7B's decode (batch 2, 32 heads, 591 slots) that is
+// 5 MB of int8 cache, 1.5 us at 3.35 TB/s, so the kernel is bound by how
+// many of those bytes are in flight at once and by its latency. The
+// design (flash-decoding):
+//   * The slots of each (batch row, kv head) are split over `splits`
+//     blocks of `chunk` slots (<= 64). decode_plan in decode_attention.py
+//     chooses both from the shapes alone (several blocks an SM at batch 2),
+//     never from the mask, so a decode step needs no host sync. The query
+//     heads sharing a kv head (GQA), up to 8, share one block, so the
+//     cache is read once; more than 8 take several head blocks.
+//   * A block reads its slots' mask first. A split with no live slot
+//     writes an empty partial (m = -inf, l = 0) and leaves: dead slots
+//     cost no cache read. Otherwise it issues 16-byte cp.async copies of
+//     every live slot's K row, then V row (two commit groups), so the
+//     whole split's cache bytes are in flight at once; neighbouring lanes
+//     copy neighbouring 16 bytes of a row.
+//   * Scores start when K has landed, while V is still in flight: 8 lanes
+//     a slot (an int8 row is 8 x 16 bytes, a bf16 row 16 x 16), a warp 4
+//     slots at a time, each lane 16 elements against the query (staged
+//     in shared memory, held in registers a head at a time), a 3-step
+//     shuffle sum. Then the split's softmax in f32 (max,
+//     exp, sum) per head, and P V with the same lane layout; the 4 lane
+//     groups and 4 warps are summed through shuffles and shared memory.
+//   * The partials (m, l, acc[hd]) go to float32 scratch that the wrapper
+//     allocates; a second kernel, launched from the same C entry by
+//     programmatic dependent launch (it is scheduled while the first runs
+//     and waits for its end), merges the splits exactly as the online
+//     softmax does (max, rescaled sums, acc / l; empty splits carry no
+//     weight, an all-dead row gives 0). One split writes the output
+//     directly. Either way the wrapper counts one launch of `decode_attn`
+//     a call.
+// Operands the 16-byte copies cannot read (a row of hd * itemsize bytes
+// not a multiple of 16, or an unaligned cache base) are copied byte by
+// byte by the same kernel; any cache length, no padding.
 #include <stdint.h>
+
+#include "tc.cuh"
 
 namespace haff {
 template <>
@@ -34,115 +60,327 @@ __device__ __forceinline__ float to_f<int8_t>(int8_t x) { return (float)x; }
 
 namespace {
 
-constexpr int THREADS = 256;
+namespace tc = haff::tc;
+
+constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
-constexpr int EPL = 4;  // elements a lane: head_dim <= 32 * EPL
+constexpr int HD_MAX = 128;     // 8 lanes x 16 elements
+constexpr int CHUNK_MAX = 64;   // slots a split (decode_plan keeps to it)
+constexpr int HEADS_MAX = 8;    // query heads a block
 
-template <typename TQ, typename TKV, bool QUANT>
-__global__ void __launch_bounds__(THREADS)
-decode_attn_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
-                   const TKV* __restrict__ vc, const float* __restrict__ ks,
-                   const float* __restrict__ vs, const int* __restrict__ mask,
-                   TQ* __restrict__ out, int lmax, int nh, int nkv, int hd, float scale) {
-  using haff::to_f;
-  const int h = blockIdx.x;
-  const long b = blockIdx.y;
-  const int kvh = h / (nh / nkv);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+struct Args {
+  const void* q;
+  const uint8_t* kc;
+  const uint8_t* vc;
+  const float* ks;
+  const float* vs;
+  const int* mask;
+  void* out;
+  float* part_acc;  // (B, nh, splits, hd)
+  float* part_ml;   // (B, nh, splits, 2): m, l
+  int lmax, nh, nkv, hd, chunk, splits, vec;
+  float scale;
+};
 
-  float qv[EPL];
+// A lane's 16 elements of a cache row in shared memory: 16-byte chunks
+// sub + 8 i of the row (i < 16 / elements-a-chunk), zeros past the row.
+template <typename T>
+__device__ __forceinline__ void load_row(const uint8_t* row, int sub, int pitch, bool ok,
+                                         float (&f)[16]) {
+  constexpr int EPC = 16 / (int)sizeof(T);
 #pragma unroll
-  for (int i = 0; i < EPL; ++i) {
-    const int e = lane + 32 * i;
-    qv[i] = e < hd ? to_f(q[(b * nh + h) * hd + e]) * scale : 0.f;
-  }
-
-  float m = -INFINITY, l = 0.f, acc[EPL];
+  for (int ci = 0; ci < 16 / EPC; ++ci) {
+    const int c = sub + 8 * ci;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (ok && 16 * c < pitch) v = *reinterpret_cast<const uint4*>(row + 16 * c);
+    const T* e = reinterpret_cast<const T*>(&v);
 #pragma unroll
-  for (int i = 0; i < EPL; ++i) acc[i] = 0.f;
-
-  const int* mrow = mask + b * lmax;
-  for (int j = warp; j < lmax; j += WARPS) {
-    if (mrow[j] <= 0) continue;  // warp-uniform: dead slots cost no cache read
-    const long slot = (b * lmax + j) * nkv + kvh;
-    const TKV* kp = kc + slot * hd;
-    const TKV* vp = vc + slot * hd;
-    float dot = 0.f, vv[EPL];
-#pragma unroll
-    for (int i = 0; i < EPL; ++i) {
-      const int e = lane + 32 * i;
-      const bool ok = e < hd;
-      dot = fmaf(qv[i], ok ? to_f(kp[e]) : 0.f, dot);
-      vv[i] = ok ? to_f(vp[e]) : 0.f;
-    }
-    float s = haff::warp_sum(dot);
-    float vscale = 1.f;
-    if (QUANT) {
-      s *= ks[slot];
-      vscale = vs[slot];
-    }
-    const float m_new = fmaxf(m, s);
-    const float alpha = expf(m - m_new);  // m = -inf at first: alpha = 0
-    const float p = expf(s - m_new);
-    l = l * alpha + p;
-#pragma unroll
-    for (int i = 0; i < EPL; ++i) acc[i] = acc[i] * alpha + p * (vv[i] * vscale);
-    m = m_new;
-  }
-
-  __shared__ float sm_m[WARPS], sm_l[WARPS], sm_acc[WARPS][32 * EPL];
-  if (lane == 0) {
-    sm_m[warp] = m;
-    sm_l[warp] = l;
-  }
-#pragma unroll
-  for (int i = 0; i < EPL; ++i) sm_acc[warp][lane + 32 * i] = acc[i];
-  __syncthreads();
-
-  for (int e = threadIdx.x; e < hd; e += THREADS) {
-    float mx = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, sm_m[w]);
-    float num = 0.f, den = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      // A warp that saw no live slot (m = -inf) carries no weight.
-      const float wgt = sm_m[w] == -INFINITY ? 0.f : expf(sm_m[w] - mx);
-      num += sm_acc[w][e] * wgt;
-      den += sm_l[w] * wgt;
-    }
-    out[(b * nh + h) * hd + e] = haff::from_f<TQ>(num / fmaxf(den, 1e-30f));
+    for (int t = 0; t < EPC; ++t) f[ci * EPC + t] = haff::to_f<T>(e[t]);
   }
 }
 
+// The head-dim index of a lane's element i (load_row's order).
+template <typename T>
+__device__ __forceinline__ int elem(int sub, int i) {
+  constexpr int EPC = 16 / (int)sizeof(T);
+  return (sub + 8 * (i / EPC)) * EPC + i % EPC;
+}
+
+// Copy the live rows of one split (K or V) into shared memory, `pitch`
+// bytes a row: 16-byte cp.async where `vec`, else bytes (zero padded).
+__device__ __forceinline__ void copy_rows(uint8_t* dst, const uint8_t* src, long slot0,
+                                          int nkv, int row_bytes, int pitch, int n,
+                                          const int* live, int vec) {
+  if (vec) {
+    // A thread keeps one 16-byte column c of rows j0, j0 + step, ...: one
+    // division a thread, not one a copy.
+    const int cpr = pitch / 16, step = THREADS / cpr;
+    const int j0 = threadIdx.x / cpr, c = threadIdx.x - j0 * cpr;
+    if (j0 < step) {
+      for (int j = j0; j < n; j += step) {
+        if (live[j])
+          tc::cp_async16(dst + j * pitch + 16 * c,
+                         src + (slot0 + (long)j * nkv) * row_bytes + 16 * c, 16);
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < n * pitch; i += THREADS) {
+      const int j = i / pitch, c = i - j * pitch;
+      if (live[j])
+        dst[i] = c < row_bytes ? src[(slot0 + (long)j * nkv) * row_bytes + c] : 0;
+    }
+  }
+  tc::cp_async_commit();
+}
+
+// Six blocks an SM by registers (<= 85 a thread): LLaMA-7B's 640 blocks
+// at batch 2 run in one wave on 132 SMs.
 template <typename TQ, typename TKV, bool QUANT>
-cudaError_t launch(const void* q, const void* kc, const void* vc, const void* ks,
-                   const void* vs, const void* mask, void* out, int B, int lmax, int nh,
-                   int nkv, int hd, float scale, cudaStream_t stream) {
-  dim3 grid(nh, B);
-  decode_attn_kernel<TQ, TKV, QUANT><<<grid, THREADS, 0, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(kc), static_cast<const TKV*>(vc),
-      static_cast<const float*>(ks), static_cast<const float*>(vs),
-      static_cast<const int*>(mask), static_cast<TQ*>(out), lmax, nh, nkv, hd, scale);
+__global__ void __launch_bounds__(THREADS, 6) decode_split_kernel(const Args a) {
+  const int hblocks = (a.nh / a.nkv + HEADS_MAX - 1) / HEADS_MAX;
+  const int kvh = blockIdx.x / hblocks, hb = blockIdx.x - kvh * hblocks;
+  const int b = blockIdx.y, split = blockIdx.z;
+  const int group = a.nh / a.nkv;
+  const int h0 = kvh * group + hb * HEADS_MAX;
+  const int gn = min(HEADS_MAX, group - hb * HEADS_MAX);
+  const int j0 = split * a.chunk;
+  const int n = min(a.chunk, a.lmax - j0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = lane >> 3, sub = lane & 7;
+  const int row_bytes = a.hd * (int)sizeof(TKV);
+  const int pitch = (row_bytes + 15) & ~15;
+
+  __shared__ float q_s[HEADS_MAX][HD_MAX];
+  __shared__ float s_s[HEADS_MAX][CHUNK_MAX];
+  __shared__ float red[WARPS][HD_MAX];
+  __shared__ float ksc[CHUNK_MAX], vsc[CHUNK_MAX];
+  __shared__ float m_s[HEADS_MAX], l_s[HEADS_MAX];
+  __shared__ int live_s[CHUNK_MAX];
+  extern __shared__ uint4 kv_smem[];
+  uint8_t* Ks = reinterpret_cast<uint8_t*>(kv_smem);
+  uint8_t* Vs = Ks + a.chunk * pitch;
+
+  // The merge kernel may launch now; it waits for this grid to finish.
+  asm volatile("griddepcontrol.launch_dependents;");
+  int live = 0;
+  if (tid < n) live = a.mask[(long)b * a.lmax + j0 + tid] > 0;
+  if (tid < CHUNK_MAX) live_s[tid] = live;
+  const long row0 = (long)b * a.nh + h0;  // (b, h0) as a row of q and out
+  if (!__syncthreads_or(live)) {          // no live slot: no cache read
+    if (a.splits > 1) {
+      for (int g = tid; g < gn; g += THREADS) {
+        float* ml = a.part_ml + ((row0 + g) * a.splits + split) * 2;
+        ml[0] = -INFINITY;
+        ml[1] = 0.f;
+      }
+    } else {
+      TQ* out = static_cast<TQ*>(a.out);
+      for (int i = tid; i < gn * a.hd; i += THREADS) out[row0 * a.hd + i] = haff::from_f<TQ>(0.f);
+    }
+    return;
+  }
+
+  // Slot j of this split is slot0 + j * nkv of the (B, Lmax, nkv) cache.
+  const long slot0 = ((long)b * a.lmax + j0) * a.nkv + kvh;
+  copy_rows(Ks, a.kc, slot0, a.nkv, row_bytes, pitch, n, live_s, a.vec);
+  copy_rows(Vs, a.vc, slot0, a.nkv, row_bytes, pitch, n, live_s, a.vec);
+  if (QUANT) {
+    for (int j = tid; j < n; j += THREADS) {
+      ksc[j] = live_s[j] ? a.ks[slot0 + (long)j * a.nkv] : 0.f;
+      vsc[j] = live_s[j] ? a.vs[slot0 + (long)j * a.nkv] : 0.f;
+    }
+  }
+  const TQ* q = static_cast<const TQ*>(a.q);
+  for (int i = tid; i < gn * HD_MAX; i += THREADS) {
+    const int g = i / HD_MAX, e = i - g * HD_MAX;
+    q_s[g][e] = e < a.hd ? haff::to_f<TQ>(q[(row0 + g) * a.hd + e]) * a.scale : 0.f;
+  }
+  tc::cp_async_wait<1>();  // this thread's K copies have landed
+  __syncthreads();         // and everyone's; q, scales, flags too
+
+  // Scores: 8 lanes a slot, 4 slots a warp step; the loop is warp-uniform
+  // (the shuffles need every lane).
+  for (int g = 0; g < gn; ++g) {
+    float qf[16];  // the lane's 16 query elements of head g
+#pragma unroll
+    for (int i = 0; i < 16; ++i) qf[i] = q_s[g][elem<TKV>(sub, i)];
+#pragma unroll 4
+    for (int jw = warp * 4; jw < n; jw += WARPS * 4) {
+      const int j = jw + grp;
+      const bool ok = j < n && live_s[j];
+      float kf[16];
+      load_row<TKV>(Ks + j * pitch, sub, pitch, ok, kf);
+      float d = 0.f;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) d = fmaf(qf[i], kf[i], d);
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      d += __shfl_xor_sync(0xffffffffu, d, 2);
+      d += __shfl_xor_sync(0xffffffffu, d, 4);
+      if (sub == 0 && j < n) s_s[g][j] = ok ? (QUANT ? d * ksc[j] : d) : -INFINITY;
+    }
+  }
+  __syncthreads();
+
+  // The split's softmax, a warp a head: dead slots have s = -inf, p = 0.
+  for (int g = warp; g < gn; g += WARPS) {
+    const float s0 = lane < n ? s_s[g][lane] : -INFINITY;
+    const float s1 = lane + 32 < n ? s_s[g][lane + 32] : -INFINITY;
+    const float mx = haff::warp_max(fmaxf(s0, s1));  // finite: a slot is live
+    const float p0 = expf(s0 - mx), p1 = expf(s1 - mx);
+    const float l = haff::warp_sum(p0 + p1);
+    if (lane < n) s_s[g][lane] = p0;
+    if (lane + 32 < n) s_s[g][lane + 32] = p1;
+    if (lane == 0) {
+      m_s[g] = mx;
+      l_s[g] = l;
+    }
+  }
+  tc::cp_async_wait<0>();  // V has landed
+  __syncthreads();
+
+  // P V, a head at a time: the lane groups' sums by shuffle, the warps'
+  // through shared memory.
+  for (int g = 0; g < gn; ++g) {
+    float acc[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+#pragma unroll 4
+    for (int jw = warp * 4; jw < n; jw += WARPS * 4) {
+      const int j = jw + grp;
+      if (j < n && live_s[j]) {
+        float vf[16];
+        load_row<TKV>(Vs + j * pitch, sub, pitch, true, vf);
+        const float p = QUANT ? s_s[g][j] * vsc[j] : s_s[g][j];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) acc[i] = fmaf(p, vf[i], acc[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 8);
+      acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 16);
+    }
+    if (grp == 0) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) red[warp][elem<TKV>(sub, i)] = acc[i];
+    }
+    __syncthreads();
+    if (tid < a.hd) {
+      float o = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) o += red[w][tid];
+      if (a.splits > 1) {
+        a.part_acc[((row0 + g) * a.splits + split) * a.hd + tid] = o;
+      } else {
+        static_cast<TQ*>(a.out)[(row0 + g) * a.hd + tid] = haff::from_f<TQ>(o / l_s[g]);
+      }
+    }
+    if (a.splits > 1 && tid == 0) {
+      float* ml = a.part_ml + ((row0 + g) * a.splits + split) * 2;
+      ml[0] = m_s[g];
+      ml[1] = l_s[g];
+    }
+    __syncthreads();  // red is reused by the next head
+  }
+}
+
+// Merge the splits of one (b, h) row as the online softmax does; splits
+// without a live slot (m = -inf) carry no weight, and a row with none
+// gives 0. A thread a split reads the (m, l) pairs at once, the block
+// takes their max, each split's weight exp(m - max) and the weighted sum
+// of l; then a thread an element sums the weighted acc rows, 8 loads in
+// flight at a time (a loop of dependent loads would wait on the cache
+// once a split).
+template <typename TQ>
+__global__ void __launch_bounds__(HD_MAX)
+decode_merge_kernel(const float* __restrict__ acc, const float* __restrict__ ml,
+                    TQ* __restrict__ out, int splits, int hd) {
+  extern __shared__ float w_s[];  // a weight a split
+  __shared__ float red_s[HD_MAX / 32];
+  // Launched early (programmatic dependent launch): wait until the split
+  // kernel has finished and its partials are visible.
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const long r = blockIdx.x;
+  const float* m = ml + r * splits * 2;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float mx = -INFINITY;
+  for (int s = tid; s < splits; s += HD_MAX) {
+    w_s[s] = m[2 * s];
+    mx = fmaxf(mx, w_s[s]);
+  }
+  mx = haff::warp_max(mx);
+  if (lane == 0) red_s[warp] = mx;
+  __syncthreads();
+  mx = fmaxf(fmaxf(red_s[0], red_s[1]), fmaxf(red_s[2], red_s[3]));
+  __syncthreads();  // red_s is reused
+  float den = 0.f;
+  for (int s = tid; s < splits; s += HD_MAX) {
+    const float w = w_s[s] == -INFINITY ? 0.f : expf(w_s[s] - mx);
+    w_s[s] = w;
+    den = fmaf(m[2 * s + 1], w, den);
+  }
+  den = haff::warp_sum(den);
+  if (lane == 0) red_s[warp] = den;
+  __syncthreads();
+  den = red_s[0] + red_s[1] + red_s[2] + red_s[3];
+  const int e = tid;
+  if (e >= hd) return;
+  const float* a = acc + r * splits * hd + e;
+  float num = 0.f;
+  // An empty split never wrote its acc row: weight 0, and not read.
+#pragma unroll 8
+  for (int s = 0; s < splits; ++s) {
+    const float w = w_s[s];
+    if (w != 0.f) num = fmaf(a[(long)s * hd], w, num);
+  }
+  out[r * hd + e] = haff::from_f<TQ>(den > 0.f ? num / den : 0.f);
+}
+
+template <typename TQ, typename TKV, bool QUANT>
+cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
+  const int pitch = (a.hd * (int)sizeof(TKV) + 15) & ~15;
+  const size_t smem = 2 * (size_t)a.chunk * pitch;
+  cudaError_t e = haff::allow_smem(decode_split_kernel<TQ, TKV, QUANT>, smem);
+  if (e != cudaSuccess) return e;
+  const int hblocks = (a.nh / a.nkv + HEADS_MAX - 1) / HEADS_MAX;
+  dim3 grid(a.nkv * hblocks, B, a.splits);
+  decode_split_kernel<TQ, TKV, QUANT><<<grid, THREADS, smem, stream>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || a.splits == 1) return e;
+  const size_t wsmem = (size_t)a.splits * sizeof(float);
+  e = haff::allow_smem(decode_merge_kernel<TQ>, wsmem);
+  if (e != cudaSuccess) return e;
+  // Programmatic dependent launch: the merge's launch overlaps the split
+  // kernel's run instead of following its end.
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * a.nh);
+  cfg.blockDim = dim3(HD_MAX);
+  cfg.dynamicSmemBytes = wsmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, decode_merge_kernel<TQ>, (const float*)a.part_acc,
+                         (const float*)a.part_ml, static_cast<TQ*>(a.out), a.splits, a.hd);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 template <typename TQ>
-cudaError_t dispatch(int kv_kind, const void* q, const void* kc, const void* vc,
-                     const void* ks, const void* vs, const void* mask, void* out, int B,
-                     int lmax, int nh, int nkv, int hd, float scale, cudaStream_t s) {
+cudaError_t dispatch(int kv_kind, Args& a, int B, cudaStream_t s) {
+  const int item = kv_kind == 1 ? 2 : kv_kind == 2 ? 1 : 4;
+  a.vec = (a.hd * item) % 16 == 0 && reinterpret_cast<uintptr_t>(a.kc) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(a.vc) % 16 == 0;
   switch (kv_kind) {
     case 0:
-      return launch<TQ, float, false>(q, kc, vc, ks, vs, mask, out, B, lmax, nh, nkv, hd,
-                                      scale, s);
+      return launch<TQ, float, false>(a, B, s);
     case 1:
-      return launch<TQ, __nv_bfloat16, false>(q, kc, vc, ks, vs, mask, out, B, lmax, nh,
-                                              nkv, hd, scale, s);
+      return launch<TQ, __nv_bfloat16, false>(a, B, s);
     case 2:
-      if (ks == nullptr || vs == nullptr) return cudaErrorInvalidValue;
-      return launch<TQ, int8_t, true>(q, kc, vc, ks, vs, mask, out, B, lmax, nh, nkv, hd,
-                                      scale, s);
+      if (a.ks == nullptr || a.vs == nullptr) return cudaErrorInvalidValue;
+      return launch<TQ, int8_t, true>(a, B, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -151,16 +389,37 @@ cudaError_t dispatch(int kv_kind, const void* q, const void* kc, const void* vc,
 }  // namespace
 
 // kv_kind: 0 f32 cache, 1 bf16 cache, 2 int8 cache with f32 scales ks, vs
-// (B, lmax, nkv). q and out are bf16 (q_bf16) or f32.
+// (B, lmax, nkv). q and out are bf16 (q_bf16) or f32. The slots are cut
+// into `splits` blocks of `chunk` (decode_plan); with splits > 1, `part`
+// is float32 scratch of B * nh * splits * (hd + 2) values.
 extern "C" int decode_attn(const void* q, const void* kc, const void* vc, const void* ks,
-                           const void* vs, const void* mask, void* out, int B, int lmax,
-                           int nh, int nkv, int hd, float scale, int q_bf16, int kv_kind,
-                           void* stream) {
-  if (hd > 32 * EPL || nkv <= 0 || nh % nkv) return (int)cudaErrorInvalidValue;
+                           const void* vs, const void* mask, void* out, void* part, int B,
+                           int lmax, int nh, int nkv, int hd, float scale, int q_bf16,
+                           int kv_kind, int splits, int chunk, void* stream) {
+  if (hd > HD_MAX || hd <= 0 || nkv <= 0 || nh % nkv || chunk < 1 || chunk > CHUNK_MAX ||
+      splits < 1 || (long)splits * chunk < lmax ||
+      (splits > 1 && (long)(splits - 1) * chunk >= lmax) ||
+      (splits > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  a.q = q;
+  a.kc = static_cast<const uint8_t*>(kc);
+  a.vc = static_cast<const uint8_t*>(vc);
+  a.ks = static_cast<const float*>(ks);
+  a.vs = static_cast<const float*>(vs);
+  a.mask = static_cast<const int*>(mask);
+  a.out = out;
+  a.part_acc = static_cast<float*>(part);
+  a.part_ml = a.part_acc == nullptr ? nullptr : a.part_acc + (long)B * nh * splits * hd;
+  a.lmax = lmax;
+  a.nh = nh;
+  a.nkv = nkv;
+  a.hd = hd;
+  a.chunk = chunk;
+  a.splits = splits;
+  a.vec = 0;
+  a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_bf16)
-    return (int)dispatch<__nv_bfloat16>(kv_kind, q, kc, vc, ks, vs, mask, out, B, lmax, nh,
-                                        nkv, hd, scale, s);
-  return (int)dispatch<float>(kv_kind, q, kc, vc, ks, vs, mask, out, B, lmax, nh, nkv, hd,
-                              scale, s);
+  if (q_bf16) return (int)dispatch<__nv_bfloat16>(kv_kind, a, B, s);
+  return (int)dispatch<float>(kv_kind, a, B, s);
 }

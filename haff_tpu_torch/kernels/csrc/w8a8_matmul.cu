@@ -18,8 +18,8 @@
 // thousands) the operations: 2 M N K int8 operations against the int8
 // tensor cores' 1979 TOP/s (LLaMA-7B prefill, 1150 x 4096 x 4096: 0.0195
 // ms, where the bytes take 0.0069); at decode (M = 2) the weight bytes.
-// Three paths, chosen by the wrapper (nn/quant.py w8a8_path) before the
-// launch:
+// Four kernels on three paths, chosen by the wrapper (nn/quant.py
+// w8a8_path) before the launch:
 //   * wgmma (M > 16, K % 16 == 0, 16-byte aligned bases): int8 warpgroup
 //     MMA fed by TMA. Output tiles of 128 x 128; a persistent grid of one
 //     block an SM walks them M-fastest, so the blocks in flight share
@@ -41,19 +41,36 @@
 //     16-, 8-, 4- or 2-byte chunks of rows: the widest the row pitch
 //     allows (a bf16 row of 32004 values is 64008 bytes, so 8), masked
 //     at the ragged edges.
-//   * skinny (M <= 16): a warp owns one output column and streams that
-//     weight row once, 16 bytes a lane a step, against up to 8 activation
-//     rows (read through L1; they are a few KB), then a warp reduction:
-//     the weight is read from device memory once (__dp4a, four int8
-//     multiply-adds an instruction).
-//   * tile (M > 16 where the wgmma path cannot read the operands: odd K,
-//     unaligned bases such as an output-column split of a weight at an
-//     odd row): a 128 x 64 output tile a block, K walked in 64-byte steps
-//     through padded shared memory, each thread an 8 x 4 register tile of
-//     __dp4a; ragged M, N and K edges zero-filled on load and masked on
-//     store.
-// The skinny and tile kernels take 16-byte vector loads where K % 16 ==
-// 0 and the bases are aligned, byte loads otherwise.
+//   * skinny (M <= 16, K % 16 == 0, 16-byte aligned bases; every decode
+//     product of LLaMA-7B): bound by the weight's bytes (4096 x 4096 at
+//     M = 2: 16.8 MB, 5.0 us at 3.35 TB/s), so the design is bytes in
+//     flight on every SM. A block owns 16 output columns (weight rows) and
+//     streams its weight rows and the activations' matching bytes through
+//     a ring of SK_STAGES stages of 512 bytes of K by 16-byte cp.async (no
+//     tensor map, so no host-side encoding a call on a path of ~3400
+//     launches an evaluate), three stages in flight while it computes on
+//     the fourth; each activation byte is read once a block. 16 columns a
+//     block give ceil(N / 16) blocks: 256 (4096 x 4096) to 2001 (lm_head),
+//     two or more an SM at every 7B decode shape, so K is not split and
+//     the int32 sum reaches the one rescale whole. The product is __dp4a
+//     from shared memory: a warp owns 4 weight rows, a lane 16 bytes of K
+//     of each, so a 512-byte stage row is read conflict-free and each
+//     activation word serves 4 rows. At M = 2 that is 8 dp4a a lane per 16
+//     weight bytes, about 1 us of issue for a 4096 x 4096 product; the
+//     int8 tensor cores (wgmma with the weight as the 64-row A operand)
+//     would need a tensor map a weight and an M padded to 8, for
+//     arithmetic that is not the bound. The lanes' sums meet by warp
+//     shuffles at the end.
+//   * scalar (path 0, what the others cannot read: odd K, unaligned bases
+//     such as an output-column split of a weight at an odd row): for M >
+//     16 the tile kernel, a 128 x 64 output tile a block, K walked in
+//     64-byte steps through padded shared memory, each thread an 8 x 4
+//     register tile of __dp4a, ragged M, N and K edges zero-filled on load
+//     and masked on store; for M <= 16 the first port's skinny kernel, a
+//     warp an output column streaming that weight row, 16 bytes a lane a
+//     step, against up to 8 activation rows, then a warp reduction. Both
+//     take 16-byte vector loads where K % 16 == 0 and the bases are
+//     aligned, byte loads otherwise.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -191,6 +208,119 @@ w8a8_skinny_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ w,
         out[(long)(m0 + r) * N + n] = haff::from_f<T>((float)v * sx[m0 + r] * s_n);
     }
   }
+}
+
+// ---- the streamed skinny path; the header has the design ----
+
+constexpr int SK_COLS = 16;     // output columns (weight rows) a block
+constexpr int SK_KC = 512;      // bytes of K a stage
+constexpr int SK_STAGES = 4;
+constexpr int SK_THREADS = 128;  // 4 warps of 4 weight rows
+
+// Stage `slot` <- the 512 bytes of K from k0 of 16 weight rows and MR
+// activation rows; bytes past K, rows past N or M are zero-filled.
+template <int MR>
+__device__ __forceinline__ void sk_load(uint8_t* ring, int slot, const int8_t* __restrict__ xq,
+                                        const int8_t* __restrict__ w, long n0, int M, int N,
+                                        int K, int k0) {
+  constexpr int CPR = SK_KC / 16;  // 16-byte chunks a row
+  uint8_t* st = ring + slot * (SK_COLS + MR) * SK_KC;
+  for (int i = threadIdx.x; i < (SK_COLS + MR) * CPR; i += SK_THREADS) {
+    const int r = i / CPR, c = i - r * CPR;
+    const int k = k0 + 16 * c;
+    const bool row_ok = r < SK_COLS ? n0 + r < N : r - SK_COLS < M;
+    const bool ok = row_ok && k < K;
+    const int8_t* src = r < SK_COLS ? w + (ok ? (n0 + r) * K + k : 0)
+                                    : xq + (ok ? (long)(r - SK_COLS) * K + k : 0);
+    haff::tc::cp_async16(st + r * SK_KC + 16 * c, src, ok ? 16 : 0);
+  }
+}
+
+template <typename T, int MR>
+__global__ void __launch_bounds__(SK_THREADS)
+w8a8_stream_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ w,
+                   const float* __restrict__ sx, const float* __restrict__ sw,
+                   T* __restrict__ out, int M, int N, int K) {
+  namespace tc = haff::tc;
+  constexpr int SB = (SK_COLS + MR) * SK_KC;  // bytes a stage
+  extern __shared__ uint4 sk_smem[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(sk_smem);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long n0 = (long)blockIdx.x * SK_COLS;
+  const int nch = (K + SK_KC - 1) / SK_KC;
+
+  int32_t acc[4][MR];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int m = 0; m < MR; ++m) acc[r][m] = 0;
+
+#pragma unroll
+  for (int c = 0; c < SK_STAGES - 1; ++c) {
+    if (c < nch) sk_load<MR>(ring, c, xq, w, n0, M, N, K, c * SK_KC);
+    tc::cp_async_commit();
+  }
+  for (int c = 0; c < nch; ++c) {
+    tc::cp_async_wait<SK_STAGES - 2>();  // chunk c has landed (this thread's copies)
+    __syncthreads();                     // everyone's; and slot c - 1 is free
+    const int cn = c + SK_STAGES - 1;
+    if (cn < nch) sk_load<MR>(ring, cn % SK_STAGES, xq, w, n0, M, N, K, cn * SK_KC);
+    tc::cp_async_commit();
+    const uint8_t* st = ring + (c % SK_STAGES) * SB;
+    int4 wv[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      wv[r] = *reinterpret_cast<const int4*>(st + (warp + 4 * r) * SK_KC + 16 * lane);
+#pragma unroll
+    for (int m = 0; m < MR; ++m) {
+      const int4 xv = *reinterpret_cast<const int4*>(st + (SK_COLS + m) * SK_KC + 16 * lane);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        acc[r][m] = __dp4a(xv.x, wv[r].x, acc[r][m]);
+        acc[r][m] = __dp4a(xv.y, wv[r].y, acc[r][m]);
+        acc[r][m] = __dp4a(xv.z, wv[r].z, acc[r][m]);
+        acc[r][m] = __dp4a(xv.w, wv[r].w, acc[r][m]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const long n = n0 + warp + 4 * r;
+#pragma unroll
+    for (int m = 0; m < MR; ++m) {
+      int32_t v = acc[r][m];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (lane == 0 && m < M && n < N)
+        out[(long)m * N + n] = haff::from_f<T>((float)v * sx[m] * sw[n]);
+    }
+  }
+}
+
+template <typename T, int MR>
+cudaError_t launch_stream_mr(const int8_t* a, const int8_t* b, const float* fx,
+                             const float* fw, T* out, int M, int N, int K,
+                             cudaStream_t stream) {
+  const size_t smem = (size_t)SK_STAGES * (SK_COLS + MR) * SK_KC;
+  cudaError_t e = haff::allow_smem(w8a8_stream_kernel<T, MR>, smem);
+  if (e != cudaSuccess) return e;
+  const unsigned grid = (unsigned)((N + SK_COLS - 1) / SK_COLS);
+  w8a8_stream_kernel<T, MR><<<grid, SK_THREADS, smem, stream>>>(a, b, fx, fw, out, M, N, K);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_stream(const int8_t* a, const int8_t* b, const float* fx, const float* fw,
+                          T* out, int M, int N, int K, cudaStream_t stream) {
+  if (M < 1 || M > SKINNY_M || K % 16 || reinterpret_cast<uintptr_t>(a) % 16 ||
+      reinterpret_cast<uintptr_t>(b) % 16)
+    return cudaErrorInvalidValue;
+  if (M <= 1) return launch_stream_mr<T, 1>(a, b, fx, fw, out, M, N, K, stream);
+  if (M <= 2) return launch_stream_mr<T, 2>(a, b, fx, fw, out, M, N, K, stream);
+  if (M <= 4) return launch_stream_mr<T, 4>(a, b, fx, fw, out, M, N, K, stream);
+  if (M <= 8) return launch_stream_mr<T, 8>(a, b, fx, fw, out, M, N, K, stream);
+  return launch_stream_mr<T, 16>(a, b, fx, fw, out, M, N, K, stream);
 }
 
 // ---- the wgmma path; the header has the design ----
@@ -372,26 +502,27 @@ cudaError_t launch(const void* xq, const void* w, const void* sx, const void* sw
   const int vec = K % 16 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(b) % 16 == 0;
   if (path == 1) return launch_wgmma<T>(a, b, fx, fw, o, M, N, K, stream);
-  if (path == 2) {
-    if (M > SKINNY_M) return cudaErrorInvalidValue;
+  if (path == 2) return launch_stream<T>(a, b, fx, fw, o, M, N, K, stream);
+  if (path != 0) return cudaErrorInvalidValue;
+  if (M <= SKINNY_M) {
     dim3 grid((N + THREADS / 32 - 1) / (THREADS / 32),
               (M + SKINNY_ROWS - 1) / SKINNY_ROWS);
     w8a8_skinny_kernel<T><<<grid, THREADS, 0, stream>>>(a, b, fx, fw, o, M, N, K, vec);
-  } else if (path == 0) {
+  } else {
     dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
     w8a8_tile_kernel<T><<<grid, THREADS, 0, stream>>>(a, b, fx, fw, o, M, N, K, vec);
-  } else {
-    return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Paths (the wrapper's w8a8_path): 0 the dp4a tile kernel, 1 int8
-// warpgroup MMA (K % 16 == 0, 16-byte aligned xq and w), 2 the skinny
-// dp4a kernel (M <= 16). xq (M, K) and w (N, K) int8 row-major, sx (M,)
-// and sw (N,) f32, out (M, N) bf16 (out_bf16) or f32.
+// Paths (the wrapper's w8a8_path): 0 the dp4a scalar kernels (the tile
+// kernel for M > 16, the first skinny kernel for M <= 16), 1 int8 warpgroup
+// MMA (M > 16, K % 16 == 0, 16-byte aligned xq and w), 2 the streamed
+// skinny kernel (M <= 16, the same operand rules). xq (M, K) and w (N, K)
+// int8 row-major, sx (M,) and sw (N,) f32, out (M, N) bf16 (out_bf16) or
+// f32.
 extern "C" int w8a8_matmul(const void* xq, const void* w, const void* sx, const void* sw,
                            void* out, int M, int N, int K, int out_bf16, int path,
                            void* stream) {

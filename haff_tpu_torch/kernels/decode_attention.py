@@ -5,7 +5,11 @@ float or int8 (port of haff_tpu/kernels/decode_attention.py).
 replacing the Pallas streaming kernel `_make_kernel`. On the card every
 decode step goes through the kernel, at any cache length and head
 geometry with head_dim <= 128 and nh % nkv == 0; CPU tensors take
-`decode_attention_plain`, with no fallback between the two.
+`decode_attention_plain`, with no fallback between the two. The kernel
+splits each (batch row, kv head)'s slots over blocks as `decode_plan`
+says (from the shapes alone, never the mask) and merges the splits'
+partial softmax states in a second pass; `decode_attention_split` is
+that algorithm in plain torch, for the tests.
 
 An int8 cache is a pair of `nn.quant.QuantArray`s: int8 values
 (B, Lmax, nkv, hd) with float32 scales (B, Lmax, nkv, 1), one per
@@ -17,7 +21,8 @@ and give 0 for a row with no live slot.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Union
+import functools
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -60,12 +65,72 @@ def decode_attention_plain(q, k_cache: Cache, v_cache: Cache, kv_mask,
     return torch.einsum("bnl,blnd->bnd", p / denom, v).to(q.dtype)
 
 
+# The kernel's split (csrc/decode_attn.cu): at most CHUNK_MAX slots and
+# HEADS_MAX query heads a block; enough splits for TARGET_BLOCKS blocks
+# (four an SM of the H100's 132), with at least MIN_CHUNK slots a split.
+CHUNK_MAX, HEADS_MAX, MIN_CHUNK = 64, 8, 16
+TARGET_BLOCKS = 4 * 132
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=256)
+def decode_plan(b: int, nh: int, nkv: int, lmax: int) -> Tuple[int, int]:
+    """(splits, chunk): the kernel cuts each (batch row, kv head)'s Lmax
+    slots into `splits` runs of `chunk` (the last may be shorter). Pure:
+    shapes only, never the mask or the live lengths, so choosing it needs
+    no device sync. Enough splits to give TARGET_BLOCKS blocks, no run
+    shorter than MIN_CHUNK unless Lmax is, none longer than CHUNK_MAX."""
+    blocks = b * nkv * _cdiv(nh // nkv, HEADS_MAX)
+    splits = max(min(_cdiv(TARGET_BLOCKS, max(blocks, 1)),
+                     lmax // MIN_CHUNK), _cdiv(lmax, CHUNK_MAX), 1)
+    chunk = max(_cdiv(lmax, splits), 1)
+    return max(_cdiv(lmax, chunk), 1), chunk
+
+
+def decode_attention_split(q, k_cache: Cache, v_cache: Cache, kv_mask,
+                           sm_scale: float, plan=None):
+    """The kernel's algorithm in plain torch (float32): each split's
+    softmax state (m, l, acc) over its slots, an empty one (m = -inf,
+    l = 0) where no slot is live, then the merge (max, rescaled sums,
+    acc / l; a row with no live slot gives 0). `plan` defaults to
+    decode_plan's. Returns (B, nh, hd) float32."""
+    b, nh, hd = q.shape
+    k, v = dequantize_cache(k_cache), dequantize_cache(v_cache)
+    lmax, nkv = k.shape[1], k.shape[2]
+    splits, chunk = plan or decode_plan(b, nh, nkv, lmax)
+    if nkv != nh:
+        k = k.repeat_interleave(nh // nkv, dim=2)
+        v = v.repeat_interleave(nh // nkv, dim=2)
+    live = kv_mask > 0
+    qs = q.float() * sm_scale
+    ms, ls, accs = [], [], []
+    for i in range(splits):
+        sl = slice(i * chunk, min((i + 1) * chunk, lmax))
+        s = torch.einsum("bnd,blnd->bnl", qs, k[:, sl])
+        s = s.masked_fill(~live[:, None, sl], -torch.inf)
+        m = s.amax(dim=-1)
+        p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bnl,blnd->bnd", p, v[:, sl]))
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    mx = m.amax(0)
+    w = torch.where(torch.isfinite(m), torch.exp(m - mx), 0.0)
+    den = (l * w).sum(0)
+    num = (acc * w[..., None]).sum(0)
+    return torch.where(den[..., None] > 0, num / den.clamp_min(1e-30)[..., None],
+                       0.0)
+
+
 def _lib():
     fn = _build.library(_DECODE).decode_attn
     if fn.argtypes is None:
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
-                       ctypes.c_float, i32, i32, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
+                       i32, ctypes.c_float, i32, i32, i32, i32, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -102,14 +167,20 @@ def decode_attention_kernel(q, k_cache: Cache, v_cache: Cache, kv_mask,
         ks, vs = k_cache.scales, v_cache.scales
         check(_DECODE, "k scales", ks, torch.float32, (b, lmax, nkv, 1))
         check(_DECODE, "v scales", vs, torch.float32, (b, lmax, nkv, 1))
-    mask = kv_mask.to(torch.int32).contiguous()
+    mask = kv_mask if kv_mask.dtype == torch.int32 else kv_mask.to(torch.int32)
+    mask = mask.contiguous()
     check(_DECODE, "kv_mask", mask, torch.int32, (b, lmax))
     out = torch.empty_like(q)
     if b and nh:
+        splits, chunk = decode_plan(b, nh, nkv, lmax)
+        # The splits' partial states: acc (B, nh, splits, hd), then (m, l).
+        part = (torch.empty(b * nh * splits * (hd + 2), dtype=torch.float32,
+                            device=q.device) if splits > 1 else None)
         ptr = _build.ptr
         err = _lib()(ptr(q), ptr(kv), ptr(vv), ptr(ks), ptr(vs), ptr(mask),
-                     ptr(out), b, lmax, nh, nkv, hd, float(sm_scale),
-                     int(q.dtype == torch.bfloat16), _KV_CODES[kv.dtype],
+                     ptr(out), ptr(part), b, lmax, nh, nkv, hd,
+                     float(sm_scale), int(q.dtype == torch.bfloat16),
+                     _KV_CODES[kv.dtype], splits, chunk,
                      _build.stream_handle(q.device))
         _build.LAUNCHES[_DECODE] += 1
         _build.check(err, _DECODE)

@@ -20,10 +20,11 @@ Two hand-written CUDA kernels run the products on the card:
 
 * `int8_matmul` -> csrc/w8a8_matmul.cu (`w8a8_matmul`), replacing
   haff_tpu/nn/quant.py `_w8a8_kernel`, for every M, on the path
-  `w8a8_path` picks: int8 warpgroup MMA fed by TMA (M > 16, K % 16 == 0,
-  16-byte aligned operands), the skinny `dp4a` kernel (M <= 16), or the
-  `dp4a` tile kernel for the rest (odd K, unaligned row blocks), whose
-  launches also count under `w8a8_matmul/scalar`;
+  `w8a8_path` picks where K % 16 == 0 and the operands are 16-byte
+  aligned: int8 warpgroup MMA fed by TMA (M > 16), or the streamed
+  skinny kernel (M <= 16, decode); the rest (odd K, unaligned row blocks)
+  takes the `dp4a` scalar kernels, whose launches also count under
+  `w8a8_matmul/scalar`;
 * `int4_matmul` -> csrc/w4a16_matmul.cu (`w4a16_matmul`), replacing
   `_w4a16_kernel`, for flattened M <= SMALL_M and group % 16 == 0; larger
   M (prefill) dequantizes the weight and calls `torch.matmul`, as the JAX
@@ -214,24 +215,22 @@ def _out_code(name, dtype) -> int:
 
 def w8a8_path(xq, q) -> int:
     """The path of a w8a8 launch on xq (M, K) and the weight q (N, K),
-    both row-major int8: W8A8_SKINNY for M <= SKINNY_M (decode);
-    W8A8_WGMMA where TMA can read both operands (K % 16 == 0, its stride
-    rule, and 16-byte aligned bases); W8A8_SCALAR, the `dp4a` tile kernel,
-    for the rest. Pure: shape, pointers and strides only, on any device."""
+    both row-major int8. Where 16-byte copies can read both operands (K %
+    16 == 0, TMA's stride rule, 16-byte aligned bases, rows contiguous):
+    W8A8_SKINNY, the streamed kernel, for M <= SKINNY_M (decode), and
+    W8A8_WGMMA above. W8A8_SCALAR, the `dp4a` scalar kernels, for the
+    rest. Pure: shape, pointers and strides only, on any device."""
     m, k = xq.shape
-    if m <= SKINNY_M:
-        return W8A8_SKINNY
     if (k % 16 == 0 and xq.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0
             and xq.stride() == (k, 1) and q.stride() == (k, 1)):
-        return W8A8_WGMMA
+        return W8A8_SKINNY if m <= SKINNY_M else W8A8_WGMMA
     return W8A8_SCALAR
 
 
 def int8_matmul_kernel(xq, q, s_x, scale, dtype):
     """Launch csrc/w8a8_matmul.cu on `w8a8_path(xq, q)`: xq (M, K) int8,
     q (N, K) int8, s_x (M,) and scale (N,) float32 -> (M, N) in `dtype`.
-    A launch on the tile path (M > 16) also counts under
-    `w8a8_matmul/scalar`."""
+    A launch on the scalar path also counts under `w8a8_matmul/scalar`."""
     m, k = xq.shape
     n = q.shape[0]
     check = _build.check_operand

@@ -28,12 +28,18 @@ from haff_tpu_torch.tools.flash_ab import card, events_ms, graph_ms
 
 # (name, M, K, N): chip_smoke.py phase 3's w8a8 shapes: the LLaMA-7B
 # prefill of 2 requests (1150 tokens) through a 4096 x 4096 projection, a
-# decode step, the prefill's lm_head, and SAM ViT-H's qkv at batch 2.
+# decode step, the prefill's lm_head, SAM ViT-H's qkv at batch 2, and the
+# other decode products of a step of 2 (gate/up, down, lm_head) and a
+# 4096 x 4096 projection at the skinny path's largest M.
 CASES = (
     ("prefill", 1150, 4096, 4096),
     ("decode", 2, 4096, 4096),
     ("lm_head", 1150, 4096, 32004),
     ("sam qkv", 9800, 1280, 3840),
+    ("decode gate/up", 2, 4096, 11008),
+    ("decode down", 2, 11008, 4096),
+    ("decode lm_head", 2, 4096, 32004),
+    ("decode M=16", 16, 4096, 4096),
 )
 
 

@@ -323,15 +323,16 @@ def test_flash_attention_autograd_on_the_card(dev):
     (9800, 1280, 3840), (129, 11008, 64), (1150, 11008, 4096),
     (8192, 1280, 5120), (17, 4096, 4096)])
 def test_w8a8_kernel_matches_plain(dev, dtype, m, k, n):
-    """Each shape on the path `w8a8_path` gives it: M <= 16 skinny, K % 16
-    == 0 the int8 tensor cores, odd K the dp4a tile (also counted under
+    """Each shape on the path `w8a8_path` gives it: K % 16 == 0 the
+    streamed skinny kernel (M <= 16) or the int8 tensor cores (M > 16),
+    odd K the dp4a scalar kernels (also counted under
     `w8a8_matmul/scalar`)."""
     g = torch.Generator(dev).manual_seed(m * 7 + k + n)
     x = torch.randn(m, k, generator=g, device=dev).to(dtype)
     w = torch.randn(n, k, generator=g, device=dev) * k ** -0.5
     q, s = quant.quantize_kernel(w)
-    want = (quant.W8A8_SKINNY if m <= 16 else
-            quant.W8A8_WGMMA if k % 16 == 0 else quant.W8A8_SCALAR)
+    want = (quant.W8A8_SCALAR if k % 16 else
+            quant.W8A8_SKINNY if m <= 16 else quant.W8A8_WGMMA)
     assert quant.w8a8_path(quant.quantize_activation(x).values, q) == want
     before = dict(_build.LAUNCHES)
     got = quant.int8_matmul(x, q, s)
@@ -362,6 +363,38 @@ def test_w8a8_kernel_on_an_unaligned_row_block(dev):
     xq, s_x = quant.quantize_activation(x)
     assert torch.equal(got, quant.int8_matmul_plain(xq, q[3:], s_x[:, 0],
                                                     s[3:], torch.float32))
+
+
+# LLaMA-7B's decode products (K, N): q/k/v/o, gate/up, down, lm_head; and
+# narrow weights, ragged N and K not a multiple of the 512-byte stage.
+SEVEN_B_DECODE = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32004)]
+NARROW = [(4096, 64), (4096, 7), (2080, 33), (1040, 1000), (11008, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 2, 5, 16])
+@pytest.mark.parametrize("k,n", SEVEN_B_DECODE + NARROW)
+def test_w8a8_skinny_kernel_at_decode_shapes(dev, dtype, m, k, n):
+    """The streamed skinny kernel at every 7B decode shape and at narrow
+    weights: on the skinny path (no `/scalar` launch), float32 equal to
+    the exact product bit for bit, bf16 within one ulp."""
+    g = torch.Generator(dev).manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+    q, s = quant.quantize_kernel(torch.randn(n, k, generator=g, device=dev)
+                                 * k ** -0.5)
+    xq, s_x = quant.quantize_activation(x)
+    assert quant.w8a8_path(xq, q) == quant.W8A8_SKINNY
+    before = dict(_build.LAUNCHES)
+    got = quant.int8_matmul_kernel(xq, q, s_x[:, 0], s, dtype)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["w8a8_matmul"] == before.get("w8a8_matmul", 0) + 1
+    assert (_build.LAUNCHES["w8a8_matmul/scalar"]
+            == before.get("w8a8_matmul/scalar", 0))
+    exact = quant.int8_matmul_plain(xq, q, s_x[:, 0], s, torch.float32)
+    if dtype == torch.float32:
+        assert torch.equal(got, exact)
+    else:
+        _close(got, exact)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -422,6 +455,41 @@ def test_decode_kernel_matches_plain(dev, qdtype, kind, b, lmax, nh, nkv, hd):
     ref = da.decode_attention_plain(q.float(), k, v, mask, hd ** -0.5)
     assert got.dtype == qdtype
     _close(got, ref)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("b,lmax,nh,nkv,hd,lengths", [
+    (2, 591, 32, 32, 128, (590, 1)), (2, 591, 32, 32, 128, (590, 590)),
+    (2, 591, 32, 8, 128, (590, 0)), (2, 300, 64, 4, 64, (17, 300)),
+    (3, 200, 8, 2, 20, (200, 0, 70)), (1, 9, 4, 4, 12, (5,))])
+def test_decode_split_kernel_matches_plain(dev, kind, b, lmax, nh, nkv, hd,
+                                           lengths):
+    """The split kernel at LLaMA-7B's decode shape (live lengths (590, 1)
+    and (590, 590)), with GQA (4 and 16 query heads a kv head: two head
+    blocks), an all-dead row (exactly 0) and rows the 16-byte copies cannot
+    read (hd * itemsize not a multiple of 16): against the plain version
+    and the split-and-merge emulation of decode_plan's split, one launch
+    counted a call."""
+    g = torch.Generator(dev).manual_seed(lmax + nh + hd)
+    q = (0.5 * torch.randn(b, nh, hd, generator=g, device=dev)).bfloat16()
+    k = 0.5 * torch.randn(b, lmax, nkv, hd, generator=g, device=dev)
+    v = torch.randn(b, lmax, nkv, hd, generator=g, device=dev)
+    if kind == "int8":
+        k, v = quant.quantize_activation(k), quant.quantize_activation(v)
+    elif kind == "bf16":
+        k, v = k.bfloat16(), v.bfloat16()
+    mask = (torch.arange(lmax, device=dev)[None]
+            < torch.tensor(lengths, device=dev)[:, None]).int()
+    before = _build.LAUNCHES["decode_attn"]
+    got = da.decode_attention_kernel(q, k, v, mask, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["decode_attn"] == before + 1
+    ref = da.decode_attention_plain(q.float(), k, v, mask, hd ** -0.5)
+    _close(got, ref)
+    _close(got, da.decode_attention_split(q.float(), k, v, mask, hd ** -0.5))
+    for row, n in enumerate(lengths):
+        if n == 0:
+            assert not got[row].any()
 
 
 def test_decode_kernel_gives_zero_for_a_row_without_live_slots(dev):
@@ -682,3 +750,17 @@ def test_matmul_probe_matches_plain(dev, m, k, n):
         matmul_probe(a8[:, :k - 1].contiguous(), b8[:, :k - 1].contiguous())
     with pytest.raises(TypeError):
         matmul_probe(a8, b16)
+
+
+def test_stream_handle_is_the_current_stream(dev):
+    """`_build.stream_handle` reads torch's private raw-stream accessor for
+    every wrapper's launch: it must exist and give the stream
+    `torch.cuda.current_stream` names, on the default stream and on a side
+    stream."""
+    d = torch.empty(1, device=dev).device  # with its index, as a wrapper's
+    assert hasattr(torch._C, "_cuda_getCurrentRawStream")
+    assert _build.stream_handle(d).value == \
+        (torch.cuda.current_stream(d).cuda_stream or None)
+    side = torch.cuda.Stream(d)
+    with torch.cuda.stream(side):
+        assert _build.stream_handle(d).value == side.cuda_stream

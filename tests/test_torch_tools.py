@@ -1,5 +1,6 @@
 """The port's kernel tools (haff_tpu_torch/tools/kernel_audit.py,
-bench_kernels.py, flash_ab.py, w8a8_ab.py) rehearsed on the CPU, where
+bench_kernels.py, flash_ab.py, w8a8_ab.py, decode_ab.py) rehearsed on
+the CPU, where
 every wrapper takes its plain version: each audit check passes, each
 bench command runs at a small shape and labels its lines as host-clock
 rehearsals, the tools ask for the card by default, the A/B tools' cases
@@ -113,7 +114,11 @@ def test_w8a8_ab_arguments_and_cases():
     assert w8a8_ab.CASES == (("prefill", 1150, 4096, 4096),
                              ("decode", 2, 4096, 4096),
                              ("lm_head", 1150, 4096, 32004),
-                             ("sam qkv", 9800, 1280, 3840))
+                             ("sam qkv", 9800, 1280, 3840),
+                             ("decode gate/up", 2, 4096, 11008),
+                             ("decode down", 2, 11008, 4096),
+                             ("decode lm_head", 2, 4096, 32004),
+                             ("decode M=16", 16, 4096, 4096))
     xq, q, sx, sw = w8a8_ab.operands(("small", 20, 48, 7),
                                      torch.Generator().manual_seed(0),
                                      device="cpu")
@@ -126,3 +131,31 @@ def test_w8a8_ab_arguments_and_cases():
                        exact)
     if not torch.cuda.is_available():
         assert w8a8_ab.main([]) == 2
+
+
+def test_decode_ab_arguments_and_cases():
+    """tools/decode_ab.py: its arguments, its case table (chip_smoke.py's
+    phase-3 decode shapes) and the operands it builds, on the CPU, where
+    the decode entry takes the plain version; without a card it refuses
+    to time."""
+    from haff_tpu_torch.kernels import decode_attention as da
+    from haff_tpu_torch.nn import quant
+    from haff_tpu_torch.tools import decode_ab
+
+    args = decode_ab.parse(["--label", "new", "--iters", "4"])
+    assert (args.label, args.iters) == ("new", 4)
+    assert (decode_ab.parse([]).label, decode_ab.parse([]).iters) == ("", 50)
+    assert decode_ab.CASES == (("int8", 2, 591, 32, 128, (590, 1)),
+                               ("bf16", 2, 591, 32, 128, (590, 1)),
+                               ("int8", 2, 591, 32, 128, (590, 590)))
+    for kind in ("int8", "bf16"):
+        q, k, v, mask = decode_ab.operands((kind, 2, 9, 4, 16, (9, 1)),
+                                           torch.Generator().manual_seed(0),
+                                           device="cpu")
+        assert q.shape == (2, 4, 16) and q.dtype == torch.bfloat16
+        assert isinstance(k, quant.QuantArray) == (kind == "int8")
+        assert mask.dtype == torch.int32 and mask.sum(1).tolist() == [9, 1]
+        out = da.flash_decode_attention(q, k, v, mask)
+        assert out.shape == q.shape and torch.isfinite(out.float()).all()
+    if not torch.cuda.is_available():
+        assert decode_ab.main([]) == 2

@@ -1,11 +1,11 @@
 """The W8A8 product's paths (haff_tpu_torch/nn/quant.py `w8a8_path`,
 csrc/w8a8_matmul.cu), checked on the CPU before the card sees them:
 
-* the pure path function: M <= 16 takes the skinny dp4a kernel; M > 16
-  with K % 16 == 0 (TMA's stride rule) and 16-byte aligned row-major
-  operands takes the int8 tensor cores; the rest (odd K, a base off 16
-  bytes, a strided view) the dp4a tile kernel. Every product of the 7b
-  preset's W8A8 evaluate with M > 16 is on the tensor cores;
+* the pure path function: with K % 16 == 0 (TMA's stride rule) and
+  16-byte aligned row-major operands, M <= 16 takes the streamed skinny
+  kernel and M > 16 the int8 tensor cores; the rest (odd K, a base off 16
+  bytes, a strided view) the dp4a scalar kernels. Every product of the
+  7b preset's W8A8 evaluate is on the skinny path or the tensor cores;
 * `int8_matmul` at the tensor-core tile's ragged geometry (M = 130 and
   N = 200 are not multiples of its 128 x 128 tile) and at a K the tile
   kernel takes, bit for bit at float32 against haff_tpu's
@@ -57,7 +57,7 @@ def test_seven_b_products_take_the_tensor_cores(m, k, n):
     (17, 4096, 0, tq.W8A8_WGMMA),    # the smallest tensor-core M
     (17, 40, 0, tq.W8A8_SCALAR),     # K % 16 != 0 (tiny preset widths)
     (300, 52, 0, tq.W8A8_SCALAR),
-    (16, 37, 0, tq.W8A8_SKINNY),     # the skinny kernel takes any K
+    (16, 37, 0, tq.W8A8_SCALAR),     # odd K: the first skinny kernel
     (130, 256, 1, tq.W8A8_SCALAR),   # a base 1 byte off 16
     (130, 256, 16, tq.W8A8_WGMMA),
 ], ids=["m16", "m17", "k40", "k52", "m16-k37", "misaligned-base",
