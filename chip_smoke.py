@@ -15,8 +15,10 @@ Phases (any failure raises and exits non-zero):
    float32 (the integer products bit for bit); times the kernel, the
    plain version and one PyTorch library call computing the same function
    (CUDA events, after warm-up). Each SAM record, the three flash
-   records and each w8a8 shape also name the kernel path the wrapper
-   chose (`path`: wgmma, mma.sync, skinny or scalar); every record but
+   records and each w8a8 and w4a16 shape also name the kernel path the
+   wrapper chose (`path`: wgmma, mma.sync, mma, skinny or scalar; the
+   w4a16 shapes also time torch.matmul on the dequantized bf16 weight,
+   `bf16_graph_ms`); every record but
    the probe's times the kernel and its library yardstick once more as
    CUDA graphs (`graph_ms`, `library_graph_ms`: device time without the
    host's launch cost).
@@ -72,8 +74,9 @@ Phases (any failure raises and exits non-zero):
 The bf16 full-width paths (evaluate in three modes, train, the ViT-B
 predictor, the encoder backward) must run every SAM, flash forward, dq
 and dk/dv launch on the tensor cores, and every w8a8 launch on the
-tensor cores (M > 16) or the streamed skinny kernel (decode): no
-`<key>/scalar` launch count (the first skinny kernel counts there).
+tensor cores (M > 16) or the streamed skinny kernel (decode), and every
+w4a16 launch on the tensor cores: no `<key>/scalar` launch count (the
+first skinny kernels count there).
 
 Prints a {"kernels": [...]} JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Needs no network; the weights are random.
@@ -445,36 +448,73 @@ def check_w8a8(gen):
 
 
 def check_w4a16(gen):
-    """The w4a16 product at the decode shape of the widest LLaMA-7B layer
-    (M = 2) and at the largest M the kernel takes (256). Library: the
-    dequantize + torch.matmul route (int4_matmul_dequant). Kernel and
-    library are also timed as CUDA graphs."""
+    """The w4a16 product at the LLaMA-7B decode step's four shapes (M = 2:
+    gate/up, 4096 x 4096, down, lm_head), at M = 16 and at the largest M
+    the kernel takes (256), each on the bf16 mma path, and one float32
+    case on the scalar kernel (counted under `w4a16_matmul/scalar`); the
+    run fails on any other path. bf16 within one ulp of the product of the
+    same rounded weight in float32, float32 within 1e-4 + 1e-4 |ref|. Each
+    shape records its path, the CUDA-graph times, the graph time's share
+    of its bound, the dequantize + torch.matmul route (library) and
+    `bf16_graph_ms` / `bf16_ms`: torch.matmul on the weight already
+    dequantized (what the bf16 evaluate runs). The record's numbers are
+    the first shape's."""
+    from haff_tpu_torch.kernels import _build
     from haff_tpu_torch.nn import quant
 
-    dev, bf, group = "cuda", torch.bfloat16, 64
-    k, n = 4096, 11008
-    w = torch.randn(n, k, generator=gen, device=dev) * k ** -0.5
-    packed, sc = quant.quantize_kernel_int4(w, group)
-    del w
-    wd = quant.dequantize_kernel_int4(packed, sc, group, bf).float()
+    dev, bf, f32, group = "cuda", torch.bfloat16, torch.float32, 64
     shapes = []
-    for m in (2, 256):
-        x = torch.randn(m, k, generator=gen, device=dev).to(bf)
-        out = quant.int4_matmul_kernel(x, packed, sc, group, bf)
+    for what, m, k, n, dt in (("decode gate/up", 2, 4096, 11008, bf),
+                              ("decode", 2, 4096, 4096, bf),
+                              ("decode down", 2, 11008, 4096, bf),
+                              ("decode lm_head", 2, 4096, 32004, bf),
+                              ("decode M=16", 16, 4096, 4096, bf),
+                              ("M=256", 256, 4096, 11008, bf),
+                              ("float32", 2, 4096, 11008, f32)):
+        w = torch.randn(n, k, generator=gen, device=dev) * k ** -0.5
+        packed, sc = quant.quantize_kernel_int4(w, group)
+        del w
+        x = torch.randn(m, k, generator=gen, device=dev).to(dt)
+        wd = quant.dequantize_kernel_int4(packed, sc, group, dt)
+        path = quant.W4A16_PATH_NAMES[quant.w4a16_path(x, packed, sc, group)]
+        want = "mma" if dt == bf else "scalar"
+        if path != want:
+            raise AssertionError(f"w4a16_matmul {what}: on the {path} path")
+        scalar = _build.LAUNCHES["w4a16_matmul/scalar"]
+        out = quant.int4_matmul_kernel(x, packed, sc, group, dt)
+        scalar = _build.LAUNCHES["w4a16_matmul/scalar"] - scalar
+        if scalar != (path == "scalar"):
+            raise AssertionError(f"w4a16_matmul {what}: the scalar count "
+                                 "does not match the path")
         # Same rounded weight, float32 accumulation, unrounded sum.
-        err = within_bf16(f"w4a16_matmul M={m}", out, x.float() @ wd.T)
-        run = lambda: quant.int4_matmul_kernel(x, packed, sc, group, bf)  # noqa: E731
+        ref = x.float() @ wd.float().T
+        if dt == bf:
+            err = within_bf16(f"w4a16_matmul {what}", out, ref)
+        else:
+            diff = (out - ref).abs()
+            err = float(diff.max())
+            if not (diff <= 1e-4 + 1e-4 * ref.abs()).all():
+                raise AssertionError(f"w4a16_matmul {what}: max abs err {err}")
+        del ref
+        run = lambda: quant.int4_matmul_kernel(x, packed, sc, group, dt)  # noqa: E731
         kern, kern_graph = cuda_ms(run, 20), graph_ms(run, 20)
         plain = cuda_ms(lambda: quant.int4_matmul_plain(x, packed, sc, group,
-                                                        bf), 5)
-        lib_fn = lambda: quant.int4_matmul_dequant(x, packed, sc, group, bf)  # noqa: E731
+                                                        dt), 3, 1)
+        lib_fn = lambda: quant.int4_matmul_dequant(x, packed, sc, group, dt)  # noqa: E731
         lib, lib_graph = cuda_ms(lib_fn, 5), graph_ms(lib_fn, 5)
+        mm = lambda: torch.matmul(x, wd.T)  # noqa: E731
         b_ms, by = bound_ms(nbytes(x, packed, sc, out), 2.0 * m * n * k)
-        shapes.append(dict(shape=f"x ({m}, {k}) bf16, packed ({n}, {k // 2}) "
-                           f"uint8, group {group}", max_abs_err=err, ms=kern,
+        shapes.append(dict(what=what, shape=f"x ({m}, {k}) {str(dt)[6:]}, "
+                           f"packed ({n}, {k // 2}) uint8, group {group}",
+                           path=path, max_abs_err=err, ms=kern,
                            plain_ms=plain, bound_ms=b_ms, bound_by=by,
                            library_ms=lib, graph_ms=kern_graph,
-                           library_graph_ms=lib_graph))
+                           library_graph_ms=lib_graph,
+                           bound_share=b_ms / kern_graph,
+                           bf16_ms=cuda_ms(mm, 20),
+                           bf16_graph_ms=graph_ms(mm, 20)))
+        del x, packed, sc, wd, out
+        torch.cuda.empty_cache()
     return record("w4a16_matmul",
                   "haff_tpu_torch/kernels/csrc/w4a16_matmul.cu",
                   "haff_tpu/nn/quant.py:134", shapes)
@@ -1549,16 +1589,18 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
     paths["train"] = run_train_slice(_build.LAUNCHES)
-    # The bf16 full-width paths run every SAM and flash launch, and every
-    # w8a8 launch, on the tensor cores or (decode) the streamed skinny
-    # kernel: the first skinny kernel and the tile count under /scalar.
+    # The bf16 full-width paths run every SAM and flash launch, every w8a8
+    # launch and every w4a16 launch on the tensor cores or (w8a8 decode)
+    # the streamed skinny kernel: the first skinny kernels and the tile
+    # count under /scalar.
     for p in ("encoder_backward", "predictor_vit_b", "evaluate_bf16",
               "evaluate_w8a8", "evaluate_w4a16", "train"):
         scalar = {k: n for k, n in paths[p].items() if k.endswith("/scalar") and n}
         if scalar:
             raise AssertionError(f"{p}: launches on the scalar path {scalar}")
-    log("scalar SAM, flash_prefill_fwd, flash_bwd_dq, flash_bwd_dkv and "
-        "w8a8_matmul launches on the bf16 full-width paths: none")
+    log("scalar SAM, flash_prefill_fwd, flash_bwd_dq, flash_bwd_dkv, "
+        "w8a8_matmul and w4a16_matmul launches on the bf16 full-width "
+        "paths: none")
     for rec in kernels:
         name = rec["name"]
         counter = rec.get("counter", name)

@@ -26,8 +26,12 @@ Two hand-written CUDA kernels run the products on the card:
   takes the `dp4a` scalar kernels, whose launches also count under
   `w8a8_matmul/scalar`;
 * `int4_matmul` -> csrc/w4a16_matmul.cu (`w4a16_matmul`), replacing
-  `_w4a16_kernel`, for flattened M <= SMALL_M and group % 16 == 0; larger
-  M (prefill) dequantizes the weight and calls `torch.matmul`, as the JAX
+  `_w4a16_kernel`, for flattened M <= SMALL_M and group % 16 == 0, on the
+  path `w4a16_path` picks: bf16 `mma.sync` with the weight dequantized in
+  registers where 16-byte copies read every operand (every 4-bit product
+  of LLaMA-7B), else the first port's scalar kernel (f32, odd widths),
+  whose launches also count under `w4a16_matmul/scalar`; larger M
+  (prefill) dequantizes the weight and calls `torch.matmul`, as the JAX
   package leaves that product to XLA.
 
 CPU tensors take the plain versions (`int8_matmul_plain`,
@@ -53,6 +57,9 @@ _W4A16 = "w4a16_matmul"
 W8A8_SCALAR, W8A8_WGMMA, W8A8_SKINNY = 0, 1, 2
 W8A8_PATH_NAMES = ("scalar", "wgmma", "skinny")
 SKINNY_M = 16  # the largest M of the skinny path
+# w4a16 kernel paths, as the C entry point numbers them.
+W4A16_SCALAR, W4A16_MMA = 0, 1
+W4A16_PATH_NAMES = ("scalar", "mma")
 # int4_matmul launches its kernel up to this flattened M (decode steps);
 # above it (prefill) the dequantized weight goes to torch.matmul.
 SMALL_M = 256
@@ -254,9 +261,33 @@ def int8_matmul_kernel(xq, q, s_x, scale, dtype):
     return out
 
 
+def w4a16_path(x, packed, scale, group: int) -> int:
+    """The path of a w4a16 launch on x (M, K), packed (N, K/2) and scale
+    (N, K/group). W4A16_MMA, the bf16 tensor-core kernel, where x is bf16,
+    1 <= M <= SMALL_M, group % 16 == 0, K % 32 == 0, the three operands
+    have 16-byte aligned bases and contiguous rows, and a scale row is a
+    multiple of 16 bytes of at most 4 KB (K / group % 4 == 0, K / group
+    <= 1024: a block holds its 16 scale rows whole); W4A16_SCALAR, the first
+    port's kernel, for the rest. Pure: dtype, shape, pointers and strides
+    only, on any device."""
+    m, k = x.shape
+    ng = scale.shape[-1]
+    # One expression: on the decode path this runs 225 times a step.
+    if (x.dtype != torch.bfloat16 or not 1 <= m <= SMALL_M or group % 16
+            or k % 32 or k >= 1 << 24 or ng % 4 or ng > 1024
+            or packed.shape[0] > 16 * 65535
+            or (x.data_ptr() | packed.data_ptr() | scale.data_ptr()) % 16
+            or x.stride() != (k, 1) or packed.stride() != (k // 2, 1)
+            or scale.stride() != (ng, 1)):
+        return W4A16_SCALAR
+    return W4A16_MMA
+
+
 def int4_matmul_kernel(x, packed, scale, group: int, dtype):
-    """Launch csrc/w4a16_matmul.cu: x (M, K) in `dtype`, M <= SMALL_M,
-    packed (N, K/2) uint8, scale (N, K/group) float32 -> (M, N)."""
+    """Launch csrc/w4a16_matmul.cu on `w4a16_path`: x (M, K) in `dtype`,
+    M <= SMALL_M, packed (N, K/2) uint8, scale (N, K/group) float32 ->
+    (M, N). A launch on the scalar path also counts under
+    `w4a16_matmul/scalar`."""
     m, k = x.shape
     n = packed.shape[0]
     if m > SMALL_M or group % 16 or k % group:
@@ -269,13 +300,17 @@ def int4_matmul_kernel(x, packed, scale, group: int, dtype):
     check(_W4A16, "packed weight", packed, torch.uint8, (n, k // 2))
     check(_W4A16, "scale", scale, torch.float32, (n, k // group))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn = _lib(_W4A16, _W4A16, [vp, vp, vp, vp, i32, i32, i32, i32, i32, vp])
-    out = torch.empty((m, n), dtype=dtype, device=x.device)
+    fn = _lib(_W4A16, _W4A16,
+              [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, vp])
+    out = x.new_empty((m, n))  # x is in `dtype` (checked above)
     if m and n:
-        ptr = _build.ptr
-        err = fn(ptr(x), ptr(packed), ptr(scale), ptr(out), m, n, k, group,
-                 code, _build.stream_handle(x.device))
+        path = w4a16_path(x, packed, scale, group)
+        err = fn(x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+                 out.data_ptr(), m, n, k, group, code, path,
+                 _build.stream_handle(x.device))
         _build.LAUNCHES[_W4A16] += 1
+        if path == W4A16_SCALAR:
+            _build.LAUNCHES[_W4A16 + "/scalar"] += 1
         _build.check(err, _W4A16)
     return out
 

@@ -403,17 +403,54 @@ def test_w8a8_skinny_kernel_at_decode_shapes(dev, dtype, m, k, n):
     (2, 11008, 4096, 64), (2, 4096, 32004, 64), (3, 48, 7, 16),
     (5, 2080, 33, 32), (256, 1280, 7, 128), (256, 4096, 1024, 64)])
 def test_w4a16_kernel_matches_plain(dev, dtype, m, k, n, group):
+    """Each case on the path it must take: bf16 with K % 32 == 0 and a
+    scale row of a multiple of 16 bytes on the mma kernel, float32 and the
+    odd widths on the scalar kernel (counted under `w4a16_matmul/scalar`)."""
     g = torch.Generator(dev).manual_seed(m + k + n)
     x = torch.randn(m, k, generator=g, device=dev).to(dtype)
     w = torch.randn(n, k, generator=g, device=dev) * k ** -0.5
     packed, s = quant.quantize_kernel_int4(w, group)
-    before = _build.LAUNCHES["w4a16_matmul"]
+    want = (quant.W4A16_MMA if dtype == torch.bfloat16 and k % 32 == 0
+            and (k // group) % 4 == 0 else quant.W4A16_SCALAR)
+    assert quant.w4a16_path(x, packed, s, group) == want
+    before = dict(_build.LAUNCHES)
     got = quant.int4_matmul(x, packed, s, group)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["w4a16_matmul"] == before + 1
+    assert _build.LAUNCHES["w4a16_matmul"] == before.get("w4a16_matmul", 0) + 1
+    scalar = "w4a16_matmul/scalar"
+    assert _build.LAUNCHES[scalar] == (before.get(scalar, 0)
+                                       + (want == quant.W4A16_SCALAR))
     assert got.dtype == dtype and got.shape == (m, n)
     # Same rounded weight and inputs, float32 accumulation, unrounded sum.
     wd = quant.dequantize_kernel_int4(packed, s, group, dtype).float()
+    _close(got, x.float() @ wd.T)
+
+
+# Besides the 7B decode shapes: a partial last stage and super-span (K =
+# 4160, 1152), a group that is not a power of two (48), ragged N.
+W4A16_ODD = [(4160, 24, 16), (1152, 40, 48), (1152, 7, 96)]
+
+
+@pytest.mark.parametrize("m", [1, 2, 8, 16, 37, 256])
+@pytest.mark.parametrize("k,n,group", [(k, n, 64) for k, n in SEVEN_B_DECODE]
+                         + W4A16_ODD)
+def test_w4a16_mma_kernel_at_decode_shapes(dev, m, k, n, group):
+    """The bf16 mma kernel at every 7B decode shape (M = 1, 2, 8, 16), at M
+    = 256 and at an M of three row tiles: on the mma path (no `/scalar`
+    launch), within the bf16 tolerance of the product of the same rounded
+    weight in float32."""
+    g = torch.Generator(dev).manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g, device=dev).bfloat16()
+    w = torch.randn(n, k, generator=g, device=dev) * k ** -0.5
+    packed, s = quant.quantize_kernel_int4(w, group)
+    assert quant.w4a16_path(x, packed, s, group) == quant.W4A16_MMA
+    before = dict(_build.LAUNCHES)
+    got = quant.int4_matmul_kernel(x, packed, s, group, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["w4a16_matmul"] == before.get("w4a16_matmul", 0) + 1
+    assert (_build.LAUNCHES["w4a16_matmul/scalar"]
+            == before.get("w4a16_matmul/scalar", 0))
+    wd = quant.dequantize_kernel_int4(packed, s, group, torch.bfloat16).float()
     _close(got, x.float() @ wd.T)
 
 

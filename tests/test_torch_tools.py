@@ -133,6 +133,47 @@ def test_w8a8_ab_arguments_and_cases():
         assert w8a8_ab.main([]) == 2
 
 
+def test_w4a16_ab_arguments_and_cases():
+    """tools/w4a16_ab.py: its arguments, its case table (chip_smoke.py's
+    phase-3 w4a16 shapes) and the operands it builds, on the CPU, where
+    the entry point takes the plain version; every bf16 case is on the
+    mma path and the float32 one on the scalar kernel; without a card it
+    refuses to time."""
+    from haff_tpu_torch.nn import quant
+    from haff_tpu_torch.tools import w4a16_ab
+
+    args = w4a16_ab.parse(["--label", "old", "--iters", "3"])
+    assert (args.label, args.iters) == ("old", 3)
+    assert (w4a16_ab.parse([]).label, w4a16_ab.parse([]).iters) == ("", 20)
+    assert w4a16_ab.CASES == (("decode", 2, 4096, 4096, "bfloat16"),
+                              ("decode gate/up", 2, 4096, 11008, "bfloat16"),
+                              ("decode down", 2, 11008, 4096, "bfloat16"),
+                              ("decode lm_head", 2, 4096, 32004, "bfloat16"),
+                              ("decode M=16", 16, 4096, 4096, "bfloat16"),
+                              ("M=256", 256, 4096, 11008, "bfloat16"),
+                              ("float32", 2, 4096, 11008, "float32"))
+    for case in w4a16_ab.CASES:
+        _, m, k, n, dtype = case
+        x, p, s = (torch.empty(r, c, dtype=t, device="meta") for r, c, t in (
+            (m, k, getattr(torch, dtype)), (n, k // 2, torch.uint8),
+            (n, k // w4a16_ab.GROUP, torch.float32)))
+        want = quant.W4A16_MMA if dtype == "bfloat16" else quant.W4A16_SCALAR
+        assert quant.w4a16_path(x, p, s, w4a16_ab.GROUP) == want
+    x, packed, scale = w4a16_ab.operands(("small", 3, 128, 7, "bfloat16"),
+                                         torch.Generator().manual_seed(0),
+                                         device="cpu")
+    assert x.shape == (3, 128) and x.dtype == torch.bfloat16
+    assert packed.shape == (7, 64) and packed.dtype == torch.uint8
+    assert scale.shape == (7, 2) and scale.dtype == torch.float32
+    wd = quant.dequantize_kernel_int4(packed, scale, w4a16_ab.GROUP,
+                                      torch.bfloat16)
+    torch.testing.assert_close(
+        quant.int4_matmul(x, packed, scale, w4a16_ab.GROUP),
+        (x.float() @ wd.float().T).bfloat16())
+    if not torch.cuda.is_available():
+        assert w4a16_ab.main([]) == 2
+
+
 def test_decode_ab_arguments_and_cases():
     """tools/decode_ab.py: its arguments, its case table (chip_smoke.py's
     phase-3 decode shapes) and the operands it builds, on the CPU, where
