@@ -31,6 +31,16 @@ Phases (any failure raises and exits non-zero):
    against the same weights on the CPU (plain versions), three times:
    float weights, int8 weights with the int8 KV cache, and packed-int4
    weights at group 16: identical tokens, masks and taxonomy within 1e-3.
+4b. tiny serving: the Predictor (three calls: the decode graph's capture
+   and two replays), one HTTP answer through the MicroBatcher and the
+   handler, and StreamingPipeline (5 frames, chunks of 2) at tiny in
+   float32 on the card against the CPU from the same weights: identical
+   text, logits and taxonomy within 1e-3, the HTTP masks equal but where a
+   CPU logit lies within 1e-3 of the threshold's. Then infer/cli.py main
+   at small with artifacts/overfit_small_params.npz over a 2-frame
+   benchmark folder it writes under runs/, once with --device cuda and
+   once with --device cpu: the same PNGs but at pixels whose CPU logit
+   lies within 1e-3 of a threshold's logit.
 5. tiny train: the LoRA train step (rank 2) at the tiny preset in float32
    on the card against the CPU from the same weights and batch: every
    trainable gradient, 3 steps' metrics and the updated trainable
@@ -54,6 +64,20 @@ Phases (any failure raises and exits non-zero):
    of all six serving kernels per evaluate (the w8a8 and w4a16 counts
    derived from the model), no selected layer left with a float weight;
    prints weight bytes, latency, peak memory; profiles one call.
+   In each of the three modes the same requests then go through
+   make_jitted_evaluate (the decode loop captured in a CUDA graph): one
+   capture call and two replays, tokens equal to the eager call's, masks
+   and taxonomy within one bf16 ulp (printed: bit-identical or not), the
+   same launches per call as eager and none on a scalar path; prints
+   eager and graphed latency and profiles one replayed call.
+7b. serve_bf16 and stream: a 7b bf16 Predictor (seeded weights, 16 new
+   tokens, prompt 320) behind MicroBatcher(batch_size=2) and the HTTP
+   handler on 127.0.0.1: four concurrent POST /predict with seeded
+   720 x 1280 PNG frames in two batches; the JSON keys, masks decoded at
+   720 x 1280, taxonomies summing to 1, PER_EVALUATE launches a batch,
+   per-request latency. Then StreamingPipeline on the same model over a
+   seeded 5-frame 720 x 1280 clip in chunks of 2 (the last padded):
+   shapes, finiteness and PER_EVALUATE launches a chunk.
 8. train slice: make_train_step at the full 7b preset with LoRA rank 8 on
    q/v, bf16 compute, remat, batch 2 (prompt 320 spliced to 575), 6 steps
    on one batch: finite losses, falling loss, frozen weights unchanged,
@@ -71,17 +95,18 @@ Phases (any failure raises and exits non-zero):
 10. audit and bench: tools/kernel_audit.py in-process (every check must
    pass) and tools/bench_kernels.py int8probe.
 
-The bf16 full-width paths (evaluate in three modes, train, the ViT-B
-predictor, the encoder backward) must run every SAM, flash forward, dq
-and dk/dv launch on the tensor cores, and every w8a8 launch on the
-tensor cores (M > 16) or the streamed skinny kernel (decode), and every
-w4a16 launch on the tensor cores: no `<key>/scalar` launch count (the
-first skinny kernels count there).
+The bf16 full-width paths (evaluate in three modes, serve_bf16, stream,
+train, the ViT-B predictor, the encoder backward) must run every SAM,
+flash forward, dq and dk/dv launch on the tensor cores, and every w8a8
+launch on the tensor cores (M > 16) or the streamed skinny kernel
+(decode), and every w4a16 launch on the tensor cores: no `<key>/scalar`
+launch count (the first skinny kernels count there).
 
 Prints a {"kernels": [...]} JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Needs no network; the weights are random.
 """
 
+import collections
 import dataclasses
 import gc
 import json
@@ -100,6 +125,7 @@ H100_BYTES_PER_S = 3.35e12  # HBM3
 # and 4 global SAM ViT-H blocks, 32 LLaMA layers' prefill, and their 15
 # decode forwards (16 new tokens; the last token needs no forward). The
 # quantized products' counts are derived from the model (product_launches).
+# A graphed evaluate, a served batch and a streamed chunk count the same.
 PER_EVALUATE = {"sam_window_relpos_attn": 28, "sam_global_relpos_attn": 4,
                 "flash_prefill_fwd": 32, "decode_attn": 480}
 # Launches per train step at the 7b preset with remat: the frozen SAM
@@ -119,10 +145,12 @@ PER_ENCODER_BACKWARD = {"sam_window_relpos_attn": 56,
 # the kernels line reports as `launches`.
 EXPECTED_ON = {
     "sam_window_relpos_attn": ("evaluate_bf16", "evaluate_w8a8",
-                               "evaluate_w4a16", "train", "encoder_backward"),
+                               "evaluate_w4a16", "train", "encoder_backward",
+                               "serve_bf16", "stream"),
     "sam_global_relpos_attn": ("evaluate_bf16", "evaluate_w8a8",
                                "evaluate_w4a16", "train", "encoder_backward",
-                               "predictor_vit_b", "small"),
+                               "predictor_vit_b", "small", "serve_bf16",
+                               "stream"),
     # The split window entry at the geometries of the TPU head-loop kernel
     # (counted under the split entry's key, on the paths that run it there).
     "sam_window_relpos_attn/vit_b": ("predictor_vit_b", "small"),
@@ -131,13 +159,18 @@ EXPECTED_ON = {
     "sam_window_relpos_attn_heads": ("audit",),
     "matmul_probe": ("bench",),
     "flash_prefill_fwd": ("evaluate_bf16", "evaluate_w8a8", "evaluate_w4a16",
-                          "train"),
+                          "train", "serve_bf16", "stream"),
     "flash_bwd_dq": ("train",),
     "flash_bwd_dkv": ("train",),
-    "decode_attn": ("evaluate_w8a8", "evaluate_bf16", "evaluate_w4a16"),
+    "decode_attn": ("evaluate_w8a8", "evaluate_bf16", "evaluate_w4a16",
+                    "serve_bf16", "stream"),
     "w8a8_matmul": ("evaluate_w8a8",),
     "w4a16_matmul": ("evaluate_w4a16",),
 }
+
+
+# The card's nvidia-smi name and power limit, printed beside every time.
+CARD = "card not read yet"
 
 
 def log(*a):
@@ -1280,6 +1313,7 @@ def run_slice(launches, mode="bf16"):
                                   eos_id=2, kv_cache_8bit=mode == "w8a8")
     torch.cuda.reset_peak_memory_stats()
     launches.clear()  # count the main path's launches only
+    eager, eager_ms = [], []
     for i in range(2):
         req = make_requests(cfg, B, P, seed=i)
         torch.cuda.synchronize()
@@ -1287,6 +1321,8 @@ def run_slice(launches, mode="bf16"):
         res = run(req)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        eager.append(res)
+        eager_ms.append(dt * 1e3)
         shapes = {"output_ids": (B, T), "gen_lengths": (B,),
                   "pred_masks_left": (B, S, S), "pred_masks_right": (B, S, S),
                   "taxonomies": (B, 4), "seg_found": (B,)}
@@ -1311,7 +1347,347 @@ def run_slice(launches, mode="bf16"):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     req = make_requests(cfg, B, P, seed=2)
     profile_call(f"evaluate {mode}", lambda: run(req))
+    run_graphed(model, mode, cfg, eager, eager_ms, expected)
     return counts
+
+
+def run_graphed(model, mode, cfg, eager, eager_ms, expected):
+    """The eager slice's requests through make_jitted_evaluate (the decode
+    loop captured in a CUDA graph): one capture call and two replays
+    (requests 0, 1, 0), each against the eager call on the same request:
+    identical tokens, masks and taxonomy within one bf16 ulp, the same
+    launches per call and none on a scalar path. Prints both latencies
+    and profiles one replayed call."""
+    from haff_tpu_torch.infer.evaluate import make_jitted_evaluate
+    from haff_tpu_torch.kernels import _build
+
+    B, P, T = 2, 320, 16
+    graphed = make_jitted_evaluate(model, T, 2, kv_cache_8bit=mode == "w8a8")
+    graph_ms, identical = [], []
+    for i, seed in enumerate((0, 1, 0)):
+        req = make_requests(cfg, B, P, seed=seed)
+        before = collections.Counter(_build.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = graphed(*req)
+        torch.cuda.synchronize()
+        graph_ms.append((time.perf_counter() - t0) * 1e3)
+        ran = collections.Counter(_build.LAUNCHES)
+        ran.subtract(before)
+        ran = +ran
+        want = {k: v for k, v in expected.items() if v}
+        if ran != want:
+            raise AssertionError(f"graphed {mode} call {i}: launches "
+                                 f"{dict(ran)}, expected {want}")
+        ref = eager[seed]
+        if not (torch.equal(got.output_ids, ref.output_ids)
+                and torch.equal(got.gen_lengths, ref.gen_lengths)):
+            raise AssertionError(f"graphed {mode} call {i}: tokens "
+                                 f"{got.output_ids.tolist()} vs eager "
+                                 f"{ref.output_ids.tolist()}")
+        same = True
+        for key in ("pred_masks_left", "pred_masks_right", "taxonomies"):
+            within_bf16(f"graphed {mode} {key}", getattr(got, key),
+                        getattr(ref, key))
+            same &= torch.equal(getattr(got, key), getattr(ref, key))
+        identical.append(same)
+    if (graphed.captures, graphed.replays) != (1, 2):
+        raise AssertionError(f"graphed {mode}: {graphed.captures} captures, "
+                             f"{graphed.replays} replays")
+    log(f"graphed {mode}: tokens equal to eager in 3 calls (1 capture, 2 "
+        f"replays), masks/taxonomy bit-identical {identical}, launches per "
+        f"call as eager; decode graph adds {graphed.decode_launches()} a "
+        f"replay | latency eager {[round(t, 1) for t in eager_ms]} ms, "
+        f"graphed {[round(t, 1) for t in graph_ms]} ms (first captures; host "
+        f"clock, synchronized) | {CARD}")
+    req = make_requests(cfg, B, P, seed=1)
+    profile_call(f"graphed evaluate {mode}", lambda: graphed(*req))
+
+
+def png_b64(frame):
+    import base64
+
+    import cv2
+
+    ok, buf = cv2.imencode(".png", frame[:, :, ::-1])
+    if not ok:
+        raise AssertionError("PNG encoding failed")
+    return base64.b64encode(buf.tobytes()).decode()
+
+
+def png_mask(b64):
+    import base64
+
+    import cv2
+
+    return cv2.imdecode(np.frombuffer(base64.b64decode(b64), np.uint8),
+                        cv2.IMREAD_GRAYSCALE)
+
+
+def post_predict(url, frame, prompt, timeout=600):
+    """POST /predict; returns (answer JSON, latency ms on the host clock)."""
+    import urllib.request
+
+    body = json.dumps({"image": png_b64(frame), "prompt": prompt}).encode()
+    req = urllib.request.Request(f"{url}/predict", data=body, headers={
+        "Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        out = json.loads(r.read())
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def serve(predictor, batch_size, max_wait_ms):
+    """The port's MicroBatcher and HTTP handler on 127.0.0.1, an ephemeral
+    port. Returns (server, batcher, url); stop with stop_serving."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from haff_tpu_torch.infer.server import MicroBatcher, make_handler
+
+    batcher = MicroBatcher(predictor.predict_batch, batch_size=batch_size,
+                           max_wait_ms=max_wait_ms)
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(batcher))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, batcher, f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+def stop_serving(srv, batcher):
+    srv.shutdown()
+    srv.server_close()
+    batcher.close()
+
+
+def check_tiny_serving():
+    """The serving front door at tiny in float32, card (kernels, the
+    decode loop in a CUDA graph) against the CPU (plain versions, eager)
+    from the same weights: Predictor.predict_batch, one HTTP answer
+    through the MicroBatcher and the handler, and StreamingPipeline over a
+    5-frame clip in chunks of 2. Identical text, logits and taxonomy
+    within 1e-3, the HTTP masks equal but where a CPU logit lies within
+    1e-3 of the threshold's."""
+    from haff_tpu_torch.infer.predictor import Predictor
+    from haff_tpu_torch.infer.streaming import StreamingPipeline
+
+    kw = dict(model_preset="tiny", precision="fp32", max_new_tokens=6,
+              max_text_len=448)
+    gpu = Predictor(**kw, device="cuda")
+    cpu = Predictor(**kw, device="cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in
+                               gpu.model.state_dict().items()})
+    rng = np.random.RandomState(21)
+    frames = [rng.randint(0, 256, hw + (3,)).astype(np.uint8)
+              for hw in ((60, 90), (72, 40))]
+    prompts = ["open the drawer", "grab the cup"]
+    worst = 0.0
+    for call in range(3):  # a capture and two replays on the card
+        got = gpu.predict_batch(frames, prompts)
+        ref = cpu.predict_batch(frames, prompts)
+        texts = [g[0] for g in got]
+        for g, r in zip(got, ref):
+            if g[0] != r[0]:
+                raise AssertionError(f"tiny serving: text {g[0]!r} vs "
+                                     f"{r[0]!r}")
+            for a, b in zip(g[1:], r[1:]):
+                np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-3)
+                worst = max(worst, float(np.abs(a - b).max()))
+    answers = []
+    for pred in (gpu, cpu):
+        srv, batcher, url = serve(pred, batch_size=1, max_wait_ms=5.0)
+        try:
+            answers.append(post_predict(url, frames[0], prompts[0])[0])
+        finally:
+            stop_serving(srv, batcher)
+    got, ref = answers
+    logits = cpu(frames[0], prompts[0])
+    if got["answer"] != ref["answer"]:
+        raise AssertionError("tiny serving: HTTP answers differ")
+    np.testing.assert_allclose(got["taxonomy"], ref["taxonomy"], rtol=1e-3,
+                               atol=1e-3)
+    for key, lg in (("mask_left", logits[1]), ("mask_right", logits[2])):
+        diff = png_mask(got[key]) != png_mask(ref[key])
+        if (diff & (np.abs(lg) >= 1e-3)).any():  # threshold 0.5: logit 0
+            raise AssertionError(f"tiny serving: HTTP {key} differs")
+    clip = np.random.RandomState(22).randint(0, 256, (5, 48, 64, 3)).astype(
+        np.uint8)
+    runs = [list(StreamingPipeline(p.model, p.tok, "open drawer", chunk=2,
+                                   max_new_tokens=6, max_text_len=160)
+                 .run(clip)) for p in (gpu, cpu)]
+    for g, r in zip(*runs):
+        for key in ("masks_left", "masks_right", "taxonomies"):
+            np.testing.assert_allclose(g[key], r[key], rtol=1e-3, atol=1e-3)
+            worst = max(worst, float(np.abs(g[key] - r[key]).max()))
+    if len(runs[0]) != 3:
+        raise AssertionError(f"tiny stream: {len(runs[0])} chunks")
+    log(f"tiny serving: card (kernels, decode graph, f32) vs CPU (plain, "
+        f"eager): Predictor text identical {texts} in 3 calls, HTTP answer "
+        f"identical, stream 3 chunks; max abs err {worst:.3g}")
+
+
+def check_small_cli():
+    """infer/cli.py main at the small preset with the trained weights of
+    artifacts/overfit_small_params.npz, float32, over a 2-frame benchmark
+    folder written under runs/: once with --device cuda, once with
+    --device cpu. The same files; the PNGs equal but at pixels whose CPU
+    logit lies within 1e-3 of a threshold's logit."""
+    import os
+    import shutil
+
+    import cv2
+
+    from haff_tpu_torch.infer import cli
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "runs", "chip_smoke_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    rng = np.random.RandomState(31)
+    for i, narration in enumerate(("Open Drawer", "cut onion")):
+        fdir = os.path.join(work, "bench", "vid", f"{i:07d}")
+        os.makedirs(fdir)
+        cv2.imwrite(os.path.join(fdir, "inpainting.png"),
+                    rng.randint(0, 256, (360, 640, 3)).astype(np.uint8))
+        with open(os.path.join(fdir, "annotation.json"), "w") as f:
+            json.dump({"narration": narration}, f)
+    cpu_logits = {}
+    real = cli.write_threshold_masks
+
+    def keep(base, vid, frame, left, right, tax, ths):
+        if base.endswith("cpu/vis"):
+            cpu_logits[frame] = (left, right)
+        real(base, vid, frame, left, right, tax, ths)
+
+    args = ["--benchmark_dir", os.path.join(work, "bench"), "--model_preset",
+            "small", "--precision", "fp32", "--batch", "2",
+            "--max_new_tokens", "8", "--checkpoint",
+            os.path.join(root, "artifacts", "overfit_small_params.npz")]
+    cli.write_threshold_masks = keep
+    try:
+        for dev in ("cuda", "cpu"):
+            cli.main(args + ["--vis_save_path", os.path.join(work, dev, "vis"),
+                             "--device", dev])
+    finally:
+        cli.write_threshold_masks = real
+    files = {}
+    for dev in ("cuda", "cpu"):
+        base = os.path.join(work, dev)
+        files[dev] = sorted(os.path.relpath(os.path.join(d, f), base)
+                            for d, _, fs in os.walk(base) for f in fs)
+    if files["cuda"] != files["cpu"] or len(files["cpu"]) < 10:
+        raise AssertionError(f"small cli: files differ {files}")
+    off = 0
+    for rel in files["cpu"]:
+        th = float(rel.split(os.sep)[0][len("vis"):])
+        frame = rel.split(os.sep)[2]
+        side = 0 if rel.endswith("aff_left.png") else 1
+        lg = cpu_logits[frame][side]
+        got = cv2.imread(os.path.join(work, "cuda", rel), cv2.IMREAD_GRAYSCALE)
+        ref = cv2.imread(os.path.join(work, "cpu", rel), cv2.IMREAD_GRAYSCALE)
+        near = np.abs(lg - np.log(th / (1 - th))) < 1e-3
+        if got.shape != ref.shape or ((got != ref) & ~near).any():
+            raise AssertionError(f"small cli: {rel} differs")
+        off += int((got != ref).sum())
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"small cli: trained weights, --device cuda vs --device cpu: "
+        f"{len(files['cpu'])} PNGs equal but {off} pixels within 1e-3 of a "
+        "threshold")
+
+
+def run_serve(launches):
+    """The serving front door at the full 7b preset in bf16: a Predictor
+    (seeded random weights) behind the MicroBatcher (batch 2) and the HTTP
+    handler; four concurrent POST /predict with seeded 720 x 1280 PNG
+    frames make two batches. Then StreamingPipeline on the same model over
+    a seeded 5-frame 720 x 1280 clip in chunks of 2. Returns the launch
+    counts of the two paths."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from haff_tpu_torch.infer.predictor import Predictor
+    from haff_tpu_torch.infer.streaming import StreamingPipeline
+
+    t0 = time.perf_counter()
+    pred = Predictor(model_preset="7b", precision="bf16", max_new_tokens=16,
+                     max_text_len=320, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    H, W = 720, 1280
+    rng = np.random.RandomState(11)
+    frames = [rng.randint(0, 256, (H, W, 3)).astype(np.uint8)
+              for _ in range(4)]
+    prompts = ["open the drawer", "cut the onion", "pour the water",
+               "hold the cup"]
+    t0 = time.perf_counter()  # the server's warm-up: the graph's capture
+    pred.predict_batch(frames[:2], ["warmup"] * 2)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    srv, batcher, url = serve(pred, batch_size=2, max_wait_ms=2000.0)
+    try:
+        launches.clear()
+        with ThreadPoolExecutor(4) as pool:
+            answers = list(pool.map(lambda a: post_predict(url, *a),
+                                    zip(frames, prompts)))
+        torch.cuda.synchronize()
+        serve_counts = dict(launches)
+        sizes = list(batcher.batch_sizes)
+    finally:
+        stop_serving(srv, batcher)
+    if sizes != [2, 2]:
+        raise AssertionError(f"serve_bf16: batch sizes {sizes}, expected "
+                             "[2, 2]")
+    for name, per in PER_EVALUATE.items():
+        if serve_counts.get(name) != per * 2:
+            raise AssertionError(f"serve_bf16: {name}: "
+                                 f"{serve_counts.get(name)} launches in 2 "
+                                 f"batches, expected {per * 2}")
+    for out, _ in answers:
+        if set(out) != {"answer", "taxonomy", "mask_left", "mask_right"}:
+            raise AssertionError(f"serve_bf16: answer keys {sorted(out)}")
+        for key in ("mask_left", "mask_right"):
+            m = png_mask(out[key])
+            if m is None or m.shape != (H, W) or not set(
+                    np.unique(m)) <= {0, 255}:
+                raise AssertionError(f"serve_bf16: {key} decodes to "
+                                     f"{None if m is None else m.shape}")
+        tax = np.asarray(out["taxonomy"])
+        if tax.shape != (4,) or not np.isfinite(tax).all() or \
+                abs(float(tax.sum()) - 1.0) > 1e-2:
+            raise AssertionError(f"serve_bf16: taxonomy {tax}")
+    log(f"serve_bf16: 7b Predictor built in {build_s:.1f} s, warm-up batch "
+        f"(decode graph capture) {warm_ms:.1f} ms; 4 concurrent POST "
+        f"/predict of {H} x {W} PNG frames in batches {sizes}: per-request "
+        f"latency {[round(ms, 1) for _, ms in answers]} ms (host clock, "
+        f"client side); launches {serve_counts} | {CARD}")
+
+    clip = np.random.RandomState(12).randint(0, 256, (5, H, W, 3)).astype(
+        np.uint8)
+    pipe = StreamingPipeline(pred.model, pred.tok, "open the drawer", chunk=2,
+                             max_new_tokens=16, max_text_len=320)
+    launches.clear()
+    chunk_ms, seen = [], collections.Counter()
+    t0 = time.perf_counter()
+    for out in pipe.run(clip):
+        n = min(2, 5 - out["start"])
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        S = pred.cfg.sam_encoder.image_size
+        for key, shape in (("masks_left", (n, S, S)),
+                           ("masks_right", (n, S, S)),
+                           ("taxonomies", (n, 4))):
+            if out[key].shape != shape or not np.isfinite(out[key]).all():
+                raise AssertionError(f"stream chunk {out['start']}: {key} "
+                                     f"{out[key].shape}")
+        seen[out["start"]] += 1
+        for name, per in PER_EVALUATE.items():
+            if launches[name] != per * len(seen):
+                raise AssertionError(f"stream: {name}: {launches[name]} "
+                                     f"launches after {len(seen)} chunks")
+        t0 = time.perf_counter()
+    if sorted(seen) != [0, 2, 4]:
+        raise AssertionError(f"stream: chunks {sorted(seen)}")
+    stream_counts = dict(launches)
+    log(f"stream: 7b bf16 StreamingPipeline, 5 frames of {H} x {W} in chunks "
+        f"of 2 (last padded): per-chunk latency "
+        f"{[round(t, 1) for t in chunk_ms]} ms (first captures; host clock); "
+        f"launches {stream_counts} | {CARD}")
+    del pipe, pred
+    return serve_counts, stream_counts
 
 
 def profile_call(what, fn):
@@ -1337,7 +1713,8 @@ def profile_call(what, fn):
                   reverse=True)
     busy = sum(r[0] for r in rows)
     log(f"profile: {what} wall {wall_us / 1e3:.1f} ms (profiled), device "
-        f"busy {busy / 1e3:.1f} ms, idle share {1 - busy / wall_us:.3f}")
+        f"busy {busy / 1e3:.1f} ms, idle share {1 - busy / wall_us:.3f} | "
+        f"{CARD}")
     for us, count, key in rows[:15]:
         log(f"  {us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
 
@@ -1529,7 +1906,8 @@ def main():
         return 2
     from haff_tpu_torch.kernels import _build  # fails outside a checkout
 
-    card = card_line()
+    global CARD
+    card = CARD = card_line()
     log(f"device: {card} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
@@ -1569,6 +1947,8 @@ def main():
     check_sam_backward(gen)
     for mode in ("bf16", "w8a8", "w4a16"):
         check_tiny_against_cpu(mode)
+    check_tiny_serving()
+    check_small_cli()
     check_tiny_train()
     torch.cuda.empty_cache()
 
@@ -1588,13 +1968,17 @@ def main():
         paths[f"evaluate_{mode}"] = run_slice(_build.LAUNCHES, mode)
         gc.collect()
         torch.cuda.empty_cache()
+    paths["serve_bf16"], paths["stream"] = run_serve(_build.LAUNCHES)
+    gc.collect()
+    torch.cuda.empty_cache()
     paths["train"] = run_train_slice(_build.LAUNCHES)
     # The bf16 full-width paths run every SAM and flash launch, every w8a8
     # launch and every w4a16 launch on the tensor cores or (w8a8 decode)
     # the streamed skinny kernel: the first skinny kernels and the tile
     # count under /scalar.
     for p in ("encoder_backward", "predictor_vit_b", "evaluate_bf16",
-              "evaluate_w8a8", "evaluate_w4a16", "train"):
+              "evaluate_w8a8", "evaluate_w4a16", "serve_bf16", "stream",
+              "train"):
         scalar = {k: n for k, n in paths[p].items() if k.endswith("/scalar") and n}
         if scalar:
             raise AssertionError(f"{p}: launches on the scalar path {scalar}")

@@ -3,8 +3,9 @@ SAM resize-longest-side + pad, CLIP resize + centre crop, mask canvases.
 
 numpy, PIL and cv2 only, the same calls as the JAX package's host path,
 so the arrays are equal. The pixel statistics are the port's own copies
-(nn/sam.py, below). The device-side (streaming) variants are not ported
-yet.
+(nn/sam.py, below). `device_sam_preprocess` / `device_clip_preprocess`
+are the streaming path's counterparts on tensors on the model's device
+(resize, pad and normalize next to the model instead of on the host).
 """
 
 from __future__ import annotations
@@ -91,3 +92,66 @@ def valid_region(resize_hw: Tuple[int, int], image_size: int = 1024):
     m = np.zeros((image_size, image_size), np.float32)
     m[:h, :w] = 1.0
     return m
+
+
+# --------------------------- device-side (streaming) ---------------------
+
+def _resize_bilinear(x, size: Tuple[int, int]):
+    """(B, C, H, W) float32 -> (B, C, *size) with jax.image.resize's
+    "bilinear": half-pixel centres, a triangle kernel widened to the
+    output's pixel size (antialiased) along an axis that shrinks and not
+    along one that keeps or grows its size. F.interpolate's antialias
+    flag covers both axes at once, so an axis pair that disagrees takes
+    two passes."""
+    import torch.nn.functional as F
+
+    h, w = x.shape[-2:]
+    interp = lambda t, hw, aa: F.interpolate(  # noqa: E731
+        t, size=hw, mode="bilinear", align_corners=False, antialias=aa)
+    if (size[0] < h) != (size[1] < w):
+        return interp(interp(x, (size[0], w), size[0] < h), size, size[1] < w)
+    return interp(x, size, size[0] < h)
+
+
+def _nchw_float(frames):
+    import torch
+
+    return torch.as_tensor(frames).permute(0, 3, 1, 2).float()
+
+
+def _normalize_nhwc(x, mean, std):
+    """(B, C, H, W) -> per-channel (x - mean) / std as (B, H, W, C)."""
+    import torch
+
+    stats = torch.as_tensor(np.array((mean, std), np.float32),
+                            device=x.device)
+    x = (x - stats[0, :, None, None]) / stats[1, :, None, None]
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+def device_sam_preprocess(frames, image_size: int = 1024,
+                          resize_hw: Tuple[int, int] = None):
+    """SAM preprocessing where `frames` lie (B, H, W, 3) uint8 or float on
+    the 0-255 scale -> the (B, image_size, image_size, 3) float32 canvas,
+    normalized and zero-padded bottom and right, and the resize shape."""
+    import torch.nn.functional as F
+
+    h, w = frames.shape[1:3]
+    nh, nw = resize_hw or get_preprocess_shape(h, w, image_size)
+    x = _normalize_nhwc(_resize_bilinear(_nchw_float(frames), (nh, nw)),
+                        PIXEL_MEAN, PIXEL_STD)
+    return F.pad(x, (0, 0, 0, image_size - nw, 0, image_size - nh)), (nh, nw)
+
+
+def device_clip_preprocess(frames, image_size: int = 224):
+    """CLIP preprocessing where `frames` lie: bilinear short-side resize
+    (rounded, as the JAX device path), centre crop, scale 1/255, CLIP
+    normalization. (B, H, W, 3) -> (B, image_size, image_size, 3)."""
+    h, w = frames.shape[1:3]
+    scale = image_size / min(h, w)
+    nh, nw = round(h * scale), round(w * scale)
+    x = _resize_bilinear(_nchw_float(frames), (nh, nw))
+    top = (nh - image_size) // 2
+    left = (nw - image_size) // 2
+    x = x[:, :, top:top + image_size, left:left + image_size] / 255.0
+    return _normalize_nhwc(x, CLIP_MEAN, CLIP_STD)

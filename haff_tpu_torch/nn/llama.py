@@ -201,7 +201,9 @@ class LlamaModel(nn.Module):
         x = inputs_embeds.to(self.norm.weight.dtype)
         table = rope_table(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta,
                            device=x.device)
-        positions = positions.long()
+        # A position past the table reads its last row, as JAX's clamped
+        # gather does (a long prompt at the tiny preset's 128 positions).
+        positions = positions.long().clamp(max=cfg.max_seq_len - 1)
         remat = remat and torch.is_grad_enabled()
         new_caches = []
         for i, layer in enumerate(self.layers):

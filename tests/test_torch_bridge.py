@@ -1,7 +1,7 @@
 """Weight bridge: JAX parameter trees and export .npz files load into the
 PyTorch port (haff_tpu_torch/tools/bridge.py), strictly and in the right
 layout. Also holds the shared tiny-preset fixtures of the port's parity
-tests (`jax_tiny_params`, `port_model`)."""
+tests (`jax_tiny_params`, `port_model`, `write_npz`)."""
 
 import dataclasses
 
@@ -83,6 +83,18 @@ def port_model(params, preset="tiny", **cfg_kw):
         cfg = dataclasses.replace(cfg, **cfg_kw)
     return load_jax_params(LisaModel(cfg, torch.float32, device="cpu"),
                            params)
+
+
+def write_npz(params, path) -> str:
+    """A JAX parameter tree (boxed or not, under "params" or not) as the
+    flat float32 .npz of haff_tpu/tools/export_params.py, for the port's
+    `checkpoint=` arguments."""
+    tree = fnn.unbox(params)
+    tree = tree.get("params", tree)
+    flat = {"/".join(k): np.asarray(v, np.float32)
+            for k, v in traverse_util.flatten_dict(tree).items()}
+    np.savez(path, **flat)
+    return str(path)
 
 
 def test_tiny_tree_loads_strict_with_layouts():

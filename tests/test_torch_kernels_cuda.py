@@ -801,3 +801,50 @@ def test_stream_handle_is_the_current_stream(dev):
     side = torch.cuda.Stream(d)
     with torch.cuda.stream(side):
         assert _build.stream_handle(d).value == side.cuda_stream
+
+
+@pytest.mark.parametrize("kv_cache_8bit", [False, True])
+def test_graphed_evaluate_equals_eager(dev, kv_cache_8bit):
+    """make_jitted_evaluate on the card (the decode loop captured in a CUDA
+    graph at the first call, replayed at the next two) against evaluate_fn
+    at the tiny preset in float32: identical tokens, masks and taxonomy
+    within 1e-6, and the same launches per call."""
+    import collections
+
+    import numpy as np
+
+    from haff_tpu_torch.core.config import ModelConfig
+    from haff_tpu_torch.infer.evaluate import evaluate_fn, make_jitted_evaluate
+    from haff_tpu_torch.model.lisa import LisaModel
+
+    cfg = ModelConfig.preset("tiny")
+    model = LisaModel(cfg, torch.float32, device=dev)
+    rng = np.random.RandomState(0)
+    S, C = cfg.sam_encoder.image_size, cfg.clip.image_size
+    graphed = make_jitted_evaluate(model, 6, 2, kv_cache_8bit=kv_cache_8bit)
+
+    def counted(fn, req):
+        before = collections.Counter(_build.LAUNCHES)
+        out = fn(*req)
+        torch.cuda.synchronize()
+        after = collections.Counter(_build.LAUNCHES)
+        after.subtract(before)
+        return out, +after
+
+    for call in range(3):
+        ids = rng.randint(5, 400, (2, 12))
+        ids[:, 2] = -200
+        att = np.ones((2, 12), np.int64)
+        att[1, 8 + call:] = 0
+        req = (rng.randn(2, S, S, 3).astype(np.float32),
+               rng.randn(2, C, C, 3).astype(np.float32), ids, att)
+        got, n_got = counted(graphed, req)
+        ref, n_ref = counted(lambda *r: evaluate_fn(
+            model, *r, 6, 2, kv_cache_8bit=kv_cache_8bit), req)
+        assert torch.equal(got.output_ids, ref.output_ids)
+        assert torch.equal(got.gen_lengths, ref.gen_lengths)
+        for key in ("pred_masks_left", "pred_masks_right", "taxonomies"):
+            torch.testing.assert_close(getattr(got, key), getattr(ref, key),
+                                       rtol=0, atol=1e-6)
+        assert n_got == n_ref and n_ref["decode_attn"] == 5 * cfg.llama.num_layers
+    assert (graphed.captures, graphed.replays) == (1, 2)
