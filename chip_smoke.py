@@ -84,6 +84,28 @@ Phases (any failure raises and exits non-zero):
    trainable ones changed, per-step launch counts; prints step time and
    peak memory; profiles one step.
 
+8b. train CLI, tiny: haff_tpu_torch.train.cli.main at tiny in float32 on a
+   4-frame ReasonSeg folder (the card has no h5py for 2HANDS shards) and
+   a 2-frame benchmark folder it writes under runs/, --device cuda against --device cpu from the same initial weights
+   in three weight modes (float, --load_in_8bit, --load_in_4bit), 2 epochs
+   of one step with a validation after each: per-step losses within 1e-3,
+   validation IoU / IoCM equal (or apart only through pixels whose CPU
+   logit lies within 1e-3 of 0), checkpointed trainable tensors within
+   1e-3; the decode graph captured at the first validation and replayed
+   after a training step equal to an eager evaluate on the updated
+   weights.
+8c. train CLI, 7b: the CLI at the full 7b preset (LoRA r8, bf16, remat,
+   batch 2) on a 4-frame 720 x 1280 ReasonSeg folder and a 2-frame
+   benchmark folder, --val_batch_size 2, three runs in-process (each model freed
+   before the next): --epochs 1 --steps_per_epoch 2; --epochs 2 under the
+   same name (auto-resumes at step 2, trains epoch 1); --load_in_8bit
+   (QLoRA: the W8A8 kernel under autograd in the train step, skinny in
+   the validation's decode). Exact launches a run (PER_TRAIN_STEP a step,
+   PER_VALIDATE a validation with 32 new tokens, the w8a8 count derived
+   from the model), none on a scalar path, a checkpoint written, the loss
+   falling over runs 1-2; prints step, validation and checkpoint times
+   and peak memory of each run.
+
 9. predictor slice: SamPredictor over SAM ViT-B at full width and depth
    (bfloat16, seeded random weights) on a seeded 720 x 1280 frame:
    set_image, a point and a box prompt, a 64-point predict_batch and the
@@ -96,7 +118,8 @@ Phases (any failure raises and exits non-zero):
    pass) and tools/bench_kernels.py int8probe.
 
 The bf16 full-width paths (evaluate in three modes, serve_bf16, stream,
-train, the ViT-B predictor, the encoder backward) must run every SAM,
+train, train_cli, train_cli_8bit, the ViT-B predictor, the encoder
+backward) must run every SAM,
 flash forward, dq and dk/dv launch on the tensor cores, and every w8a8
 launch on the tensor cores (M > 16) or the streamed skinny kernel
 (decode), and every w4a16 launch on the tensor cores: no `<key>/scalar`
@@ -146,11 +169,12 @@ PER_ENCODER_BACKWARD = {"sam_window_relpos_attn": 56,
 EXPECTED_ON = {
     "sam_window_relpos_attn": ("evaluate_bf16", "evaluate_w8a8",
                                "evaluate_w4a16", "train", "encoder_backward",
-                               "serve_bf16", "stream"),
+                               "serve_bf16", "stream", "train_cli",
+                               "train_cli_8bit"),
     "sam_global_relpos_attn": ("evaluate_bf16", "evaluate_w8a8",
                                "evaluate_w4a16", "train", "encoder_backward",
                                "predictor_vit_b", "small", "serve_bf16",
-                               "stream"),
+                               "stream", "train_cli", "train_cli_8bit"),
     # The split window entry at the geometries of the TPU head-loop kernel
     # (counted under the split entry's key, on the paths that run it there).
     "sam_window_relpos_attn/vit_b": ("predictor_vit_b", "small"),
@@ -159,13 +183,17 @@ EXPECTED_ON = {
     "sam_window_relpos_attn_heads": ("audit",),
     "matmul_probe": ("bench",),
     "flash_prefill_fwd": ("evaluate_bf16", "evaluate_w8a8", "evaluate_w4a16",
-                          "train", "serve_bf16", "stream"),
-    "flash_bwd_dq": ("train",),
-    "flash_bwd_dkv": ("train",),
+                          "train", "serve_bf16", "stream", "train_cli",
+                          "train_cli_8bit"),
+    "flash_bwd_dq": ("train", "train_cli", "train_cli_8bit"),
+    "flash_bwd_dkv": ("train", "train_cli", "train_cli_8bit"),
     "decode_attn": ("evaluate_w8a8", "evaluate_bf16", "evaluate_w4a16",
-                    "serve_bf16", "stream"),
-    "w8a8_matmul": ("evaluate_w8a8",),
-    "w4a16_matmul": ("evaluate_w4a16",),
+                    "serve_bf16", "stream", "train_cli", "train_cli_8bit"),
+    # train_cli_8bit: the QLoRA train step (tensor-core path, under grad)
+    # and its validation's decode (skinny path); train_cli_tiny: the tiny
+    # card-vs-CPU CLI runs (float32: w4a16 on its scalar kernel).
+    "w8a8_matmul": ("evaluate_w8a8", "train_cli_8bit", "train_cli_tiny"),
+    "w4a16_matmul": ("evaluate_w4a16", "train_cli_tiny"),
 }
 
 
@@ -1899,6 +1927,417 @@ def run_train_slice(launches):
     return counts
 
 
+# The train CLI's validation is an evaluate with 32 new tokens
+# (infer/evaluate.py validate_on_benchmark): 31 decode forwards of the 32
+# LLaMA layers after the prefill; the SAM and prefill counts as evaluate's.
+VALIDATE_NEW_TOKENS = 32
+PER_VALIDATE = dict(PER_EVALUATE,
+                    decode_attn=(VALIDATE_NEW_TOKENS - 1) * 32)
+TRAIN_CLI_WORK = "chip_smoke_train_cli"
+
+
+def write_train_data(work, n_frames, hw, seed):
+    """Training data for the train CLI phases, and a 2-frame benchmark
+    folder beside it. The GPU machine has no h5py, so the
+    phases train on a ReasonSeg folder (`--dataset reason_seg`: <name>.jpg
+    + <name>.json polygons, data/extra_datasets.py), not on 2HANDS h5
+    shards (AffDataset is held against JAX on the CPU only). `n_frames`
+    frames of size `hw`, all the same image and target, so the batches of
+    a run differ only in their prompt templates. Benchmark frame 0 has
+    both hands' GT, frame 1 the right hand missing and its GT on a canvas
+    half the frame's size. Returns (data dir, benchmark dir)."""
+    import os
+
+    import cv2
+
+    rng = np.random.RandomState(seed)
+    H, W = hw
+    data = os.path.join(work, "reason")
+    os.makedirs(os.path.join(data, "train"))
+    image = rng.randint(0, 256, (H, W, 3)).astype(np.uint8)
+    target = [[W // 8, H // 4], [W // 3, H // 4], [W // 3, H // 2],
+              [W // 8, H // 2]]
+    for k in range(n_frames):
+        cv2.imwrite(os.path.join(data, "train", f"{k:04d}.jpg"), image)
+        with open(os.path.join(data, "train", f"{k:04d}.json"), "w") as f:
+            json.dump({"text": "Drawer Handle", "is_sentence": False,
+                       "shapes": [{"label": "target", "points": target}]}, f)
+    bench = os.path.join(work, "bench")
+    for k in range(2):
+        fdir = os.path.join(bench, "P01_101", f"{k:07d}")
+        os.makedirs(fdir)
+        cv2.imwrite(os.path.join(fdir, "inpainting.png"),
+                    rng.randint(0, 256, (H, W, 3)).astype(np.uint8))
+        gh, gw = (H, W) if k == 0 else (H // 2, W // 2)
+        gt = np.zeros((gh, gw), np.uint8)
+        gt[gh // 4:gh // 2, gw // 8:gw // 3] = 255
+        cv2.imwrite(os.path.join(fdir, "aff_left.png"), gt)
+        if k == 0:
+            cv2.imwrite(os.path.join(fdir, "aff_right.png"),
+                        np.roll(gt, gw // 3, 1))
+        with open(os.path.join(fdir, "annotation.json"), "w") as f:
+            json.dump({"narration": "open drawer",
+                       "taxonomy": [0, 0, 1, 0]}, f)
+    return data, bench
+
+
+def data_flags(data, bench):
+    """The train CLI's data flags for write_train_data's folders."""
+    return ["--dataset", "reason_seg", "--reason_seg_data", data,
+            "--dataset_dir", data, "--val_benchmark_dir", bench]
+
+
+class RecordingEvaluate:
+    """Wraps the evaluate callable the train CLI makes (via
+    infer.evaluate.make_jitted_evaluate, replaced for the run): each call's
+    inputs and its result's tokens, canvas logits and taxonomy, on the
+    host. `inner` is the wrapped callable (a GraphedEvaluate on the card)."""
+
+    def __init__(self, inner):
+        self.inner, self.calls = inner, []
+
+    def __call__(self, *inputs):
+        res = self.inner(*inputs)
+        self.calls.append((inputs, {
+            k: getattr(res, k).cpu() for k in (
+                "output_ids", "gen_lengths", "pred_masks_left",
+                "pred_masks_right", "taxonomies")}))
+        return res
+
+
+def run_train_cli(argv, init_weights=None):
+    """haff_tpu_torch.train.cli.main(argv) in-process with its evaluate
+    recorded (RecordingEvaluate). `init_weights`: a dict; when it holds
+    "sd", the run's model loads those weights right after it is built
+    (the seeded init draws differently on the card and on the CPU), else
+    the built model's weights are stored there. Returns the TrainRun."""
+    from haff_tpu_torch.infer import evaluate as E
+    from haff_tpu_torch.train import cli
+
+    real_make, real_build = E.make_jitted_evaluate, cli.build_model
+
+    def make(*a, **kw):
+        return RecordingEvaluate(real_make(*a, **kw))
+
+    def build(cfg, precision, device, seed, *a, **kw):
+        model = real_build(cfg, precision, device, seed, *a, **kw)
+        if init_weights is not None:
+            if "sd" in init_weights:
+                model.load_state_dict({k: v.to(device) for k, v in
+                                       init_weights["sd"].items()})
+            else:
+                init_weights["sd"] = {k: v.detach().cpu().clone()
+                                      for k, v in model.state_dict().items()}
+        return model
+
+    E.make_jitted_evaluate, cli.build_model = make, build
+    try:
+        return cli.main(argv)
+    finally:
+        E.make_jitted_evaluate, cli.build_model = real_make, real_build
+
+
+def saved_trainable(run_dir):
+    """(step, trainable tensors) of the newest checkpoint of a CLI run."""
+    import os
+
+    from haff_tpu_torch.train import checkpoints as C
+
+    d = C.step_dir(os.path.join(run_dir, "ckpt_model"))
+    if d is None:
+        raise AssertionError(f"{run_dir}: no checkpoint written")
+    snap = torch.load(os.path.join(d, C.STATE), map_location="cpu",
+                      weights_only=True)
+    return snap["step"], snap["trainable"]
+
+
+def check_graphed_after_training(run, what):
+    """The card run's decode graph, captured at the first validation, was
+    replayed at a later one after training steps: one more replay on the
+    last validation's inputs against an eager evaluate on the updated
+    weights (identical tokens, masks and taxonomy within 1e-5)."""
+    from haff_tpu_torch.infer.evaluate import evaluate_fn
+
+    graphed = run.evaluate.inner
+    inputs = run.evaluate.calls[-1][0]
+    got = run.evaluate(*inputs)
+    want = evaluate_fn(run.model, *inputs,
+                       max_new_tokens=VALIDATE_NEW_TOKENS,
+                       eos_id=run.tok.eos_token_id)
+    if not torch.equal(got.output_ids, want.output_ids):
+        raise AssertionError(f"{what}: graphed tokens {got.output_ids.tolist()}"
+                             f" vs eager {want.output_ids.tolist()}")
+    same = True
+    for key in ("pred_masks_left", "pred_masks_right", "taxonomies"):
+        g, w = getattr(got, key).float(), getattr(want, key).float()
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+        same &= torch.equal(g, w)
+    return graphed.captures, graphed.replays, same
+
+
+def check_tiny_train_cli():
+    """haff_tpu_torch.train.cli.main at tiny in float32 on a 4-frame
+    ReasonSeg folder and a 2-frame benchmark folder (runs/;
+    write_train_data), --device cuda against
+    --device cpu from the same initial weights, LoRA dropout 0, in three
+    weight modes (float, --load_in_8bit, --load_in_4bit), 2 epochs of one
+    step with a validation after each: per-step losses within 1e-3,
+    validation IoU and IoCM equal (or differing only through pixels whose
+    CPU logit lies within 1e-3 of 0; 2e-2 at 8 bits, whose activation
+    rounding moves a step on a 1e-6 difference), taxonomies within the
+    same, the tokens up to the first [SEG] equal, the
+    checkpointed trainable tensors within 1e-3; on the card the decode
+    graph captured at the first validation and replayed at the second,
+    after a training step, equal to an eager evaluate on the updated
+    weights. Returns the card runs' launch counts."""
+    import os
+    import shutil
+
+    from haff_tpu_torch.kernels import _build
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "runs", TRAIN_CLI_WORK, "tiny")
+    shutil.rmtree(work, ignore_errors=True)
+    data, bench = write_train_data(work, 4, (96, 128), seed=41)
+    init = {}
+    counts = collections.Counter()
+    # AdamW moves each element by about lr whatever its gradient's size, so
+    # an element whose gradient lies near 0 (its sign apart on the two
+    # devices) ends up to 2 lr apart a step: lr 1e-4 over the 2 steps keeps
+    # that inside the checkpoints' 1e-3.
+    for mode in ("float", "8bit", "4bit"):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            argv = data_flags(data, bench) + [
+                    "--model_preset", "tiny", "--precision", "fp32",
+                    "--epochs", "2", "--steps_per_epoch", "1",
+                    "--batch_size", "2", "--grad_accum", "1",
+                    "--warmup_steps", "0", "--lr", "1e-4",
+                    "--lora_dropout", "0", "--model_max_length", "448",
+                    "--val_batch_size", "2", "--workers", "2",
+                    "--print_freq", "1", "--device", dev,
+                    "--log_base_dir", os.path.join(work, "runs"),
+                    "--exp_name", f"{mode}_{dev}"]
+            if mode != "float":
+                argv.append(f"--load_in_{mode}")
+            before = collections.Counter(_build.LAUNCHES)
+            runs[dev] = run_train_cli(argv, init)
+            ran = collections.Counter(_build.LAUNCHES)
+            ran.subtract(before)
+            if dev == "cuda":
+                counts.update(+ran)
+                product = {"8bit": "w8a8_matmul",
+                           "4bit": "w4a16_matmul"}.get(mode)
+                if product and not ran[product]:
+                    raise AssertionError(f"tiny train cli {mode}: {product} "
+                                         f"never launched: {dict(+ran)}")
+            elif +ran:
+                raise AssertionError(f"tiny train cli {mode} on the CPU "
+                                     f"launched kernels: {dict(+ran)}")
+        gpu, cpu = runs["cuda"], runs["cpu"]
+        la = [s["loss"] for s in gpu.steps]
+        lb = [s["loss"] for s in cpu.steps]
+        if len(la) != 2 or any(abs(a - b) > 1e-3 * max(1.0, abs(b))
+                               for a, b in zip(la, lb)):
+            raise AssertionError(f"tiny train cli {mode}: losses {la} vs {lb}")
+        near = tail = 0
+        worst = 0.0
+        # The W8A8 product rounds its activations: a 1e-6 difference before
+        # the round moves one int8 step (the 8-bit evaluate's tolerance,
+        # 2e-2, tests/test_torch_quant_evaluate.py); elsewhere 1e-3.
+        tol = 2e-2 if mode == "8bit" else 1e-3
+        seg = gpu.model.cfg.seg_token_idx
+        for (_, g), (_, c) in zip(gpu.evaluate.calls, cpu.evaluate.calls):
+            # The masks read the hidden state of the first [SEG] alone (a
+            # row without one prompts the decoders with zeros): the tokens
+            # up to it must agree, and whether there is one. Elsewhere a
+            # W8A8 activation rounding one step apart may pick another
+            # token, which changes no output of the validation.
+            for row in range(len(c["output_ids"])):
+                a, b = g["output_ids"][row], c["output_ids"][row]
+                ha = (a[:int(g["gen_lengths"][row])] == seg).nonzero()
+                hb = (b[:int(c["gen_lengths"][row])] == seg).nonzero()
+                upto = int(hb[0]) + 1 if len(hb) else 0
+                if (len(ha) > 0) != (len(hb) > 0) or not torch.equal(
+                        a[:upto], b[:upto]):
+                    raise AssertionError(
+                        f"tiny train cli {mode}: validation tokens differ "
+                        f"up to the first [SEG]: {a.tolist()} vs "
+                        f"{b.tolist()}")
+                tail += int(not torch.equal(a, b))
+            torch.testing.assert_close(g["taxonomies"], c["taxonomies"],
+                                       rtol=tol, atol=tol)
+            worst = max(worst, float((g["taxonomies"]
+                                      - c["taxonomies"]).abs().max()))
+            for key in ("pred_masks_left", "pred_masks_right"):
+                differ = (g[key] > 0) != (c[key] > 0)
+                if (differ & (c[key].abs() >= tol)).any():
+                    raise AssertionError(f"tiny train cli {mode}: {key} "
+                                         "binarizes differently")
+                near += int(differ.sum())
+                worst = max(worst, float((g[key] - c[key]).abs().max()))
+        va = [v[1:3] for v in gpu.validations]
+        vb = [v[1:3] for v in cpu.validations]
+        if len(va) != 2 or (va != vb and not near):
+            raise AssertionError(f"tiny train cli {mode}: validation {va} vs "
+                                 f"{vb}")
+        (sa, ta), (sb, tb) = (saved_trainable(os.path.join(work, "runs",
+                                                           f"{mode}_{d}"))
+                              for d in ("cuda", "cpu"))
+        if sa != sb or set(ta) != set(tb):
+            raise AssertionError(f"tiny train cli {mode}: checkpoints differ")
+        for k, v in tb.items():
+            torch.testing.assert_close(ta[k], v, rtol=1e-3, atol=1e-3)
+        caps, reps, same = check_graphed_after_training(
+            gpu, f"tiny train cli {mode}")
+        if (caps, reps) != (1, 2):
+            raise AssertionError(f"tiny train cli {mode}: {caps} captures, "
+                                 f"{reps} replays")
+        log(f"tiny train cli {mode}: --device cuda vs cpu: losses {la} vs "
+            f"{lb}; validation (IoU, IoCM) {va} vs {vb} (masks and "
+            f"taxonomy max abs err {worst:.3g}; {near} pixels within {tol} "
+            f"of 0 binarize apart; {tail} rows with tokens apart "
+            f"after the first [SEG] or without one); checkpoint step {sa}, "
+            f"{len(ta)} trainable tensors within 1e-3; graph captured at "
+            f"epoch 0 and replayed after a train step equal to eager "
+            f"(bit-identical {same})")
+        del gpu, cpu, runs
+        gc.collect()
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(counts)
+
+
+def qlora_launches(model, remat):
+    """w8a8 launches of one 8-bit QLoRA train step: each quantized layer
+    once in the forward and once more in the remat recompute (the
+    straight-through backward is a plain product, no launch)."""
+    from haff_tpu_torch.nn.layers import QDense
+
+    n = sum(isinstance(m, QDense) and m.quantized for m in model.modules())
+    return n * (2 if remat else 1)
+
+
+def run_train_cli_7b(launches):
+    """The train CLI at the full 7b preset (LoRA r8 on q/v, bf16, remat,
+    batch 2) on a 4-frame 720 x 1280 ReasonSeg folder and a 2-frame
+    benchmark folder, --val_batch_size 2, three runs in-process, each model freed
+    before the next: (1) --epochs 1 --steps_per_epoch 2; (2) --epochs 2
+    under the same --exp_name, which auto-resumes at step 2 and trains
+    epoch 1; (3) --load_in_8bit --epochs 1 --steps_per_epoch 2. Each: finite
+    losses, one validation (IoU, IoCM in [0, 1]), a checkpoint written,
+    exact launches (PER_TRAIN_STEP a step, PER_VALIDATE a validation, and
+    for (3) the w8a8 count derived from the model), none on a scalar path;
+    the loss of run 2's last step under run 1's first; the graphed
+    validation equal to an eager evaluate. Returns the launch counts of
+    runs 1 + 2 and of run 3."""
+    import os
+    import shutil
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "runs", TRAIN_CLI_WORK, "7b")
+    shutil.rmtree(work, ignore_errors=True)
+    data, bench = write_train_data(work, 4, (720, 1280), seed=43)
+    base = data_flags(data, bench) + [
+            "--model_preset", "7b", "--precision", "bf16",
+            "--batch_size", "2", "--grad_accum", "1", "--warmup_steps", "0",
+            "--lr", "3e-4", "--val_batch_size", "2", "--workers", "2",
+            "--print_freq", "1", "--log_base_dir", os.path.join(work, "runs")]
+    plan = (("train", ["--exp_name", "lora", "--epochs", "1",
+                       "--steps_per_epoch", "2"]),
+            ("train", ["--exp_name", "lora", "--epochs", "2",
+                       "--steps_per_epoch", "2"]),
+            ("train_8bit", ["--exp_name", "qlora8", "--epochs", "1",
+                            "--steps_per_epoch", "2", "--load_in_8bit"]))
+    paths = {"train_cli": collections.Counter(),
+             "train_cli_8bit": collections.Counter()}
+    losses, peaks = [], {"train": []}
+    for i, (kind, extra) in enumerate(plan):
+        launches.clear()  # count this run's launches only
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run = run_train_cli(base + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = dict(launches)
+        steps = len(run.steps)
+        if steps != 2 or not all(np.isfinite(s["loss"]) for s in run.steps):
+            raise AssertionError(f"train cli 7b run {i + 1}: steps {run.steps}")
+        if i == 1 and (run.start_step != 2
+                       or [s["step"] for s in run.steps] != [3, 4]):
+            raise AssertionError(f"train cli 7b run 2 did not resume at step 2:"
+                                 f" start {run.start_step}, steps "
+                                 f"{[s['step'] for s in run.steps]}")
+        (epoch, iou, iocm, frames, val_s), = run.validations
+        if not (0 <= iou <= 1 and 0 <= iocm <= 1 and len(frames) == 2):
+            raise AssertionError(f"train cli 7b run {i + 1}: validation "
+                                 f"{run.validations}")
+        step, trained = saved_trainable(os.path.join(work, "runs",
+                                                     extra[1]))
+        if step != run.steps[-1]["step"]:
+            raise AssertionError(f"train cli 7b run {i + 1}: checkpoint at "
+                                 f"step {step}")
+        want = collections.Counter()
+        for name, per in PER_TRAIN_STEP.items():
+            want[name] += per * steps
+        for name, per in PER_VALIDATE.items():
+            want[name] += per
+        if kind == "train_8bit":
+            from haff_tpu_torch.nn.layers import QDense
+
+            quantized = [n for n, m in run.model.named_modules()
+                         if isinstance(m, QDense) and m.quantized]
+            if not quantized or any("lm_head" in n for n in quantized):
+                raise AssertionError(f"train cli 7b 8-bit: quantized "
+                                     f"{len(quantized)} layers, lm_head "
+                                     "among them or none")
+            want["w8a8_matmul"] = (
+                qlora_launches(run.model, remat=True) * steps
+                + product_launches(run.model, "w8a8", VALIDATE_NEW_TOKENS))
+        if {k: v for k, v in got.items() if v} != dict(want):
+            raise AssertionError(f"train cli 7b run {i + 1}: launches {got}, "
+                                 f"expected {dict(want)}")
+        scalar = {k: n for k, n in got.items() if k.endswith("/scalar") and n}
+        if scalar:
+            raise AssertionError(f"train cli 7b run {i + 1}: scalar launches "
+                                 f"{scalar}")
+        paths["train_cli" if kind == "train" else "train_cli_8bit"].update(got)
+        losses += [s["loss"] for s in run.steps] if kind == "train" else []
+        if kind == "train":
+            peaks["train"].append(run.peak_bytes)
+        else:
+            peaks["train_8bit"] = run.peak_bytes
+        extra_check = ""
+        if i == 1:
+            caps, reps, same = check_graphed_after_training(run,
+                                                            "train cli 7b")
+            extra_check = (f"; graphed validation replay = eager (bit-"
+                           f"identical {same})")
+        ck = run.checkpoints[-1]
+        log(f"train cli 7b run {i + 1} ({' '.join(extra)}): step time "
+            f"{[round(s['secs'] * 1e3, 1) for s in run.steps]} ms, losses "
+            f"{[round(s['loss'], 5) for s in run.steps]}; validation "
+            f"{val_s * 1e3:.1f} ms (IoU {iou:.4f}, IoCM {iocm:.4f}, capture "
+            f"call); checkpoint step {step}: host copy "
+            f"{ck['copy_s'] * 1e3:.1f} ms, written after "
+            f"{ck['written_s'] * 1e3:.1f} ms, "
+            f"{sum(t.numel() * 4 for t in trained.values()) / 2**30:.2f} GiB "
+            f"trainable f32; peak memory {run.peak_bytes / 2**30:.2f} GiB; "
+            f"wall {wall:.1f} s (build and data included); launches {got}"
+            f"{extra_check} | {CARD}")
+        del run, trained
+        gc.collect()
+        torch.cuda.empty_cache()
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train cli 7b: loss did not fall {losses}")
+    # The QLoRA run holds the LLM projections in int8 and no float copy of
+    # them (6.4 GiB less than bf16): its peak stays under the bf16 run's.
+    if not peaks["train_8bit"] < min(peaks["train"]):
+        raise AssertionError(f"train cli 7b: QLoRA peak memory {peaks} not "
+                             "under the bf16 runs'")
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(paths["train_cli"]), dict(paths["train_cli_8bit"])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -1951,10 +2390,14 @@ def main():
     check_small_cli()
     check_tiny_train()
     torch.cuda.empty_cache()
+    _build.LAUNCHES.clear()
+    paths_tiny = check_tiny_train_cli()
+    torch.cuda.empty_cache()
 
     # Each path is driven with the counts set to 0 just before it and read
     # just after; each model is freed before the next is built.
-    paths = {"encoder_backward": run_encoder_backward(_build.LAUNCHES)}
+    paths = {"train_cli_tiny": paths_tiny,
+             "encoder_backward": run_encoder_backward(_build.LAUNCHES)}
     gc.collect()
     torch.cuda.empty_cache()
     paths["small"] = check_small(_build.LAUNCHES)
@@ -1972,13 +2415,17 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     paths["train"] = run_train_slice(_build.LAUNCHES)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["train_cli"], paths["train_cli_8bit"] = run_train_cli_7b(
+        _build.LAUNCHES)
     # The bf16 full-width paths run every SAM and flash launch, every w8a8
     # launch and every w4a16 launch on the tensor cores or (w8a8 decode)
     # the streamed skinny kernel: the first skinny kernels and the tile
     # count under /scalar.
     for p in ("encoder_backward", "predictor_vit_b", "evaluate_bf16",
               "evaluate_w8a8", "evaluate_w4a16", "serve_bf16", "stream",
-              "train"):
+              "train", "train_cli", "train_cli_8bit"):
         scalar = {k: n for k, n in paths[p].items() if k.endswith("/scalar") and n}
         if scalar:
             raise AssertionError(f"{p}: launches on the scalar path {scalar}")

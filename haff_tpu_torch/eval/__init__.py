@@ -1,1 +1,2 @@
-"""Evaluation tools of the port."""
+"""Evaluation of the port: metrics, annotation extraction, the
+benchmark evaluator and the overlay tool."""

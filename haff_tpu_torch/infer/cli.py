@@ -12,7 +12,7 @@ the card); host work is PNG IO and the final resize.
 
 Usage: python -m haff_tpu_torch.infer.cli --benchmark_dir B
        [--vis_save_path V] [--model_preset tiny|small|1b|7b|13b]
-       [--checkpoint PARAMS.npz] [--tokenizer PATH] [--batch 8]
+       [--checkpoint PARAMS.npz|CKPT_DIR] [--tokenizer PATH] [--batch 8]
        [--max_new_tokens 32] [--device cuda|cpu]
 """
 
@@ -58,7 +58,8 @@ def main(argv=None):
     p.add_argument("--model_preset", default="7b")
     p.add_argument("--decoder", default="llama", choices=["llama", "mpt"])
     p.add_argument("--checkpoint", default=None,
-                   help="export_params .npz (seeded random init if absent)")
+                   help="export_params .npz or a ckpt_model directory of the "
+                        "train CLI (seeded random init if absent)")
     p.add_argument("--tokenizer", default=None,
                    help="local HF tokenizer path (ByteTokenizer fallback)")
     p.add_argument("--batch", type=int, default=8)

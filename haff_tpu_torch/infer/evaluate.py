@@ -1,6 +1,7 @@
 """The evaluate() API: text + image -> (output tokens, left/right
 affordance masks, taxonomy) (port of haff_tpu/infer/evaluate.py
-`evaluate_fn` and `make_jitted_evaluate`, greedy decode).
+`evaluate_fn`, `make_jitted_evaluate` and `validate_on_benchmark`,
+greedy decode).
 
 Generate with hidden-state capture, gather the first emitted [SEG]'s
 hidden state, project it, prompt both SAM mask decoders with it, and
@@ -12,6 +13,8 @@ evaluate: on a CUDA model the decode loop, one LLaMA forward a token, is
 captured in a CUDA graph once per bucket (batch, prompt length, new
 tokens, cache kind) and replayed on every later call of that bucket; the
 CLIP tower, the prefill, the SAM encoder and the mask decode run eagerly.
+`validate_on_benchmark` scores a benchmark folder with it (the train
+CLI's per-epoch validation).
 """
 
 from __future__ import annotations
@@ -192,3 +195,97 @@ def make_jitted_evaluate(model: LisaModel, max_new_tokens: int, eos_id: int,
     return functools.partial(evaluate_fn, model,
                              max_new_tokens=max_new_tokens, eos_id=eos_id,
                              kv_cache_8bit=kv_cache_8bit)
+
+
+def _resize_nearest(mask, gh: int, gw: int):
+    """Nearest-neighbour binary-mask resample to (gh, gw)."""
+    import cv2
+    import numpy as np
+
+    return cv2.resize(np.asarray(mask, np.uint8), (gw, gh),
+                      interpolation=cv2.INTER_NEAREST)
+
+
+def validate_on_benchmark(model: LisaModel, tok, val_ds, *,
+                          val_batch_size: int = 1,
+                          model_max_length: int = 575,
+                          conv_type: str = "llava_v1",
+                          use_mm_start_end: bool = True,
+                          max_new_tokens: int = 32, evaluate=None):
+    """Reference validate() protocol (train_ds.py:625-758; port of
+    haff_tpu/infer/evaluate.py `validate_on_benchmark`): batched evaluate
+    over a benchmark walker (a short last batch padded by repeating its
+    last sample), taxonomy-argmax mask gating, binarize at 0, union
+    IoU/IoCM per frame; predictions are resized raw to the GT canvas when
+    the benchmark keeps GT at another resolution than the frame
+    (calculate_iou.py:212-234 convention).
+
+    The model's own weights serve, quantized layers included. `evaluate`
+    is a `make_jitted_evaluate(model, max_new_tokens, eos)` to reuse (the
+    train CLI keeps one, so its decode graph is captured once and replayed
+    in later epochs against the updated weights); by default one is made.
+    The model runs in eval mode and returns to the mode it was in.
+    Returns (mean IoU, mean IoCM, per-frame list)."""
+    import cv2
+    import numpy as np
+
+    from ..data.collate import collate_affordance
+    from ..eval.metrics import union_metrics
+    from ..nn.sam import resize_to_original
+
+    cfg = model.cfg
+    ev = evaluate or make_jitted_evaluate(model, max_new_tokens=max_new_tokens,
+                                          eos_id=tok.eos_token_id)
+    ious, iocms, frames = [], [], []
+    VB = max(1, val_batch_size)
+    was_training = model.training
+    model.eval()
+    try:
+        for start in range(0, len(val_ds), VB):
+            samples = [val_ds[i][0] for i in
+                       range(start, min(start + VB, len(val_ds)))]
+            pad = VB - len(samples)
+            vb = collate_affordance(
+                samples + [samples[-1]] * pad, tok,
+                sam_image_size=cfg.sam_encoder.image_size,
+                clip_image_size=cfg.clip.image_size,
+                max_text_len=model_max_length, conv_type=conv_type,
+                use_mm_start_end=use_mm_start_end, for_training=False)
+            res = ev(vb["images_sam"], vb["images_clip"], vb["input_ids"],
+                     vb["attention_mask"])
+            ml_all = res.pred_masks_left.float().cpu().numpy()
+            mr_all = res.pred_masks_right.float().cpu().numpy()
+            tax_all = res.taxonomies.float().cpu().numpy()
+            for i, sample in enumerate(samples):
+                rh, rw = vb["resizes"][i]
+                orig = sample.image.shape[:2]
+                ml = resize_to_original(ml_all[i:i + 1], (rh, rw), orig)[0]
+                mr = resize_to_original(mr_all[i:i + 1], (rh, rw), orig)[0]
+                gl, gr = sample.mask_left, sample.mask_right
+                gh, gw = max(gl.shape, gr.shape, key=lambda s: s[0] * s[1])
+                # A missing hand comes through as an all-zero mask whose
+                # canvas may differ from the other hand's; a real mask at
+                # another resolution is resampled, not discarded.
+                if gl.shape != (gh, gw):
+                    gl = (np.zeros((gh, gw), np.uint8) if not gl.any() else
+                          _resize_nearest(gl, gh, gw))
+                if gr.shape != (gh, gw):
+                    gr = (np.zeros((gh, gw), np.uint8) if not gr.any() else
+                          _resize_nearest(gr, gh, gw))
+                if tuple(orig) != (gh, gw):
+                    ml = cv2.resize(np.asarray(ml, np.float32), (gw, gh))
+                    mr = cv2.resize(np.asarray(mr, np.float32), (gw, gh))
+                tax = int(np.argmax(tax_all[i]))
+                pl_ = (ml > 0).astype(np.uint8)
+                pr_ = (mr > 0).astype(np.uint8)
+                if tax == 0:
+                    pr_[:] = 0
+                elif tax == 1:
+                    pl_[:] = 0
+                m = union_metrics(pl_, pr_, gl, gr)
+                ious.append(m["iou"])
+                iocms.append(m["iocm"])
+                frames.append(dict(iou=m["iou"], iocm=m["iocm"], tax=tax))
+    finally:
+        model.train(was_training)
+    return float(np.mean(ious)), float(np.mean(iocms)), frames

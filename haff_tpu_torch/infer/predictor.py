@@ -32,21 +32,30 @@ def load_model(cfg, precision: str = "bf16", device="cuda",
                checkpoint: Optional[str] = None, load_in_8bit: bool = False,
                load_in_4bit: bool = False):
     """The serving LisaModel on `device`: seeded random weights (its
-    generator), or `checkpoint`, the flat .npz that
+    generator); or `checkpoint`, either the flat .npz that
     haff_tpu/tools/export_params.py writes (loaded through
-    tools/bridge.py). `load_in_8bit` then quantizes the SAM encoder and
-    LLM projections to int8 (W8A8), `load_in_4bit` the LLM projections to
+    tools/bridge.py), or a `ckpt_model` directory (or one step of it) that
+    the port's train CLI wrote (train/checkpoints.py
+    `load_trained_model`: the run's model rebuilt, its trained tensors
+    loaded). `load_in_8bit` then quantizes the SAM encoder and LLM
+    projections to int8 (W8A8), `load_in_4bit` the LLM projections to
     packed int4 (W4A16), in place."""
     from ..model.lisa import LisaModel
 
     dtype = torch.bfloat16 if precision == "bf16" else torch.float32
-    model = LisaModel(cfg, dtype, device=_require_device(device))
-    if checkpoint:
-        if os.path.isdir(checkpoint) or not checkpoint.endswith(".npz"):
+    device = _require_device(device)
+    if checkpoint and os.path.isdir(checkpoint):
+        from ..train.checkpoints import load_trained_model
+
+        model = load_trained_model(checkpoint, cfg, precision, device)
+    else:
+        model = LisaModel(cfg, dtype, device=device)
+    if checkpoint and not os.path.isdir(checkpoint):
+        if not checkpoint.endswith(".npz"):
             raise NotImplementedError(
-                f"{checkpoint}: orbax checkpoints are not ported yet "
-                "(ROADMAP Queue 1 item 5); export the parameters to an "
-                ".npz with haff_tpu/tools/export_params.py")
+                f"{checkpoint}: neither an export .npz nor a checkpoint "
+                "directory of the port's train CLI; export the parameters "
+                "to an .npz with haff_tpu/tools/export_params.py")
         from ..tools.bridge import load_jax_params
 
         load_jax_params(model, checkpoint)

@@ -36,8 +36,14 @@ Two hand-written CUDA kernels run the products on the card:
 
 CPU tensors take the plain versions (`int8_matmul_plain`,
 `int4_matmul_plain`); CUDA tensors launch the kernel, with no fallback
-between the two. Both wrappers are forward-only and raise when grad mode
-is on and an input requires grad.
+between the two. Under autograd (QLoRA: a frozen quantized base under
+trainable adapters) both products pass a straight-through gradient to x,
+JAX's rule (haff_tpu/nn/quant.py `_int8_matmul_ste_bwd`): dx = dy @ the
+dequantized weight, a plain product as in JAX's XLA backward; the
+activation quantization's round and clip are not differentiated, and the
+quantized weight and its scale get no gradient. The W4A16 kernel route
+has no activation rounding, so its straight-through gradient is exact;
+its large-M route is plain `F.linear`, differentiable as it stands.
 """
 
 from __future__ import annotations
@@ -198,13 +204,6 @@ def int4_matmul_dequant(x, packed, scale, group: int, dtype):
 # Products: kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _forward_only(name, *tensors):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name}: the quantized product is forward-only (serving), and "
-            "an input requires grad; run it under torch.no_grad()")
-
-
 def _lib(source, symbol, argtypes):
     fn = getattr(_build.library(source), symbol)
     if fn.argtypes is None:
@@ -319,6 +318,27 @@ def int4_matmul_kernel(x, packed, scale, group: int, dtype):
 # Products: public entry points
 # ---------------------------------------------------------------------------
 
+class _Int8MatmulSTE(torch.autograd.Function):
+    """W8A8 forward (activation quantization and the product, undifferentiated)
+    with the straight-through backward dx = dy @ dequantize_kernel(q, scale)."""
+
+    @staticmethod
+    def forward(ctx, x, q, scale, dtype):
+        ctx.save_for_backward(q, scale)
+        ctx.x_dtype = x.dtype
+        lead, k = x.shape[:-1], x.shape[-1]
+        xq, s_x = quantize_activation(x.reshape(-1, k))
+        run = int8_matmul_kernel if x.is_cuda else int8_matmul_plain
+        y = run(xq, q, s_x[:, 0].contiguous(), scale, dtype)
+        return y.reshape(*lead, q.shape[0])
+
+    @staticmethod
+    def backward(ctx, dy):
+        q, scale = ctx.saved_tensors
+        dx = dy @ dequantize_kernel(q, scale, dy.dtype)
+        return dx.to(ctx.x_dtype), None, None, None
+
+
 def int8_matmul(x, q, scale, dtype=None):
     """W8A8 product: dynamic per-token symmetric activation quantization,
     int8 x int8 -> int32, rescaled by the token's and the channel's scales.
@@ -326,15 +346,28 @@ def int8_matmul(x, q, scale, dtype=None):
     x (..., in) float; q (out, in) int8; scale (out,) float32 (from
     quantize_kernel). Returns (..., out) in `dtype` (default x's). The
     activation quantization is PyTorch ops on both devices; the product
-    and the rescale are the w8a8 kernel on the card."""
-    _forward_only(_W8A8, x, scale)
-    dtype = dtype or x.dtype
-    lead, k = x.shape[:-1], x.shape[-1]
-    xq, s_x = quantize_activation(x.reshape(-1, k))
-    run = int8_matmul_kernel if x.is_cuda else int8_matmul_plain
-    y = run(xq, q.contiguous(), s_x[:, 0].contiguous(),
-            scale.float().contiguous(), dtype)
-    return y.reshape(*lead, q.shape[0])
+    and the rescale are the w8a8 kernel on the card. Differentiable in x
+    by the straight-through rule (module docstring)."""
+    return _Int8MatmulSTE.apply(x, q.contiguous(), scale.float().contiguous(),
+                                dtype or x.dtype)
+
+
+class _Int4MatmulSTE(torch.autograd.Function):
+    """The W4A16 kernel route (x (M, K) in the compute dtype) with the
+    backward dx = dy @ dequantize_kernel_int4(packed, scale)."""
+
+    @staticmethod
+    def forward(ctx, x, packed, scale, group, dtype):
+        ctx.save_for_backward(packed, scale)
+        ctx.group = group
+        run = int4_matmul_kernel if x.is_cuda else int4_matmul_plain
+        return run(x, packed, scale, group, dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        packed, scale = ctx.saved_tensors
+        dx = dy @ dequantize_kernel_int4(packed, scale, ctx.group, dy.dtype)
+        return dx, None, None, None, None
 
 
 def int4_matmul(x, packed, scale, group: int, dtype=None):
@@ -344,15 +377,15 @@ def int4_matmul(x, packed, scale, group: int, dtype=None):
 
     Flattened M <= SMALL_M with group % 16 == 0 (decode): the w4a16 kernel
     on the card, its plain version on the CPU. Larger M (prefill), or a
-    group the kernel does not take: dequantize and torch.matmul on both."""
-    _forward_only(_W4A16, x, scale)
+    group the kernel does not take: dequantize and torch.matmul on both.
+    Differentiable in x (module docstring)."""
     dtype = dtype or x.dtype
     lead, k = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, k)
     if x2.shape[0] <= SMALL_M and group % 16 == 0 and k % group == 0:
-        run = int4_matmul_kernel if x.is_cuda else int4_matmul_plain
-        y = run(x2.to(dtype).contiguous(), packed.contiguous(),
-                scale.contiguous(), group, dtype)
+        y = _Int4MatmulSTE.apply(x2.to(dtype).contiguous(),
+                                 packed.contiguous(), scale.contiguous(),
+                                 group, dtype)
     else:
         y = int4_matmul_dequant(x2, packed, scale, group, dtype)
     return y.reshape(*lead, packed.shape[0])

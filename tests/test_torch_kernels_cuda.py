@@ -540,13 +540,17 @@ def test_decode_kernel_gives_zero_for_a_row_without_live_slots(dev):
 
 
 def test_quantized_wrappers_refuse_grad_and_bad_operands(dev):
+    """The quantized products take grad now (their straight-through
+    backward, `test_quantized_products_under_grad_on_the_card`); decode
+    attention stays forward-only; bad operands raise."""
     x = torch.randn(2, 64, device=dev, requires_grad=True)
     q, s = quant.quantize_kernel(torch.randn(8, 64, device=dev))
-    with pytest.raises(RuntimeError):
-        quant.int8_matmul(x, q, s)
+    quant.int8_matmul(x, q, s).sum().backward()
+    assert x.grad is not None and torch.isfinite(x.grad).all()
     packed, s4 = quant.quantize_kernel_int4(torch.randn(8, 64, device=dev), 16)
-    with pytest.raises(RuntimeError):
-        quant.int4_matmul(x, packed, s4, 16)
+    x.grad = None
+    quant.int4_matmul(x, packed, s4, 16).sum().backward()
+    assert x.grad is not None and torch.isfinite(x.grad).all()
     kv = torch.randn(2, 5, 2, 32, device=dev)
     with pytest.raises(RuntimeError):
         da.flash_decode_attention(torch.randn(2, 2, 32, device=dev,
@@ -560,6 +564,46 @@ def test_quantized_wrappers_refuse_grad_and_bad_operands(dev):
                                       torch.randn(2, 5, 2, 256, device=dev),
                                       torch.randn(2, 5, 2, 256, device=dev),
                                       torch.ones(2, 5, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bits,m", [(8, 2), (8, 1150), (4, 2), (4, 256),
+                                    (4, 600)])
+def test_quantized_products_under_grad_on_the_card(dev, dtype, bits, m):
+    """The straight-through backward on the card: the kernel route's
+    output and dx (W8A8: the tensor-core path at M > 16, the skinny one at
+    decode M; W4A16: the kernel at M <= 256, the dequantize route above)
+    against the same product on the CPU (plain versions) from the same
+    values, q and scale without gradient."""
+    g = torch.Generator().manual_seed(bits * m)
+    k, n = 4096, 256
+    w = torch.randn(n, k, generator=g) / 64
+    x = torch.randn(m, k, generator=g).to(dtype)
+    dy = torch.randn(m, n, generator=g).to(dtype)
+    if bits == 8:
+        q, s = quant.quantize_kernel(w)
+        fn = lambda t, q, s: quant.int8_matmul(t, q, s)  # noqa: E731
+    else:
+        q, s = quant.quantize_kernel_int4(w, 64)
+        fn = lambda t, q, s: quant.int4_matmul(t, q, s, 64)  # noqa: E731
+    out = {}
+    for where in ("cpu", dev):
+        xt = x.to(where).detach().clone().requires_grad_()
+        before = dict(_build.LAUNCHES)
+        y = fn(xt, q.to(where), s.to(where))
+        y.backward(dy.to(where))
+        launched = {kk: v - before.get(kk, 0) for kk, v in
+                    _build.LAUNCHES.items() if v != before.get(kk, 0)}
+        out[str(where)] = (y.detach().cpu(), xt.grad.cpu(), launched)
+    (y_c, dx_c, none), (y_g, dx_g, ran) = out["cpu"], out[str(dev)]
+    assert not none
+    product = "w8a8_matmul" if bits == 8 else "w4a16_matmul"
+    assert ran.get(product, 0) == (0 if bits == 4 and m > 256 else 1)
+    assert not any(kk.endswith("/scalar") for kk in ran) or dtype != \
+        torch.bfloat16
+    _close(y_g, y_c)
+    _close(dx_g, dx_c)
+    assert dx_g.dtype == dtype
 
 
 @pytest.mark.parametrize("bits,group", [(8, 64), (4, 16)])

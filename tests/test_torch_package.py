@@ -59,8 +59,31 @@ def test_the_walk_covers_every_module_of_the_port():
                 "haff_tpu_torch/infer/cli.py",
                 "haff_tpu_torch/infer/chat.py",
                 "haff_tpu_torch/infer/app.py",
-                "haff_tpu_torch/infer/robot_demo.py", "chip_smoke.py"):
+                "haff_tpu_torch/infer/robot_demo.py",
+                "haff_tpu_torch/eval/metrics.py",
+                "haff_tpu_torch/eval/annotations.py",
+                "haff_tpu_torch/eval/benchmark.py",
+                "haff_tpu_torch/data/loader.py",
+                "haff_tpu_torch/data/seg_datasets.py",
+                "haff_tpu_torch/data/extra_datasets.py",
+                "haff_tpu_torch/tools/convert_weights.py",
+                "haff_tpu_torch/train/metrics.py",
+                "haff_tpu_torch/train/checkpoints.py",
+                "haff_tpu_torch/train/cli.py", "chip_smoke.py"):
         assert rel in names, rel
+
+
+def test_train_cli_defaults_to_the_card(tmp_path):
+    """The train CLI runs on the card unless asked for the CPU: without
+    --device and with no card it raises before touching any data."""
+    from haff_tpu_torch.train import cli
+
+    assert cli.parse_args(["--dataset_dir", "d"]).device == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["--dataset_dir", str(tmp_path / "none"),
+                      "--model_preset", "tiny",
+                      "--log_base_dir", str(tmp_path / "runs")])
 
 
 def test_model_defaults_to_the_card():

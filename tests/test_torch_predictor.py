@@ -86,7 +86,9 @@ def test_jitted_evaluate_on_the_cpu_is_evaluate_fn(port_pred):
 
 
 def test_checkpoint_directory_and_speculative_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    # A directory holding no checkpoint of the port's train CLI (an orbax
+    # one, say) raises; a port checkpoint loads (test_torch_train_cli.py).
+    with pytest.raises(NotImplementedError, match="orbax checkpoints are not"):
         Predictor(**KW, checkpoint=str(tmp_path), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         Predictor(**KW, speculative=True, device="cpu")

@@ -349,20 +349,41 @@ def test_quantize_model_in_place_selects_what_jax_selects(bits, name):
         tq.quantize_model_(model, getattr(tq, name), bits=3)
 
 
-# ----- wrappers: forward only, CPU tensors never reach a kernel -----
+# ----- wrappers: straight-through under grad, CPU tensors never reach a
+# kernel -----
 
 def test_wrappers_raise_under_grad():
-    x = torch.randn(2, 64, requires_grad=True)
-    q, s = tq.quantize_kernel(torch.randn(8, 64))
-    p, s4 = tq.quantize_kernel_int4(torch.randn(8, 64), 16)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        tq.int8_matmul(x, q, s)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        tq.int4_matmul(x, p, s4, 16)
+    """Under grad the products no longer raise: dx is JAX's straight-through
+    gradient (jax.grad of haff_tpu int8_matmul; of int4_matmul's XLA route)
+    within 1e-5 at float32, at a decode M (the kernel routes) and at a
+    prefill M (int4's dequantize route); q and scale get none; no-grad
+    outputs are the same values and CPU tensors launch nothing."""
+    import jax
+
+    rng = np.random.default_rng(11)
+    w = _weight(rng, 64, 8)
+    q, s = tq.quantize_kernel(_t(w.T))
+    p, s4 = tq.quantize_kernel_int4(_t(w.T), 16)
+    jqk, jqs = jq.quantize_kernel(jnp.asarray(w))
+    jp, js4 = jq.quantize_kernel_int4(jnp.asarray(w), 16)
     before = dict(_build.LAUNCHES)
-    with torch.no_grad():
-        assert tq.int8_matmul(x, q, s).shape == (2, 8)
-        assert tq.int4_matmul(x, p, s4, 16).shape == (2, 8)
+    for m in (2, 300):
+        xn = rng.standard_normal((m, 64)).astype(np.float32)
+        gn = rng.standard_normal((m, 8)).astype(np.float32)
+        for port, ref in (
+                (lambda x: tq.int8_matmul(x, q, s),
+                 lambda x: jq.int8_matmul(x, jqk, jqs)),
+                (lambda x: tq.int4_matmul(x, p, s4, 16),
+                 lambda x: jq.int4_matmul(x, jp, js4, 16))):
+            x = _t(xn).requires_grad_()
+            y = port(x)
+            (y * _t(gn)).sum().backward()
+            want = jax.grad(lambda a: (ref(a) * gn).sum())(jnp.asarray(xn))
+            np.testing.assert_allclose(x.grad.numpy(), np.asarray(want), **F32)
+            with torch.no_grad():
+                assert torch.equal(port(_t(xn)), y.detach())
+    for t in (q, s, p, s4):
+        assert t.grad is None
     assert dict(_build.LAUNCHES) == before  # CPU tensors: plain versions
 
 
