@@ -18,7 +18,11 @@ Phases (any failure raises and exits non-zero):
    records and each w8a8 and w4a16 shape also name the kernel path the
    wrapper chose (`path`: wgmma, mma.sync, mma, skinny or scalar; the
    w4a16 shapes also time torch.matmul on the dequantized bf16 weight,
-   `bf16_graph_ms`); every record but
+   `bf16_graph_ms`). Among the shapes: the flash forward with MPT-7B's
+   ALiBi column bias (2, 575, 32, 128), the decode kernel's ALiBi variant
+   (per-head slopes) over the bf16 and int8 caches, and the w8a8 product
+   at MPT-7B's shapes (Wqkv N = 12288, up N = 16384, down K = 16384; M =
+   2 and 1150) and at a speculative verify step's M = 16; every record but
    the probe's times the kernel and its library yardstick once more as
    CUDA graphs (`graph_ms`, `library_graph_ms`: device time without the
    host's launch cost).
@@ -31,6 +35,15 @@ Phases (any failure raises and exits non-zero):
    against the same weights on the CPU (plain versions), three times:
    float weights, int8 weights with the int8 KV cache, and packed-int4
    weights at group 16: identical tokens, masks and taxonomy within 1e-3.
+4c. spec small: speculative decode at the small preset with the trained
+   weights in float32, three modes (float, W8A8 LLM + int8 cache, W4A16),
+   the verify step captured in a CUDA graph on the card, against the CPU
+   and against greedy on both: junk, oracle and template corpora and an
+   EOS inside an accepted chunk; tokens, lengths and decode steps
+   identical, masks within 1e-3, the oracle in <= ceil(T / D) + 1 steps.
+4d. mpt tiny: the MPT decoder at tiny in float32, card (eager and
+   graphed) against CPU, float and int8 cache: identical tokens, masks
+   within 1e-4, every decode launch on the ALiBi variant.
 4b. tiny serving: the Predictor (three calls: the decode graph's capture
    and two replays), one HTTP answer through the MicroBatcher and the
    handler, and StreamingPipeline (5 frames, chunks of 2) at tiny in
@@ -70,6 +83,21 @@ Phases (any failure raises and exits non-zero):
    and taxonomy within one bf16 ulp (printed: bit-identical or not), the
    same launches per call as eager and none on a scalar path; prints
    eager and graphed latency and profiles one replayed call.
+7c. speculative (evaluate_spec_bf16, evaluate_spec_w8a8): on the bf16 and
+   the w8a8 model, make_jitted_evaluate(draft_corpus=...) with 8 tokens a
+   verify step, one verify step captured in a CUDA graph and replayed
+   while a row is live; the oracle corpus (greedy's tokens) and the
+   ByteTokenizer answer templates, a capture call and two replays each:
+   launches exactly as derived from the decode steps, the tokens equal to
+   greedy's or parting only where greedy's top-2 logit gap is within 2^-6
+   of the top logit; latency beside greedy's, steps, tokens a step, one
+   profiled replayed call.
+7d. MPT-7B (evaluate_mpt_bf16, evaluate_mpt_w8a8): ModelConfig("7b") with
+   decoder="mpt", bf16 and W8A8 + int8 cache, each model freed before the
+   next: as phase 6-7 (eager and graphed), the prefill's flash launches
+   with the ALiBi bias, 480 decode launches an evaluate all on the ALiBi
+   variant (`decode_attn/alibi`), the w8a8 count derived from the model;
+   weight bytes and peak memory.
 7b. serve_bf16 and stream: a 7b bf16 Predictor (seeded weights, 16 new
    tokens, prompt 320) behind MicroBatcher(batch_size=2) and the HTTP
    handler on 127.0.0.1: four concurrent POST /predict with seeded
@@ -117,9 +145,9 @@ Phases (any failure raises and exits non-zero):
 10. audit and bench: tools/kernel_audit.py in-process (every check must
    pass) and tools/bench_kernels.py int8probe.
 
-The bf16 full-width paths (evaluate in three modes, serve_bf16, stream,
-train, train_cli, train_cli_8bit, the ViT-B predictor, the encoder
-backward) must run every SAM,
+The bf16 full-width paths (evaluate in three modes, speculative in two,
+MPT in two, serve_bf16, stream, train, train_cli, train_cli_8bit, the
+ViT-B predictor, the encoder backward) must run every SAM,
 flash forward, dq and dk/dv launch on the tensor cores, and every w8a8
 launch on the tensor cores (M > 16) or the streamed skinny kernel
 (decode), and every w4a16 launch on the tensor cores: no `<key>/scalar`
@@ -166,15 +194,19 @@ PER_ENCODER_BACKWARD = {"sam_window_relpos_attn": 56,
                         "sam_global_relpos_attn": 8}
 # The paths each kernel is expected on; the first is the one whose count
 # the kernels line reports as `launches`.
+# The 7b evaluate paths of this slice's speculative decode and MPT decoder.
+SPEC_MPT_7B = ("evaluate_spec_bf16", "evaluate_spec_w8a8",
+               "evaluate_mpt_bf16", "evaluate_mpt_w8a8")
 EXPECTED_ON = {
     "sam_window_relpos_attn": ("evaluate_bf16", "evaluate_w8a8",
                                "evaluate_w4a16", "train", "encoder_backward",
                                "serve_bf16", "stream", "train_cli",
-                               "train_cli_8bit"),
+                               "train_cli_8bit") + SPEC_MPT_7B,
     "sam_global_relpos_attn": ("evaluate_bf16", "evaluate_w8a8",
                                "evaluate_w4a16", "train", "encoder_backward",
                                "predictor_vit_b", "small", "serve_bf16",
-                               "stream", "train_cli", "train_cli_8bit"),
+                               "stream", "train_cli", "train_cli_8bit")
+                              + SPEC_MPT_7B,
     # The split window entry at the geometries of the TPU head-loop kernel
     # (counted under the split entry's key, on the paths that run it there).
     "sam_window_relpos_attn/vit_b": ("predictor_vit_b", "small"),
@@ -184,16 +216,19 @@ EXPECTED_ON = {
     "matmul_probe": ("bench",),
     "flash_prefill_fwd": ("evaluate_bf16", "evaluate_w8a8", "evaluate_w4a16",
                           "train", "serve_bf16", "stream", "train_cli",
-                          "train_cli_8bit"),
+                          "train_cli_8bit", "spec_small", "mpt_tiny")
+                         + SPEC_MPT_7B,
     "flash_bwd_dq": ("train", "train_cli", "train_cli_8bit"),
     "flash_bwd_dkv": ("train", "train_cli", "train_cli_8bit"),
     "decode_attn": ("evaluate_w8a8", "evaluate_bf16", "evaluate_w4a16",
-                    "serve_bf16", "stream", "train_cli", "train_cli_8bit"),
+                    "serve_bf16", "stream", "train_cli", "train_cli_8bit",
+                    "evaluate_mpt_bf16", "evaluate_mpt_w8a8", "mpt_tiny"),
     # train_cli_8bit: the QLoRA train step (tensor-core path, under grad)
     # and its validation's decode (skinny path); train_cli_tiny: the tiny
     # card-vs-CPU CLI runs (float32: w4a16 on its scalar kernel).
-    "w8a8_matmul": ("evaluate_w8a8", "train_cli_8bit", "train_cli_tiny"),
-    "w4a16_matmul": ("evaluate_w4a16", "train_cli_tiny"),
+    "w8a8_matmul": ("evaluate_w8a8", "train_cli_8bit", "train_cli_tiny",
+                    "evaluate_spec_w8a8", "evaluate_mpt_w8a8", "spec_small"),
+    "w4a16_matmul": ("evaluate_w4a16", "train_cli_tiny", "spec_small"),
 }
 
 
@@ -277,52 +312,75 @@ def within_bf16(name, got, ref):
 
 
 def check_flash(gen):
+    """The flash forward at LLaMA-7B's prefill (2 requests: prompt 320 +
+    256 image tokens - 1, causal, row 1 100 tokens short, so its pad
+    queries are fully-masked rows), then at MPT-7B's: the same shape with
+    the ALiBi column bias (1, 32, 1, 575) as the bias operand, read
+    through strides, up to 0.84 x 574 = 482 in magnitude. Library: SDPA
+    with a bool mask, and with the bias and mask as one bf16 float mask
+    (SDPA takes no float32 mask with bf16 operands). The record's numbers
+    are the LLaMA shape's."""
     from haff_tpu_torch.kernels import flash_attention as fa
+    from haff_tpu_torch.nn.mpt import alibi_column_bias
 
-    # LLaMA-7B prefill of 2 requests: prompt 320 + 256 image tokens - 1.
     b, l, h, d = 2, 575, 32, 128
     dev, bf = "cuda", torch.bfloat16
     q, k, v = (torch.randn(b, l, h, d, generator=gen, device=dev).to(bf)
                for _ in range(3))
-    # Right padding: row 1 is 100 tokens short (more than a 64-row tile);
-    # its pad queries are fully-masked rows.
     lengths = torch.tensor([l, l - 100], device=dev)
     seg = (torch.arange(l, device=dev)[None] < lengths[:, None]).to(torch.int32)
     path = fa.PATH_NAMES[fa.kernel_path(q, k, v)]
     if path != "wgmma":
         raise AssertionError(f"flash_prefill_fwd: bf16 phase-3 operands on "
                              f"the {path} path")
-    out, lse = fa.flash_prefill_kernel(q, k, v, None, seg, seg, True)
-    ref, ref_lse = fa.attention_plain(q.float(), k.float(), v.float(), None,
-                                      seg, seg, True)
-    err = within_bf16("flash_prefill_fwd", out, ref)
-    lse_err = float((lse - ref_lse).abs().max())
-    if not lse_err <= 1e-3:  # both float32: summation order only
-        raise AssertionError(f"flash_prefill_fwd: lse max abs err {lse_err}")
-    if out[1, l - 100:].abs().max() != 0 or lse[1, :, l - 100:].abs().max() != 0:
-        raise AssertionError("flash_prefill_fwd: fully-masked rows not zero")
-    run = lambda: fa.flash_prefill_kernel(q, k, v, None, seg, seg, True)  # noqa: E731
-    kern, kern_graph = cuda_ms(run, 20), graph_ms(run, 20)
-    plain = cuda_ms(lambda: fa.attention_plain(q, k, v, None, seg, seg, True),
-                    10)
     causal = torch.ones(l, l, dtype=torch.bool, device=dev).tril()
     mask = (causal[None] & (seg[:, :, None] == seg[:, None, :])
             & (seg[:, None, :] != 0))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, attn_mask=mask[:, None])
-    lib, lib_graph = cuda_ms(sdpa, 20), graph_ms(sdpa, 20)
-    pairs = int(mask.sum())  # visible (query, key) pairs of this input
-    flops = 4 * d * h * pairs
-    b_ms, by = bound_ms(nbytes(q, k, v, seg, seg, out, lse), flops)
-    return dict(name="flash_prefill_fwd", route="cuda",
-                source="haff_tpu_torch/kernels/csrc/flash_prefill.cu",
-                replaces="haff_tpu/kernels/flash_attention.py:105",
-                shape=f"q/k/v {tuple(q.shape)} bf16 causal, lengths "
-                      f"{lengths.tolist()}", path=path,
-                max_abs_err=err, ms=kern, plain_ms=plain, bound_ms=b_ms,
-                bound_by=by, library_ms=lib, graph_ms=kern_graph,
-                library_graph_ms=lib_graph)
+    shapes = []
+    for what, bias in (("LLaMA prefill", None),
+                       ("MPT prefill, ALiBi bias",
+                        alibi_column_bias(h, l, device=dev))):
+        out, lse = fa.flash_prefill_kernel(q, k, v, bias, seg, seg, True)
+        ref, ref_lse = fa.attention_plain(q.float(), k.float(), v.float(),
+                                          bias, seg, seg, True)
+        err = within_bf16(f"flash_prefill_fwd {what}", out, ref)
+        lse_err = float((lse - ref_lse).abs().max())
+        if not lse_err <= 1e-3:  # both float32: summation order only
+            raise AssertionError(f"flash_prefill_fwd {what}: lse max abs err "
+                                 f"{lse_err}")
+        if (out[1, l - 100:].abs().max() != 0
+                or lse[1, :, l - 100:].abs().max() != 0):
+            raise AssertionError(f"flash_prefill_fwd {what}: fully-masked "
+                                 "rows not zero")
+        run = lambda: fa.flash_prefill_kernel(  # noqa: E731
+            q, k, v, bias, seg, seg, True)
+        kern, kern_graph = cuda_ms(run, 20), graph_ms(run, 20)
+        plain = cuda_ms(lambda: fa.attention_plain(q, k, v, bias, seg, seg,
+                                                   True), 10)
+        if bias is None:
+            attn_mask = mask[:, None]
+        else:
+            attn_mask = torch.where(mask[:, None], bias, -torch.inf).to(bf)
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=attn_mask)
+        lib, lib_graph = cuda_ms(sdpa, 20), graph_ms(sdpa, 20)
+        pairs = int(mask.sum())  # visible (query, key) pairs of this input
+        flops = 4 * d * h * pairs
+        extra = () if bias is None else (bias,)
+        b_ms, by = bound_ms(nbytes(q, k, v, seg, seg, out, lse, *extra), flops)
+        shapes.append(dict(
+            what=what, shape=f"q/k/v {tuple(q.shape)} bf16 causal, lengths "
+            f"{lengths.tolist()}" + ("" if bias is None else
+                                     f", bias {tuple(bias.shape)} f32 max "
+                                     f"{float(bias.max()):.1f}"),
+            path=path, max_abs_err=err, ms=kern, plain_ms=plain,
+            bound_ms=b_ms, bound_by=by, library_ms=lib, graph_ms=kern_graph,
+            library_graph_ms=lib_graph))
+        del attn_mask
+    return record("flash_prefill_fwd",
+                  "haff_tpu_torch/kernels/csrc/flash_prefill.cu",
+                  "haff_tpu/kernels/flash_attention.py:105", shapes)
 
 
 def check_flash_bwd(gen):
@@ -450,7 +508,18 @@ def check_w8a8(gen):
                           ("decode down", 2, 11008, 4096),
                           ("decode lm_head", 2, 4096, 32004),
                           ("decode M=16", 16, 4096, 4096),
-                          ("decode odd K", 2, 4100, 4096)):
+                          ("decode odd K", 2, 4100, 4096),
+                          # A speculative verify step: batch 2 x 8 drafts.
+                          ("verify M=16 gate/up", 16, 4096, 11008),
+                          ("verify M=16 down", 16, 11008, 4096),
+                          ("verify M=16 lm_head", 16, 4096, 32004),
+                          # MPT-7B: fused Wqkv, up and down at expansion 4.
+                          ("MPT Wqkv prefill", 1150, 4096, 12288),
+                          ("MPT up prefill", 1150, 4096, 16384),
+                          ("MPT down prefill", 1150, 16384, 4096),
+                          ("MPT Wqkv decode", 2, 4096, 12288),
+                          ("MPT up decode", 2, 4096, 16384),
+                          ("MPT down decode", 2, 16384, 4096)):
         x = torch.randn(m, k, generator=gen, device=dev).to(bf)
         w = torch.randn(n, k, generator=gen, device=dev) * k ** -0.5
         q, sw = quant.quantize_kernel(w)
@@ -585,14 +654,19 @@ def check_decode(gen):
     """Decode attention at LLaMA-7B's shape with 591 cache slots (575
     spliced + 16 new), an int8 and a bf16 cache, ragged live lengths: row
     0 nearly full, row 1 a single live slot; and both rows nearly full
-    over the int8 cache. The bound counts the live slots only. Library:
-    SDPA over the dequantized cache laid out (B, nh, L, hd) with a boolean
-    key mask, prepared outside the timed call. Kernel and library are
-    also timed as CUDA graphs; each shape names the split the kernel ran
-    (`decode_plan`: splits, slots a split). The record's numbers are the
-    first shape's."""
+    over the int8 cache; then MPT-7B's decode step, the kernel's ALiBi
+    variant (32 per-head slopes: slot j's score gains slope_h * j) over
+    the bf16 and the int8 cache. The bound counts the live slots only.
+    Library: SDPA over the dequantized cache laid out (B, nh, L, hd) with
+    a boolean key mask (with the slopes: the ALiBi columns and the mask
+    as one bf16 float mask), prepared outside the timed call. Kernel and
+    library are also timed as CUDA graphs; each shape names the split the
+    kernel ran (`decode_plan`: splits, slots a split). The record's
+    numbers are the first shape's."""
+    from haff_tpu_torch.kernels import _build
     from haff_tpu_torch.kernels import decode_attention as da
     from haff_tpu_torch.nn import quant
+    from haff_tpu_torch.nn.mpt import alibi_slopes
 
     b, lmax, nh, hd = 2, 591, 32, 128
     dev, bf = "cuda", torch.bfloat16
@@ -603,8 +677,12 @@ def check_decode(gen):
     kf = 0.5 * torch.randn(b, lmax, nh, hd, generator=gen, device=dev)
     vf = torch.randn(b, lmax, nh, hd, generator=gen, device=dev)
     shapes = []
-    for kind, lengths in (("int8", (590, 1)), ("bf16", (590, 1)),
-                          ("int8", (590, 590))):
+    slopes = alibi_slopes(nh, device=dev)
+    for kind, lengths, alibi in (("int8", (590, 1), None),
+                                 ("bf16", (590, 1), None),
+                                 ("int8", (590, 590), None),
+                                 ("bf16", (590, 1), slopes),
+                                 ("int8", (590, 1), slopes)):
         if kind == "int8":
             k, v = quant.quantize_activation(kf), quant.quantize_activation(vf)
             per_slot = 2 * nh * (hd + 4)
@@ -614,23 +692,37 @@ def check_decode(gen):
         mask = (torch.arange(lmax, device=dev)[None]
                 < torch.tensor(lengths, device=dev)[:, None]).to(torch.int32)
         scale = hd ** -0.5
-        out = da.decode_attention_kernel(q, k, v, mask, scale)
-        ref = da.decode_attention_plain(q.float(), k, v, mask, scale)
-        err = within_bf16(f"decode_attn {kind}", out, ref)
-        run = lambda: da.decode_attention_kernel(q, k, v, mask, scale)  # noqa: E731
+        variant = "" if alibi is None else ", ALiBi slopes"
+        alibi_before = _build.LAUNCHES["decode_attn/alibi"]
+        out = da.decode_attention_kernel(q, k, v, mask, scale, slopes=alibi)
+        if (_build.LAUNCHES["decode_attn/alibi"] - alibi_before
+                != (alibi is not None)):
+            raise AssertionError("decode_attn: the /alibi count does not "
+                                 "match the variant")
+        ref = da.decode_attention_plain(q.float(), k, v, mask, scale,
+                                        slopes=alibi)
+        err = within_bf16(f"decode_attn {kind}{variant}", out, ref)
+        run = lambda: da.decode_attention_kernel(  # noqa: E731
+            q, k, v, mask, scale, slopes=alibi)
         kern, kern_graph = cuda_ms(run, 50), graph_ms(run, 50)
-        plain = cuda_ms(lambda: da.decode_attention_plain(q, k, v, mask,
-                                                          scale), 10)
+        plain = cuda_ms(lambda: da.decode_attention_plain(
+            q, k, v, mask, scale, slopes=alibi), 10)
         kd, vd = (da.dequantize_cache(c).to(bf).transpose(1, 2) for c in (k, v))
         key_mask = (mask > 0)[:, None, None, :]
+        if alibi is not None:
+            key_mask = torch.where(
+                key_mask, da.alibi_columns(alibi, lmax, dev)[None, :, None],
+                -torch.inf).to(bf)
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
             q[:, :, None], kd, vd, attn_mask=key_mask, scale=scale)
         lib, lib_graph = cuda_ms(sdpa, 50), graph_ms(sdpa, 50)
         live = int(mask.sum())
-        b_ms, by = bound_ms(live * per_slot + nbytes(q, mask, out),
+        b_ms, by = bound_ms(live * per_slot + nbytes(q, mask, out)
+                            + (0 if alibi is None else nbytes(alibi)),
                             4.0 * hd * nh * live)
         shapes.append(dict(shape=f"q {tuple(q.shape)} bf16, {kind} cache "
-                           f"{(b, lmax, nh, hd)}, live {list(lengths)}",
+                           f"{(b, lmax, nh, hd)}, live {list(lengths)}"
+                           f"{variant}",
                            plan=list(da.decode_plan(b, nh, nh, lmax)),
                            max_abs_err=err, ms=kern, plain_ms=plain,
                            bound_ms=b_ms, bound_by=by, library_ms=lib,
@@ -1270,6 +1362,154 @@ def check_tiny_against_cpu(mode="bf16"):
         f"{worst:.3g}; launches {ran}")
 
 
+def check_spec_small(launches):
+    """Speculative decode at the small preset with the trained weights of
+    artifacts/overfit_small_params.npz, float32, in three weight modes
+    (float; W8A8 on the LLM's projections + the int8 cache; W4A16 at group
+    16, float32 so on its scalar kernel): on the card through make_jitted_evaluate (one verify
+    step captured in a CUDA graph, a capture call and a replayed call)
+    and on the CPU through evaluate_fn, against greedy on each device.
+    Corpora: junk (seeded random ids), the oracle (greedy's own tokens),
+    the answer templates (what the trained model emits), and the oracle
+    with EOS set to a token row 0 emits at its third step (an EOS inside
+    an accepted chunk). Tokens, lengths and decode steps identical card
+    against CPU and speculative against greedy; masks and taxonomy within
+    1e-3; the oracle in at most ceil(T / D) + 1 steps. The SAM encoder
+    stays float in the W8A8 mode: speculation never reaches it, and its
+    own W8A8 card-against-CPU difference (an activation one int8 step
+    apart moves mask logits by up to ~0.35 at small) would hide the
+    decoder's. Returns the card's launch counts."""
+    import os
+
+    from haff_tpu_torch.core.config import ModelConfig
+    from haff_tpu_torch.data.tokenizer import ByteTokenizer
+    from haff_tpu_torch.infer.evaluate import evaluate_fn, make_jitted_evaluate
+    from haff_tpu_torch.infer.generate import answer_template_corpus
+    from haff_tpu_torch.model.lisa import LisaModel
+    from haff_tpu_torch.nn import quant
+    from haff_tpu_torch.tools.bridge import load_jax_params
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "artifacts", "overfit_small_params.npz")
+    cfg = ModelConfig.preset("small")
+    T, D = 12, 4
+    req = make_requests(cfg, 2, 24, seed=3)
+    req[3][1, 20:] = 0
+    junk = np.random.RandomState(4).randint(5, 300, (2, 20))
+    template = answer_template_corpus(ByteTokenizer())
+    launches.clear()
+    for mode in ("float", "w8a8", "w4a16"):
+        models = {}
+        for dev in ("cuda", "cpu"):
+            m = load_jax_params(LisaModel(cfg, torch.float32, device=dev), path)
+            if mode != "float":
+                quant.quantize_model_(m, quant.default_llm_predicate,
+                                      bits=8 if mode == "w8a8" else 4,
+                                      group=16)
+            models[dev] = m
+        kv8 = mode == "w8a8"
+        greedy = {dev: evaluate_fn(m, *req, T, 2, kv_cache_8bit=kv8)
+                  for dev, m in models.items()}
+        tokens = greedy["cpu"].output_ids
+        eos_mid = int(tokens[0, 2])
+        oracle = torch.cat([torch.full((2, 1), -1), tokens], dim=1)
+        cases = (("junk", 2, junk, None), ("oracle", 2, oracle, None),
+                 ("template", 2, *template), ("eos mid-chunk", eos_mid,
+                                              oracle, None))
+        summary = []
+        for name, eos, corpus, lens in cases:
+            kw = dict(kv_cache_8bit=kv8, draft_corpus=corpus,
+                      corpus_lengths=lens, draft_len=D)
+            ev = make_jitted_evaluate(models["cuda"], T, eos, **kw)
+            if eos == 2:
+                plain = greedy
+            else:
+                plain = {dev: evaluate_fn(m, *req, T, eos, kv_cache_8bit=kv8)
+                         for dev, m in models.items()}
+            ref = evaluate_fn(models["cpu"], *req, T, eos, **kw)
+            for call in range(2):  # the capture call, then a replay
+                got = ev(*req)
+                for other, what in ((ref, "the CPU's speculative"),
+                                    (plain["cuda"], "the card's greedy"),
+                                    (plain["cpu"], "the CPU's greedy")):
+                    if not (torch.equal(got.output_ids.cpu(),
+                                        other.output_ids.cpu())
+                            and torch.equal(got.gen_lengths.cpu(),
+                                            other.gen_lengths.cpu())):
+                        raise AssertionError(
+                            f"spec small {mode} {name} call {call}: tokens "
+                            f"{got.output_ids.tolist()} vs {what} "
+                            f"{other.output_ids.tolist()}")
+                    for key in ("pred_masks_left", "pred_masks_right",
+                                "taxonomies"):
+                        torch.testing.assert_close(
+                            getattr(got, key).cpu(), getattr(other, key).cpu(),
+                            rtol=1e-3, atol=1e-3)
+                if int(got.decode_steps) != int(ref.decode_steps):
+                    raise AssertionError(
+                        f"spec small {mode} {name}: {int(got.decode_steps)} "
+                        f"decode steps on the card, {int(ref.decode_steps)} "
+                        "on the CPU")
+            steps = int(got.decode_steps)
+            if name == "oracle" and steps > -(-T // D) + 1:
+                raise AssertionError(f"spec small {mode}: the oracle corpus "
+                                     f"took {steps} steps")
+            if name == "eos mid-chunk" and int(got.gen_lengths[0]) > 3:
+                raise AssertionError(f"spec small {mode}: row 0 ran past EOS")
+            summary.append(f"{name} {steps} steps")
+        log(f"spec small {mode}: card (graphed verify, f32) = CPU = greedy "
+            f"in tokens and lengths, masks/taxonomy within 1e-3; greedy "
+            f"tokens {tokens.tolist()}; {', '.join(summary)}")
+    return dict(launches)
+
+
+def check_mpt_tiny(launches):
+    """The MPT decoder at tiny in float32, card against CPU from the same
+    weights, with a float and an int8 cache: evaluate_fn, and on the card
+    also make_jitted_evaluate (a capture call and a replay): identical
+    tokens, masks and taxonomy within 1e-4; every decode step on the
+    decode kernel's ALiBi variant. Returns the card's launch counts."""
+    from haff_tpu_torch.core.config import ModelConfig
+    from haff_tpu_torch.infer.evaluate import evaluate_fn, make_jitted_evaluate
+    from haff_tpu_torch.model.lisa import LisaModel
+
+    cfg = ModelConfig.preset("tiny").replace(decoder="mpt")
+    gpu = LisaModel(cfg, torch.float32, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(1))
+    cpu = LisaModel(cfg, torch.float32, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    req = make_requests(cfg, 2, 24, seed=3)
+    req[3][1, 20:] = 0
+    T = 8
+    launches.clear()
+    worst = 0.0
+    for kv8 in (False, True):
+        ref = evaluate_fn(cpu, *req, T, 2, kv_cache_8bit=kv8)
+        graphed = make_jitted_evaluate(gpu, T, 2, kv_cache_8bit=kv8)
+        for got in (evaluate_fn(gpu, *req, T, 2, kv_cache_8bit=kv8),
+                    graphed(*req), graphed(*req)):
+            if not (torch.equal(got.output_ids.cpu(), ref.output_ids)
+                    and torch.equal(got.gen_lengths.cpu(), ref.gen_lengths)):
+                raise AssertionError(f"mpt tiny (int8 cache {kv8}): tokens "
+                                     f"{got.output_ids.tolist()} vs "
+                                     f"{ref.output_ids.tolist()}")
+            for key in ("pred_masks_left", "pred_masks_right", "taxonomies"):
+                g, r = getattr(got, key).cpu(), getattr(ref, key)
+                torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+                worst = max(worst, float((g - r).abs().max()))
+    counts = dict(launches)
+    # 3 calls x 2 caches x (T - 1) steps x 2 layers, every one with slopes.
+    want = 3 * 2 * (T - 1) * cfg.llama.num_layers
+    if counts.get("decode_attn") != want or counts.get(
+            "decode_attn/alibi") != want:
+        raise AssertionError(f"mpt tiny: launches {counts}, expected {want} "
+                             "decode_attn, all ALiBi")
+    log(f"mpt tiny: card (kernels, f32; eager, capture, replay) vs CPU, "
+        f"float and int8 cache: tokens identical {ref.output_ids.tolist()}, "
+        f"masks/taxonomy max abs err {worst:.3g}; launches {counts}")
+    return counts
+
+
 def product_launches(model, mode, new_tokens):
     """Launches of the quantized product's kernel in one evaluate(),
     derived from the model: each quantized LLM layer runs once a forward
@@ -1291,26 +1531,37 @@ def product_launches(model, mode, new_tokens):
     return llm * new_tokens + sam
 
 
-def run_slice(launches, mode="bf16"):
+def run_slice(launches, mode="bf16", decoder="llama"):
     """evaluate() at the full 7b preset in one serving mode: "bf16", "w8a8"
-    (int8 weights + int8 KV cache) or "w4a16" (packed-int4 LLM). Returns
-    the launch counts over its 2 evaluate calls."""
+    (int8 weights + int8 KV cache) or "w4a16" (packed-int4 LLM), with the
+    LLaMA decoder or (`decoder="mpt"`, MPT-7B at the preset's widths: its
+    decode steps on the decode kernel's ALiBi variant, counted under
+    `decode_attn/alibi` too) the MPT one. Returns {path: launch counts}:
+    `evaluate_{mode}` (`evaluate_mpt_{mode}`) over its 2 eager evaluate
+    calls, and for LLaMA in bf16 and w8a8 `evaluate_spec_{mode}`, the
+    speculative phase on the same model (run_speculative)."""
     from haff_tpu_torch.core.config import ModelConfig
     from haff_tpu_torch.infer.evaluate import evaluate_fn
     from haff_tpu_torch.model.lisa import LisaModel
     from haff_tpu_torch.nn.layers import QDense
 
-    cfg = ModelConfig.preset("7b")
+    mpt = decoder == "mpt"
+    cfg = ModelConfig.preset("7b").replace(decoder=decoder)
+    label = f"mpt {mode}" if mpt else mode
+    path = f"evaluate_mpt_{mode}" if mpt else f"evaluate_{mode}"
     t0 = time.perf_counter()
     model = LisaModel(cfg, torch.bfloat16, device="cuda",
                       generator=torch.Generator("cuda").manual_seed(0))
     torch.cuda.synchronize()
     nparam = sum(p.numel() for p in model.parameters())
-    log(f"slice {mode}: 7b preset built in {time.perf_counter() - t0:.1f} s, "
-        f"{nparam / 1e9:.3f} B parameters bf16, "
+    llm = sum(p.numel() for p in model.llm.parameters())
+    log(f"slice {label}: 7b preset ({type(model.llm).__name__}) built in "
+        f"{time.perf_counter() - t0:.1f} s, {nparam / 1e9:.3f} B parameters "
+        f"bf16 ({llm / 1e9:.3f} B in the decoder), "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     B, P, T, S = 2, 320, 16, cfg.sam_encoder.image_size
     expected = dict(PER_EVALUATE, w8a8_matmul=0, w4a16_matmul=0)
+    expected["decode_attn/alibi"] = PER_EVALUATE["decode_attn"] if mpt else 0
     if mode != "bf16":
         t0 = time.perf_counter()
         pred = quantize_for(model, mode)
@@ -1333,7 +1584,7 @@ def run_slice(launches, mode="bf16"):
                    list(model.parameters()) + list(model.buffers()))
         product = "w8a8_matmul" if mode == "w8a8" else "w4a16_matmul"
         expected[product] = product_launches(model, mode, T)
-        log(f"slice {mode}: {len(layers)} layers quantized in place in "
+        log(f"slice {label}: {len(layers)} layers quantized in place in "
             f"{time.perf_counter() - t0:.1f} s; weights {held / 2**30:.2f} "
             f"GiB, allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB; "
             f"expecting {expected[product]} {product} launches an evaluate")
@@ -1362,24 +1613,32 @@ def run_slice(launches, mode="bf16"):
                 raise AssertionError(f"{key} has non-finite values")
         for name, per in expected.items():
             if launches[name] != per * (i + 1):
-                raise AssertionError(f"{mode}: {name}: {launches[name]} "
+                raise AssertionError(f"{label}: {name}: {launches[name]} "
                                      f"launches after {i + 1} evaluate calls, "
                                      f"expected {per * (i + 1)}")
-        log(f"slice {mode} batch {i}: {B} requests, latency {dt * 1e3:.1f} ms "
+        log(f"slice {label} batch {i}: {B} requests, latency {dt * 1e3:.1f} ms "
             f"(host clock, synchronized), tokens generated "
             f"{int(res.gen_lengths.sum())}, seg_found "
             f"{res.seg_found.tolist()}, taxonomy[0] "
             f"{[round(x, 4) for x in res.taxonomies[0].tolist()]}")
     counts = dict(launches)
-    log(f"slice {mode}: launches over 2 evaluate calls {counts}; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    held = sum(t.numel() * t.element_size() for t in
+               list(model.parameters()) + list(model.buffers()))
+    log(f"slice {label}: launches over 2 evaluate calls {counts}; weights "
+        f"{held / 2**30:.2f} GiB, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {CARD}")
     req = make_requests(cfg, B, P, seed=2)
-    profile_call(f"evaluate {mode}", lambda: run(req))
-    run_graphed(model, mode, cfg, eager, eager_ms, expected)
-    return counts
+    profile_call(f"evaluate {label}", lambda: run(req))
+    greedy, greedy_ms = run_graphed(model, label, mode == "w8a8", cfg, eager,
+                                    eager_ms, expected)
+    paths = {path: counts}
+    if not mpt and mode != "w4a16":
+        paths[f"evaluate_spec_{mode}"] = run_speculative(
+            model, mode, cfg, launches, greedy, greedy_ms)
+    return paths
 
 
-def run_graphed(model, mode, cfg, eager, eager_ms, expected):
+def run_graphed(model, mode, kv8, cfg, eager, eager_ms, expected):
     """The eager slice's requests through make_jitted_evaluate (the decode
     loop captured in a CUDA graph): one capture call and two replays
     (requests 0, 1, 0), each against the eager call on the same request:
@@ -1390,8 +1649,8 @@ def run_graphed(model, mode, cfg, eager, eager_ms, expected):
     from haff_tpu_torch.kernels import _build
 
     B, P, T = 2, 320, 16
-    graphed = make_jitted_evaluate(model, T, 2, kv_cache_8bit=mode == "w8a8")
-    graph_ms, identical = [], []
+    graphed = make_jitted_evaluate(model, T, 2, kv_cache_8bit=kv8)
+    graph_ms, identical, results = [], [], []
     for i, seed in enumerate((0, 1, 0)):
         req = make_requests(cfg, B, P, seed=seed)
         before = collections.Counter(_build.LAUNCHES)
@@ -1407,6 +1666,7 @@ def run_graphed(model, mode, cfg, eager, eager_ms, expected):
         if ran != want:
             raise AssertionError(f"graphed {mode} call {i}: launches "
                                  f"{dict(ran)}, expected {want}")
+        results.append(got)
         ref = eager[seed]
         if not (torch.equal(got.output_ids, ref.output_ids)
                 and torch.equal(got.gen_lengths, ref.gen_lengths)):
@@ -1430,6 +1690,129 @@ def run_graphed(model, mode, cfg, eager, eager_ms, expected):
         f"clock, synchronized) | {CARD}")
     req = make_requests(cfg, B, P, seed=1)
     profile_call(f"graphed evaluate {mode}", lambda: graphed(*req))
+    return results, graph_ms
+
+
+# The 7b bf16 speculative token check: where the speculative stream parts
+# from greedy's, greedy's top-2 logit gap at that step must be within
+# 2^-6 of the top logit's magnitude (a near tie that bf16 rounding of a
+# verify chunk can flip); a larger gap is a bug, not rounding.
+TOP2_GAP_LIMIT = 2.0 ** -6
+
+
+def greedy_top2(model, req, tokens, row, step):
+    """Greedy's two largest logits at decode `step` of `row`: the row's
+    prompt and its first `step` greedy tokens through one prefill (the
+    flash kernel), the logits of the last position. Returns (gap, top)."""
+    from haff_tpu_torch.infer.evaluate import _inputs, _prompt
+
+    _, images_clip, ids, att = _inputs(model, *req)
+    with torch.inference_mode():
+        sp = _prompt(model, images_clip, ids, att)
+        n = int(sp.segment_ids[row].sum())
+        emb = torch.cat([sp.embeds[row:row + 1, :n], model.embed_tokens(
+            tokens[row:row + 1, :step].long().to(model.device))], dim=1)
+        pos = torch.arange(n + step, device=model.device)[None]
+        logits, _, _ = model.llm_forward(
+            emb, pos, torch.ones_like(pos, dtype=torch.int32))
+    top = logits[0, -1].float().topk(2).values
+    return float(top[0] - top[1]), float(top[0].abs())
+
+
+def run_speculative(model, mode, cfg, launches, greedy, greedy_ms):
+    """Speculative decode through make_jitted_evaluate(draft_corpus=...) on
+    the 7b model run_slice built ("bf16", or "w8a8" with the int8 cache):
+    batch 2, prompt 320, 16 new tokens, 8 tokens a verify step, the verify
+    step captured in a CUDA graph (a capture call, then two replayed
+    calls: requests 0, 1, 0 as the greedy graphed calls `greedy`). Two
+    corpora: the oracle (each row's greedy tokens of requests 0 and 1, the
+    best case) and answer_template_corpus(ByteTokenizer) (which a random
+    model mostly rejects: the worst case). Each call: launches exactly as
+    derived from its decode steps (the prefill's 32 flash launches, the
+    SAM encoder's, no decode_attn, and at 8 bits each quantized layer
+    once a forward: the prefill and every verify step, M = 16 on the
+    skinny kernel), decode steps equal to the graph's replays, and the
+    tokens against greedy's: equal, or else the first step where they
+    part must be a near tie of greedy's (TOP2_GAP_LIMIT). Prints latency
+    beside greedy's, steps and tokens a step; profiles a replayed call.
+    Returns the launch counts of its calls (the profiled ones included)."""
+    from haff_tpu_torch.data.tokenizer import ByteTokenizer
+    from haff_tpu_torch.infer.evaluate import make_jitted_evaluate
+    from haff_tpu_torch.infer.generate import answer_template_corpus
+    from haff_tpu_torch.kernels import _build
+
+    B, P, T, D = 2, 320, 16, 8
+    oracle = torch.cat([greedy[0].output_ids, greedy[1].output_ids], dim=1)
+    template, template_len = answer_template_corpus(ByteTokenizer())
+    base = {k: v for k, v in PER_EVALUATE.items() if k != "decode_attn"}
+    launches.clear()
+    for name, corpus, lens in (("oracle", oracle, None),
+                               ("template", template, template_len)):
+        ev = make_jitted_evaluate(model, T, 2, kv_cache_8bit=mode == "w8a8",
+                                  draft_corpus=corpus, corpus_lengths=lens,
+                                  draft_len=D)
+        lat, steps, per_step, verdicts = [], [], [], []
+        replays = 0
+        for i, seed in enumerate((0, 1, 0)):
+            req = make_requests(cfg, B, P, seed=seed)
+            before = collections.Counter(_build.LAUNCHES)
+            replays_before = ev.replays
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = ev(*req)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+            ran = collections.Counter(_build.LAUNCHES)
+            ran.subtract(before)
+            ran = +ran
+            n = int(got.decode_steps)
+            if i and ev.replays - replays_before != n:
+                raise AssertionError(f"speculative {mode} {name} call {i}: "
+                                     f"{n} decode steps, "
+                                     f"{ev.replays - replays_before} replays")
+            replays += ev.replays - replays_before
+            want = dict(base)
+            if mode == "w8a8":
+                want["w8a8_matmul"] = product_launches(model, "w8a8", 1 + n)
+            if ran != want:
+                raise AssertionError(f"speculative {mode} {name} call {i}: "
+                                     f"launches {dict(ran)}, expected {want} "
+                                     f"({n} decode steps)")
+            steps.append(n)
+            per_step.append(round(float(got.gen_lengths.float().mean()) / n, 3))
+            ref = greedy[i]
+            for key, t in (("pred_masks_left", (B, 1024, 1024)),
+                           ("taxonomies", (B, 4))):
+                out = getattr(got, key)
+                if tuple(out.shape) != t or not torch.isfinite(out).all():
+                    raise AssertionError(f"speculative {mode} {name}: {key}")
+            if (torch.equal(got.output_ids, ref.output_ids)
+                    and torch.equal(got.gen_lengths, ref.gen_lengths)):
+                verdicts.append("tokens equal")
+                continue
+            diff = (got.output_ids != ref.output_ids).int()
+            row = int(diff.any(dim=1).int().argmax())
+            step = int(diff[row].argmax())
+            gap, top = greedy_top2(model, req, ref.output_ids, row, step)
+            verdicts.append(f"row {row} parts at step {step}: greedy top-2 "
+                            f"gap {gap:.4g}, top |logit| {top:.4g}")
+            if gap > TOP2_GAP_LIMIT * top:
+                raise AssertionError(
+                    f"speculative {mode} {name} call {i}: tokens part from "
+                    f"greedy's at row {row} step {step} where greedy's top-2 "
+                    f"gap {gap} exceeds 2^-6 of |top logit| {top}")
+        if ev.captures != 1:
+            raise AssertionError(f"speculative {mode} {name}: {ev.captures} "
+                                 "captures")
+        log(f"speculative {mode} {name}: decode steps {steps} (16 tokens; "
+            f"tokens a step {per_step}), {replays} replays of the verify "
+            f"graph in calls 2-3; {verdicts}; launches as derived | latency "
+            f"{[round(t, 1) for t in lat]} ms (first captures) against greedy "
+            f"graphed {[round(t, 1) for t in greedy_ms]} ms (host clock, "
+            f"synchronized) | {CARD}")
+        req = make_requests(cfg, B, P, seed=1)
+        profile_call(f"graphed speculative {mode} {name}", lambda: ev(*req))
+    return dict(launches)
 
 
 def png_b64(frame):
@@ -2386,6 +2769,8 @@ def main():
     check_sam_backward(gen)
     for mode in ("bf16", "w8a8", "w4a16"):
         check_tiny_against_cpu(mode)
+    paths_spec_small = check_spec_small(_build.LAUNCHES)
+    paths_mpt_tiny = check_mpt_tiny(_build.LAUNCHES)
     check_tiny_serving()
     check_small_cli()
     check_tiny_train()
@@ -2396,7 +2781,8 @@ def main():
 
     # Each path is driven with the counts set to 0 just before it and read
     # just after; each model is freed before the next is built.
-    paths = {"train_cli_tiny": paths_tiny,
+    paths = {"train_cli_tiny": paths_tiny, "spec_small": paths_spec_small,
+             "mpt_tiny": paths_mpt_tiny,
              "encoder_backward": run_encoder_backward(_build.LAUNCHES)}
     gc.collect()
     torch.cuda.empty_cache()
@@ -2407,8 +2793,12 @@ def main():
     paths["audit"], paths["bench"] = run_tools(_build.LAUNCHES)
     gc.collect()
     torch.cuda.empty_cache()
-    for mode in ("bf16", "w8a8", "w4a16"):
-        paths[f"evaluate_{mode}"] = run_slice(_build.LAUNCHES, mode)
+    # LLaMA-7B in three modes (speculative on the bf16 and w8a8 models),
+    # then MPT-7B in two; each model is freed before the next is built.
+    for decoder, mode in (("llama", "bf16"), ("llama", "w8a8"),
+                          ("llama", "w4a16"), ("mpt", "bf16"),
+                          ("mpt", "w8a8")):
+        paths.update(run_slice(_build.LAUNCHES, mode, decoder))
         gc.collect()
         torch.cuda.empty_cache()
     paths["serve_bf16"], paths["stream"] = run_serve(_build.LAUNCHES)
@@ -2424,8 +2814,9 @@ def main():
     # the streamed skinny kernel: the first skinny kernels and the tile
     # count under /scalar.
     for p in ("encoder_backward", "predictor_vit_b", "evaluate_bf16",
-              "evaluate_w8a8", "evaluate_w4a16", "serve_bf16", "stream",
-              "train", "train_cli", "train_cli_8bit"):
+              "evaluate_w8a8", "evaluate_w4a16", "evaluate_spec_bf16",
+              "evaluate_spec_w8a8", "evaluate_mpt_bf16", "evaluate_mpt_w8a8",
+              "serve_bf16", "stream", "train", "train_cli", "train_cli_8bit"):
         scalar = {k: n for k, n in paths[p].items() if k.endswith("/scalar") and n}
         if scalar:
             raise AssertionError(f"{p}: launches on the scalar path {scalar}")

@@ -83,9 +83,11 @@ def main(argv=None):
                    help="store the decode KV cache as int8 with per "
                         "token-head scales")
     p.add_argument("--speculative", action="store_true",
-                   help="prompt-lookup speculative decoding (not ported "
-                        "yet: raises)")
-    p.add_argument("--draft_len", type=int, default=8)
+                   help="prompt-lookup speculative decoding (ANSWER_LIST "
+                        "template drafts; exact greedy output, fewer decode "
+                        "forwards; llama decoder only)")
+    p.add_argument("--draft_len", type=int, default=8,
+                   help="tokens a speculative verify step (>= 2)")
     p.add_argument("--device", default="cuda",
                    help="cuda (the card) or cpu")
     args = p.parse_args(argv)
@@ -98,9 +100,6 @@ def main(argv=None):
     from .evaluate import make_jitted_evaluate
     from .predictor import _require_device, load_model
 
-    if args.speculative:
-        raise SystemExit("--speculative is not ported yet (ROADMAP Queue 1 "
-                         "item 7)")
     device = _require_device(args.device)
     tok = load_tokenizer(args.tokenizer,
                          model_max_length=args.max_text_len)
@@ -116,9 +115,20 @@ def main(argv=None):
 
     model = load_model(cfg, args.precision, device, args.checkpoint,
                        args.load_in_8bit, args.load_in_4bit)
+    corpus = lens = None
+    if args.speculative:
+        if args.decoder == "mpt":
+            raise SystemExit(
+                "--speculative requires the llama decoder (the MPT "
+                "attention has no chunked cache-verify mode)")
+        from .generate import answer_template_corpus
+
+        corpus, lens = answer_template_corpus(tok)
     ev = make_jitted_evaluate(model, max_new_tokens=args.max_new_tokens,
                               eos_id=tok.eos_token_id,
-                              kv_cache_8bit=args.kv_cache_8bit)
+                              kv_cache_8bit=args.kv_cache_8bit,
+                              draft_corpus=corpus, corpus_lengths=lens,
+                              draft_len=args.draft_len)
 
     B = args.batch
     for start in range(0, len(ds), B):

@@ -1,7 +1,8 @@
 """The evaluate() API: text + image -> (output tokens, left/right
 affordance masks, taxonomy) (port of haff_tpu/infer/evaluate.py
-`evaluate_fn`, `make_jitted_evaluate` and `validate_on_benchmark`,
-greedy decode).
+`evaluate_fn`, `make_jitted_evaluate` and `validate_on_benchmark`):
+greedy decode, or with a draft corpus prompt-lookup speculative decode
+(the same tokens in fewer decode forwards; LLaMA decoder only).
 
 Generate with hidden-state capture, gather the first emitted [SEG]'s
 hidden state, project it, prompt both SAM mask decoders with it, and
@@ -9,10 +10,14 @@ upsample the masks to the padded square canvas. Resizing to each frame's
 original size is host-side (nn/sam.py resize_to_original).
 
 `make_jitted_evaluate` is the counterpart of JAX's compiled static-shape
-evaluate: on a CUDA model the decode loop, one LLaMA forward a token, is
+evaluate: on a CUDA model the decode loop, one decoder forward a token, is
 captured in a CUDA graph once per bucket (batch, prompt length, new
 tokens, cache kind) and replayed on every later call of that bucket; the
 CLIP tower, the prefill, the SAM encoder and the mask decode run eagerly.
+Speculative decode has a data-dependent trip count (JAX's `while_loop`):
+one verify step is captured per bucket (which adds the draft length and
+the corpus width to the key) and replayed from the host while a row is
+live, at most T times, reading a one-element flag after each replay.
 `validate_on_benchmark` scores a benchmark folder with it (the train
 CLI's per-epoch validation).
 """
@@ -29,7 +34,12 @@ from ..kernels import _build
 from ..model.lisa import LisaModel
 from ..model.multimodal import find_image_position, splice_image_embeddings
 from ..nn.sam import postprocess_masks_padded
-from .generate import DecodeState, decode_loop, greedy_generate, prefill
+from .generate import (DecodeState, SpeculativeState, decode_loop,
+                       greedy_generate, prefill, speculative_generate,
+                       verify_step)
+
+_MPT_SPECULATIVE = ("speculative decoding is wired for the llama decoder "
+                    "only (MPT attention has no chunked cache-verify mode)")
 
 
 class EvaluateResult(NamedTuple):
@@ -39,6 +49,8 @@ class EvaluateResult(NamedTuple):
     pred_masks_right: torch.Tensor  # (B, S, S)
     taxonomies: torch.Tensor        # (B, 4) softmax probabilities
     seg_found: torch.Tensor         # (B,) bool: a [SEG] was emitted
+    # decode forwards taken (a scalar; speculative path only, else None)
+    decode_steps: torch.Tensor = None
 
 
 def _inputs(model, images_sam, images_clip, input_ids, attention_mask):
@@ -78,38 +90,84 @@ def _finish(model, gen, images_sam, max_new_tokens) -> EvaluateResult:
         output_ids=gen.tokens, gen_lengths=gen.lengths,
         pred_masks_left=postprocess_masks_padded(masks_l, S)[:, 0],
         pred_masks_right=postprocess_masks_padded(masks_r, S)[:, 0],
-        taxonomies=taxonomy, seg_found=seg_found)
+        taxonomies=taxonomy, seg_found=seg_found, decode_steps=gen.steps)
+
+
+def draft_operands(model, draft_corpus, corpus_lengths, batch: int):
+    """The draft corpus as (B, C) and its live lengths as (B,) (or None)
+    long tensors on the model's device, with JAX's broadcasting: a 1-D
+    corpus is one row, a one-row corpus is shared by the batch, one
+    length is shared. Raises ValueError for the MPT decoder, and for a
+    count of lengths that is neither 1 nor the batch."""
+    if model.cfg.decoder == "mpt":
+        raise ValueError(_MPT_SPECULATIVE)
+    corpus = torch.as_tensor(draft_corpus, device=model.device).long()
+    if corpus.dim() == 1:
+        corpus = corpus[None]
+    if corpus.shape[0] != batch:  # a shared (1, C) template corpus
+        corpus = corpus.expand(batch, corpus.shape[1])
+    lengths = None
+    if corpus_lengths is not None:
+        lengths = torch.as_tensor(corpus_lengths,
+                                  device=model.device).long().reshape(-1)
+        if lengths.shape[0] == 1:
+            lengths = lengths.expand(batch)
+        elif lengths.shape[0] != batch:
+            raise ValueError(
+                f"corpus_lengths batch {lengths.shape[0]} != input batch "
+                f"{batch} (pass 1 shared length or one per row)")
+    return corpus.contiguous(), (None if lengths is None
+                                 else lengths.contiguous())
 
 
 @torch.inference_mode()
 def evaluate_fn(model: LisaModel, images_sam, images_clip, input_ids,
                 attention_mask, max_new_tokens: int, eos_id: int,
-                kv_cache_8bit: bool = False) -> EvaluateResult:
+                kv_cache_8bit: bool = False, draft_corpus=None,
+                corpus_lengths=None, draft_len: int = 8) -> EvaluateResult:
     """images_sam (B, S, S, 3) and images_clip (B, C, C, 3) preprocessed
     NHWC; input_ids (B, L) with IMAGE_TOKEN_INDEX; attention_mask (B, L),
     1 = real token (right padding). Inputs (tensors or numpy) are moved to
     the model's device; the result stays there. `kv_cache_8bit` decodes
-    over an int8 KV cache."""
+    over an int8 KV cache.
+
+    With `draft_corpus` ((B, C) or (1, C) token ids, e.g. the tokenized
+    ANSWER_LIST templates of generate.answer_template_corpus), decode runs
+    prompt-lookup speculative decoding (generate.speculative_generate,
+    `draft_len` tokens a verify step): the same tokens in fewer decode
+    forwards, counted in `decode_steps`. LLaMA decoder only."""
     images_sam, images_clip, input_ids, attention_mask = _inputs(
         model, images_sam, images_clip, input_ids, attention_mask)
     sp = _prompt(model, images_clip, input_ids, attention_mask)
-    gen = greedy_generate(
-        model.cfg.llama, model.embed_tokens, model.llm_forward, sp.embeds,
-        sp.positions, sp.segment_ids, sp.segment_ids.sum(dim=1),
-        max_new_tokens, eos_id, kv_cache_8bit=kv_cache_8bit)
+    args = (model.llm.cfg, model.embed_tokens, model.llm_forward, sp.embeds,
+            sp.positions, sp.segment_ids, sp.segment_ids.sum(dim=1),
+            max_new_tokens, eos_id)
+    if draft_corpus is not None:
+        corpus, lengths = draft_operands(model, draft_corpus, corpus_lengths,
+                                         input_ids.shape[0])
+        gen = speculative_generate(*args, corpus, lengths, draft_len,
+                                   kv_cache_8bit=kv_cache_8bit)
+    else:
+        gen = greedy_generate(*args, kv_cache_8bit=kv_cache_8bit)
     return _finish(model, gen, images_sam, max_new_tokens)
 
 
 class GraphedEvaluate:
-    """evaluate_fn with the decode loop in a CUDA graph per bucket.
+    """evaluate_fn with the decode in a CUDA graph per bucket.
 
-    The first call of a bucket allocates its DecodeState, runs the
+    Greedy: the first call of a bucket allocates its DecodeState, runs the
     prefill, runs this call's decode loop eagerly on a side stream (the
     warm-up: every kernel library is loaded and every lazy handle made
     before capture), then captures the loop with torch.cuda.CUDAGraph.
     Every later call of the bucket zeroes its caches, runs the prefill
-    into them and replays the graph. A capture or replay error raises;
-    nothing falls back to the eager loop.
+    into them and replays the graph.
+
+    Speculative (`draft_corpus` given): the same, with a SpeculativeState,
+    this call's whole verify loop as the warm-up and one `verify_step` as
+    the graph; a later call replays it while the state's `live` flag,
+    copied to pinned host memory after each replay, says a row is live,
+    at most T times. `decode_steps` is the replay count. A capture or
+    replay error raises; nothing falls back to the eager loop.
 
     Launch counting: the kernels' wrappers count in Python, so they count
     while the graph is captured, when nothing runs, and not when it is
@@ -119,12 +177,27 @@ class GraphedEvaluate:
     `captures` and `replays` count the graphs captured and replayed."""
 
     def __init__(self, model: LisaModel, max_new_tokens: int, eos_id: int,
-                 kv_cache_8bit: bool = False):
+                 kv_cache_8bit: bool = False, draft_corpus=None,
+                 corpus_lengths=None, draft_len: int = 8):
+        if draft_corpus is not None:
+            if model.cfg.decoder == "mpt":
+                raise ValueError(_MPT_SPECULATIVE)
+            if draft_len < 2:
+                raise ValueError("draft_len must be >= 2 (1 == plain greedy)")
         self.model = model
         self.max_new_tokens = max_new_tokens
         self.eos_id = eos_id
         self.kv_cache_8bit = kv_cache_8bit
-        self._buckets = {}  # key -> (DecodeState, CUDAGraph, launches)
+        self.draft_corpus = draft_corpus
+        self.corpus_lengths = corpus_lengths
+        self.draft_len = draft_len
+        # Speculative buckets also key on the draft length and corpus width.
+        self._key = (() if draft_corpus is None else
+                     (draft_len, *torch.as_tensor(draft_corpus).shape))
+        self._buckets = {}  # key -> (state, CUDAGraph, launches)
+        # The speculative loop's host copy of the state's `live` flag.
+        self._live = (None if draft_corpus is None else
+                      torch.zeros(1, dtype=torch.bool, pin_memory=True))
         self.captures = 0
         self.replays = 0
 
@@ -132,22 +205,62 @@ class GraphedEvaluate:
         decode_loop(state, self.model.embed_tokens, self.model.llm_forward,
                     self.max_new_tokens, self.eos_id)
 
+    def _verify(self, state):
+        verify_step(state, self.model.embed_tokens, self.model.llm_forward)
+
+    def _speculate(self, state):
+        """This call's verify loop, eagerly (the warm-up)."""
+        for _ in range(self.max_new_tokens):
+            if not bool(state.live):
+                break
+            self._verify(state)
+
+    def _new_state(self, batch, prompt_len):
+        model = self.model
+        if self.draft_corpus is None:
+            return DecodeState(model.llm.cfg, batch, prompt_len,
+                               self.max_new_tokens, model.device,
+                               kv_cache_8bit=self.kv_cache_8bit)
+        corpus, lengths = draft_operands(model, self.draft_corpus,
+                                         self.corpus_lengths, batch)
+        return SpeculativeState(model.llm.cfg, batch, prompt_len,
+                                self.max_new_tokens, model.device, corpus,
+                                lengths, self.draft_len, self.eos_id,
+                                kv_cache_8bit=self.kv_cache_8bit)
+
     def _capture(self, state):
+        spec = self.draft_corpus is not None
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            self._decode(state)  # this call's decode loop: the warm-up
+            # This call's decode: the warm-up.
+            (self._speculate if spec else self._decode)(state)
         torch.cuda.current_stream().wait_stream(side)
         before = collections.Counter(_build.LAUNCHES)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self._decode(state)
+            (self._verify if spec else self._decode)(state)
         delta = collections.Counter(_build.LAUNCHES)
         delta.subtract(before)
-        delta = +delta  # the launches of one decode loop
+        delta = +delta  # the launches of one replay
         _build.LAUNCHES.subtract(delta)  # nothing ran while capturing
         self.captures += 1
         return graph, delta
+
+    def _replay(self, bucket) -> None:
+        """Greedy: one replay. Speculative: replays while a row is live
+        (at most T), the flag read after each through pinned memory."""
+        state, graph, delta = bucket
+        spec = self.draft_corpus is not None
+        for _ in range(self.max_new_tokens if spec else 1):
+            graph.replay()
+            _build.LAUNCHES.update(delta)
+            self.replays += 1
+            if spec:
+                self._live.copy_(state.live, non_blocking=True)
+                torch.cuda.current_stream().synchronize()
+                if not bool(self._live):
+                    break
 
     @torch.inference_mode()
     def __call__(self, images_sam, images_clip, input_ids,
@@ -156,12 +269,11 @@ class GraphedEvaluate:
         images_sam, images_clip, input_ids, attention_mask = _inputs(
             model, images_sam, images_clip, input_ids, attention_mask)
         sp = _prompt(model, images_clip, input_ids, attention_mask)
-        key = (*input_ids.shape, self.max_new_tokens, self.kv_cache_8bit)
+        key = (*input_ids.shape, self.max_new_tokens, self.kv_cache_8bit,
+               *self._key)
         bucket = self._buckets.get(key)
         if bucket is None:
-            state = DecodeState(model.cfg.llama, input_ids.shape[0],
-                                sp.embeds.shape[1], self.max_new_tokens,
-                                model.device, kv_cache_8bit=self.kv_cache_8bit)
+            state = self._new_state(input_ids.shape[0], sp.embeds.shape[1])
         else:
             state = bucket[0]
             state.reset_caches()
@@ -170,9 +282,7 @@ class GraphedEvaluate:
         if bucket is None:
             self._buckets[key] = (state, *self._capture(state))
         else:
-            bucket[1].replay()
-            _build.LAUNCHES.update(bucket[2])
-            self.replays += 1
+            self._replay(bucket)
         return _finish(model, state.result(), images_sam,
                        self.max_new_tokens)
 
@@ -182,19 +292,26 @@ class GraphedEvaluate:
 
 
 def make_jitted_evaluate(model: LisaModel, max_new_tokens: int, eos_id: int,
-                         kv_cache_8bit: bool = False):
+                         kv_cache_8bit: bool = False, draft_corpus=None,
+                         corpus_lengths=None, draft_len: int = 8):
     """A callable (images_sam, images_clip, input_ids, attention_mask) ->
     EvaluateResult, with evaluate_fn's inputs and result: on a CUDA model
-    a GraphedEvaluate (the decode loop captured in a CUDA graph per
-    bucket), on a CPU model evaluate_fn itself bound to `model` and the
-    decode settings. The JAX function's external-scales quantization
-    (`quant_scales`) is not ported; quantize the model in place instead
-    (nn/quant.quantize_model_)."""
+    a GraphedEvaluate (the greedy decode loop, or one speculative verify
+    step, captured in a CUDA graph per bucket), on a CPU model evaluate_fn
+    itself bound to `model` and the decode settings. The JAX function's
+    external-scales quantization (`quant_scales`) is not ported; quantize
+    the model in place instead (nn/quant.quantize_model_)."""
     if model.device.type == "cuda":
-        return GraphedEvaluate(model, max_new_tokens, eos_id, kv_cache_8bit)
+        return GraphedEvaluate(model, max_new_tokens, eos_id, kv_cache_8bit,
+                               draft_corpus, corpus_lengths, draft_len)
+    if draft_corpus is not None and model.cfg.decoder == "mpt":
+        raise ValueError(_MPT_SPECULATIVE)
     return functools.partial(evaluate_fn, model,
                              max_new_tokens=max_new_tokens, eos_id=eos_id,
-                             kv_cache_8bit=kv_cache_8bit)
+                             kv_cache_8bit=kv_cache_8bit,
+                             draft_corpus=draft_corpus,
+                             corpus_lengths=corpus_lengths,
+                             draft_len=draft_len)
 
 
 def _resize_nearest(mask, gh: int, gw: int):

@@ -84,15 +84,13 @@ class Predictor:
                  draft_len: int = 8,
                  device="cuda"):
         """Weights and quantization as `load_model` says; `device` is the
-        card unless the caller asks for the CPU."""
+        card unless the caller asks for the CPU. `speculative` decodes by
+        prompt lookup over the ANSWER_LIST templates, `draft_len` tokens a
+        verify step (LLaMA decoder only: MPT raises ValueError)."""
         from ..core.config import ModelConfig
         from ..data.tokenizer import load_tokenizer, seg_token_idx
         from .evaluate import make_jitted_evaluate
 
-        if speculative:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP Queue 1 "
-                "item 7)")
         self.tok = load_tokenizer(tokenizer, model_max_length=max_text_len)
         self.cfg = ModelConfig.preset(model_preset).replace(
             seg_token_idx=seg_token_idx(self.tok), decoder=decoder)
@@ -100,11 +98,25 @@ class Predictor:
         self.conv_type = conv_type
         self.use_mm_start_end = use_mm_start_end
         self.use_template = use_template
+        corpus = lens = None
+        if speculative:
+            # Prompt-lookup speculative decoding drafted from the
+            # ANSWER_LIST templates: the greedy output in fewer decode
+            # forwards (infer/generate.py speculative_generate).
+            if decoder == "mpt":
+                raise ValueError(
+                    "speculative decoding requires the llama decoder "
+                    "(the MPT attention has no chunked cache-verify "
+                    "mode)")
+            from .generate import answer_template_corpus
+
+            corpus, lens = answer_template_corpus(self.tok)
         self.model = load_model(self.cfg, precision, device, checkpoint,
                                 load_in_8bit, load_in_4bit)
         self._eval = make_jitted_evaluate(
             self.model, max_new_tokens=max_new_tokens,
-            eos_id=self.tok.eos_token_id, kv_cache_8bit=kv_cache_8bit)
+            eos_id=self.tok.eos_token_id, kv_cache_8bit=kv_cache_8bit,
+            draft_corpus=corpus, corpus_lengths=lens, draft_len=draft_len)
 
     def predict_batch(self, images, prompts):
         """Lists of RGB uint8 frames and text prompts -> list of (answer,

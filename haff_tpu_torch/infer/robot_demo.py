@@ -136,9 +136,11 @@ def main(argv=None):
                    action="store_false")
     p.add_argument("--kv_cache_8bit", action="store_true")
     p.add_argument("--speculative", action="store_true",
-                   help="prompt-lookup speculative decoding (not ported "
-                        "yet: raises)")
-    p.add_argument("--draft_len", type=int, default=8)
+                   help="prompt-lookup speculative decoding (ANSWER_LIST "
+                        "template drafts; exact greedy output, fewer decode "
+                        "forwards; llama decoder only)")
+    p.add_argument("--draft_len", type=int, default=8,
+                   help="tokens a speculative verify step (>= 2)")
     p.add_argument("--th", type=float, default=-5.0)
     p.add_argument("--force_left", action="store_true")
     p.add_argument("--force_right", action="store_true")

@@ -8,7 +8,10 @@
 //   s[j]  = scale * q[b, h] . K[b, j, kvh]          for live slots j
 //   o     = softmax_j(s) @ V[b, :, kvh]
 // over the slots with mask[b, j] > 0 only; a row with no live slot gives
-// exactly 0. An int8 cache is dequantized in registers, value times the
+// exactly 0. With ALiBi (the MPT decoder: per-head slopes, nh floats),
+// s[j] also gains slopes[h] * j, the column form of the ALiBi bias, exact
+// under softmax; it is a template flag, so the kernel without slopes is
+// compiled without the term. An int8 cache is dequantized in registers, value times the
 // f32 scale of its token-head with no rounding, so no float copy of the
 // cache ever exists in device memory. Softmax and both products run in f32.
 //
@@ -74,6 +77,7 @@ struct Args {
   const uint8_t* vc;
   const float* ks;
   const float* vs;
+  const float* slopes;  // (nh,) ALiBi slopes; read only by the ALIBI variant
   const int* mask;
   void* out;
   float* part_acc;  // (B, nh, splits, hd)
@@ -135,7 +139,7 @@ __device__ __forceinline__ void copy_rows(uint8_t* dst, const uint8_t* src, long
 
 // Six blocks an SM by registers (<= 85 a thread): LLaMA-7B's 640 blocks
 // at batch 2 run in one wave on 132 SMs.
-template <typename TQ, typename TKV, bool QUANT>
+template <typename TQ, typename TKV, bool QUANT, bool ALIBI>
 __global__ void __launch_bounds__(THREADS, 6) decode_split_kernel(const Args a) {
   const int hblocks = (a.nh / a.nkv + HEADS_MAX - 1) / HEADS_MAX;
   const int kvh = blockIdx.x / hblocks, hb = blockIdx.x - kvh * hblocks;
@@ -204,6 +208,7 @@ __global__ void __launch_bounds__(THREADS, 6) decode_split_kernel(const Args a) 
     float qf[16];  // the lane's 16 query elements of head g
 #pragma unroll
     for (int i = 0; i < 16; ++i) qf[i] = q_s[g][elem<TKV>(sub, i)];
+    const float slope = ALIBI ? a.slopes[h0 + g] : 0.f;
 #pragma unroll 4
     for (int jw = warp * 4; jw < n; jw += WARPS * 4) {
       const int j = jw + grp;
@@ -216,7 +221,11 @@ __global__ void __launch_bounds__(THREADS, 6) decode_split_kernel(const Args a) 
       d += __shfl_xor_sync(0xffffffffu, d, 1);
       d += __shfl_xor_sync(0xffffffffu, d, 2);
       d += __shfl_xor_sync(0xffffffffu, d, 4);
-      if (sub == 0 && j < n) s_s[g][j] = ok ? (QUANT ? d * ksc[j] : d) : -INFINITY;
+      if (sub == 0 && j < n) {
+        float sj = QUANT ? d * ksc[j] : d;
+        if (ALIBI) sj += slope * (float)(j0 + j);  // slot j0 + j of the cache
+        s_s[g][j] = ok ? sj : -INFINITY;
+      }
     }
   }
   __syncthreads();
@@ -336,15 +345,15 @@ decode_merge_kernel(const float* __restrict__ acc, const float* __restrict__ ml,
   out[r * hd + e] = haff::from_f<TQ>(den > 0.f ? num / den : 0.f);
 }
 
-template <typename TQ, typename TKV, bool QUANT>
+template <typename TQ, typename TKV, bool QUANT, bool ALIBI>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   const int pitch = (a.hd * (int)sizeof(TKV) + 15) & ~15;
   const size_t smem = 2 * (size_t)a.chunk * pitch;
-  cudaError_t e = haff::allow_smem(decode_split_kernel<TQ, TKV, QUANT>, smem);
+  cudaError_t e = haff::allow_smem(decode_split_kernel<TQ, TKV, QUANT, ALIBI>, smem);
   if (e != cudaSuccess) return e;
   const int hblocks = (a.nh / a.nkv + HEADS_MAX - 1) / HEADS_MAX;
   dim3 grid(a.nkv * hblocks, B, a.splits);
-  decode_split_kernel<TQ, TKV, QUANT><<<grid, THREADS, smem, stream>>>(a);
+  decode_split_kernel<TQ, TKV, QUANT, ALIBI><<<grid, THREADS, smem, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess || a.splits == 1) return e;
   const size_t wsmem = (size_t)a.splits * sizeof(float);
@@ -368,32 +377,40 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename TQ>
-cudaError_t dispatch(int kv_kind, Args& a, int B, cudaStream_t s) {
-  const int item = kv_kind == 1 ? 2 : kv_kind == 2 ? 1 : 4;
-  a.vec = (a.hd * item) % 16 == 0 && reinterpret_cast<uintptr_t>(a.kc) % 16 == 0 &&
-          reinterpret_cast<uintptr_t>(a.vc) % 16 == 0;
+template <typename TQ, bool ALIBI>
+cudaError_t dispatch_kv(int kv_kind, Args& a, int B, cudaStream_t s) {
   switch (kv_kind) {
     case 0:
-      return launch<TQ, float, false>(a, B, s);
+      return launch<TQ, float, false, ALIBI>(a, B, s);
     case 1:
-      return launch<TQ, __nv_bfloat16, false>(a, B, s);
+      return launch<TQ, __nv_bfloat16, false, ALIBI>(a, B, s);
     case 2:
       if (a.ks == nullptr || a.vs == nullptr) return cudaErrorInvalidValue;
-      return launch<TQ, int8_t, true>(a, B, s);
+      return launch<TQ, int8_t, true, ALIBI>(a, B, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+template <typename TQ>
+cudaError_t dispatch(int kv_kind, Args& a, int B, cudaStream_t s) {
+  const int item = kv_kind == 1 ? 2 : kv_kind == 2 ? 1 : 4;
+  a.vec = (a.hd * item) % 16 == 0 && reinterpret_cast<uintptr_t>(a.kc) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(a.vc) % 16 == 0;
+  if (a.slopes != nullptr) return dispatch_kv<TQ, true>(kv_kind, a, B, s);
+  return dispatch_kv<TQ, false>(kv_kind, a, B, s);
+}
+
 }  // namespace
 
 // kv_kind: 0 f32 cache, 1 bf16 cache, 2 int8 cache with f32 scales ks, vs
-// (B, lmax, nkv). q and out are bf16 (q_bf16) or f32. The slots are cut
-// into `splits` blocks of `chunk` (decode_plan); with splits > 1, `part`
-// is float32 scratch of B * nh * splits * (hd + 2) values.
+// (B, lmax, nkv). q and out are bf16 (q_bf16) or f32. `slopes`: nh f32
+// ALiBi slopes, or null for none. The slots are cut into `splits` blocks
+// of `chunk` (decode_plan); with splits > 1, `part` is float32 scratch of
+// B * nh * splits * (hd + 2) values.
 extern "C" int decode_attn(const void* q, const void* kc, const void* vc, const void* ks,
-                           const void* vs, const void* mask, void* out, void* part, int B,
+                           const void* vs, const void* slopes, const void* mask, void* out,
+                           void* part, int B,
                            int lmax, int nh, int nkv, int hd, float scale, int q_bf16,
                            int kv_kind, int splits, int chunk, void* stream) {
   if (hd > HD_MAX || hd <= 0 || nkv <= 0 || nh % nkv || chunk < 1 || chunk > CHUNK_MAX ||
@@ -407,6 +424,7 @@ extern "C" int decode_attn(const void* q, const void* kc, const void* vc, const 
   a.vc = static_cast<const uint8_t*>(vc);
   a.ks = static_cast<const float*>(ks);
   a.vs = static_cast<const float*>(vs);
+  a.slopes = static_cast<const float*>(slopes);
   a.mask = static_cast<const int*>(mask);
   a.out = out;
   a.part_acc = static_cast<float*>(part);

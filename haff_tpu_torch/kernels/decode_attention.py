@@ -15,7 +15,22 @@ An int8 cache is a pair of `nn.quant.QuantArray`s: int8 values
 (B, Lmax, nkv, hd) with float32 scales (B, Lmax, nkv, 1), one per
 token-head. Kernel and plain version dequantize as the Pallas kernel
 does, int8 times the float32 scale with no rounding to the query's dtype,
-and give 0 for a row with no live slot.
+and give 0 for a row with no live slot. (The JAX package's MPT decode
+step, an XLA `mha_reference`, rounds the dequantized cache to the query's
+dtype first: equal in float32, within the bf16 tolerance in bfloat16.)
+
+ALiBi (the MPT decoder, nn/mpt.py): with per-head `slopes` (nh,) float32,
+slot j's score gains slopes[h] * j, the column form of the bias, exact
+under softmax. On the card it is a template flag of the kernel; without
+slopes the kernel compiled is the one without the term.
+
+`chunk_decode_attention` is the speculative verify step's attention: a
+chunk of D queries over the cache, each up to its own position. In the
+JAX package it is XLA, not a Pallas kernel, so here it is plain torch on
+both devices (the (B, nh, D, Lmax) scores are ~1 MB at 7b), and it
+dequantizes an int8 cache as the decode kernel does, in float32 without
+rounding, so that a verify chunk and a decode step compute the same
+function.
 """
 
 from __future__ import annotations
@@ -43,20 +58,35 @@ def dequantize_cache(c: Cache):
     return c.float()
 
 
-def decode_attention_plain(q, k_cache: Cache, v_cache: Cache, kv_mask,
-                           sm_scale: float):
-    """q (B, nh, hd) over caches (B, Lmax, nkv, hd) (tensors or
-    QuantArrays) with kv_mask (B, Lmax), > 0 = live slot. float32 softmax
-    over the live slots; a row with none gives 0. Returns (B, nh, hd) in
-    q's dtype."""
-    nh = q.shape[1]
+def _float_repeat(k_cache: Cache, v_cache: Cache, nh: int):
+    """Both caches in float32 (dequantized without rounding), their kv
+    heads repeated to nh."""
     k, v = dequantize_cache(k_cache), dequantize_cache(v_cache)
     nkv = k.shape[2]
     if nkv != nh:
         k = k.repeat_interleave(nh // nkv, dim=2)
         v = v.repeat_interleave(nh // nkv, dim=2)
+    return k, v
+
+
+def alibi_columns(slopes, lmax: int, device):
+    """(nh, Lmax) float32: slopes[h] * j, the ALiBi term of slot j."""
+    cols = torch.arange(lmax, dtype=torch.float32, device=device)
+    return slopes.float().to(device)[:, None] * cols[None, :]
+
+
+def decode_attention_plain(q, k_cache: Cache, v_cache: Cache, kv_mask,
+                           sm_scale: float, slopes=None):
+    """q (B, nh, hd) over caches (B, Lmax, nkv, hd) (tensors or
+    QuantArrays) with kv_mask (B, Lmax), > 0 = live slot; `slopes` (nh,)
+    adds slopes[h] * j to slot j's score. float32 softmax over the live
+    slots; a row with none gives 0. Returns (B, nh, hd) in q's dtype."""
+    nh = q.shape[1]
+    k, v = _float_repeat(k_cache, v_cache, nh)
     live = (kv_mask > 0)[:, None, :]
     s = torch.einsum("bnd,blnd->bnl", q.float() * sm_scale, k)
+    if slopes is not None:
+        s = s + alibi_columns(slopes, k.shape[1], q.device)
     s = s.masked_fill(~live, -torch.inf)
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
@@ -91,25 +121,28 @@ def decode_plan(b: int, nh: int, nkv: int, lmax: int) -> Tuple[int, int]:
 
 
 def decode_attention_split(q, k_cache: Cache, v_cache: Cache, kv_mask,
-                           sm_scale: float, plan=None):
+                           sm_scale: float, plan=None, slopes=None):
     """The kernel's algorithm in plain torch (float32): each split's
     softmax state (m, l, acc) over its slots, an empty one (m = -inf,
     l = 0) where no slot is live, then the merge (max, rescaled sums,
     acc / l; a row with no live slot gives 0). `plan` defaults to
-    decode_plan's. Returns (B, nh, hd) float32."""
+    decode_plan's; `slopes` as in decode_attention_plain. Returns
+    (B, nh, hd) float32."""
     b, nh, hd = q.shape
-    k, v = dequantize_cache(k_cache), dequantize_cache(v_cache)
-    lmax, nkv = k.shape[1], k.shape[2]
+    nkv = (k_cache.values if isinstance(k_cache, QuantArray)
+           else k_cache).shape[2]
+    k, v = _float_repeat(k_cache, v_cache, nh)
+    lmax = k.shape[1]
     splits, chunk = plan or decode_plan(b, nh, nkv, lmax)
-    if nkv != nh:
-        k = k.repeat_interleave(nh // nkv, dim=2)
-        v = v.repeat_interleave(nh // nkv, dim=2)
     live = kv_mask > 0
     qs = q.float() * sm_scale
+    alibi = None if slopes is None else alibi_columns(slopes, lmax, q.device)
     ms, ls, accs = [], [], []
     for i in range(splits):
         sl = slice(i * chunk, min((i + 1) * chunk, lmax))
         s = torch.einsum("bnd,blnd->bnl", qs, k[:, sl])
+        if alibi is not None:
+            s = s + alibi[:, sl]
         s = s.masked_fill(~live[:, None, sl], -torch.inf)
         m = s.amax(dim=-1)
         p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)[..., None])
@@ -129,16 +162,18 @@ def _lib():
     fn = _build.library(_DECODE).decode_attn
     if fn.argtypes is None:
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
-                       i32, ctypes.c_float, i32, i32, i32, i32, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32,
+                       i32, i32, ctypes.c_float, i32, i32, i32, i32, vp]
         fn.restype = ctypes.c_int
     return fn
 
 
 def decode_attention_kernel(q, k_cache: Cache, v_cache: Cache, kv_mask,
-                            sm_scale: float):
-    """Launch csrc/decode_attn.cu. Forward only: raises when grad mode is
-    on and an input requires grad."""
+                            sm_scale: float, slopes=None):
+    """Launch csrc/decode_attn.cu (its ALiBi variant when `slopes`, (nh,)
+    float32, is given; such a launch also counts under
+    `decode_attn/alibi`). Forward only: raises when grad mode is on and an
+    input requires grad."""
     quant = isinstance(k_cache, QuantArray)
     if quant != isinstance(v_cache, QuantArray):
         raise TypeError(f"{_DECODE}: k and v caches of different kinds")
@@ -170,6 +205,8 @@ def decode_attention_kernel(q, k_cache: Cache, v_cache: Cache, kv_mask,
     mask = kv_mask if kv_mask.dtype == torch.int32 else kv_mask.to(torch.int32)
     mask = mask.contiguous()
     check(_DECODE, "kv_mask", mask, torch.int32, (b, lmax))
+    if slopes is not None:
+        check(_DECODE, "slopes", slopes, torch.float32, (nh,))
     out = torch.empty_like(q)
     if b and nh:
         splits, chunk = decode_plan(b, nh, nkv, lmax)
@@ -177,22 +214,49 @@ def decode_attention_kernel(q, k_cache: Cache, v_cache: Cache, kv_mask,
         part = (torch.empty(b * nh * splits * (hd + 2), dtype=torch.float32,
                             device=q.device) if splits > 1 else None)
         ptr = _build.ptr
-        err = _lib()(ptr(q), ptr(kv), ptr(vv), ptr(ks), ptr(vs), ptr(mask),
-                     ptr(out), ptr(part), b, lmax, nh, nkv, hd,
+        err = _lib()(ptr(q), ptr(kv), ptr(vv), ptr(ks), ptr(vs), ptr(slopes),
+                     ptr(mask), ptr(out), ptr(part), b, lmax, nh, nkv, hd,
                      float(sm_scale), int(q.dtype == torch.bfloat16),
                      _KV_CODES[kv.dtype], splits, chunk,
                      _build.stream_handle(q.device))
         _build.LAUNCHES[_DECODE] += 1
+        if slopes is not None:
+            _build.LAUNCHES[_DECODE + "/alibi"] += 1
         _build.check(err, _DECODE)
     return out
 
 
 def flash_decode_attention(q, k_cache: Cache, v_cache: Cache, kv_mask,
-                           sm_scale: Optional[float] = None):
+                           sm_scale: Optional[float] = None, slopes=None):
     """q (B, nh, hd), one decode step's queries; k/v_cache
     (B, Lmax, nkv, hd) tensors, or QuantArrays with (B, Lmax, nkv, 1)
-    scales; kv_mask (B, Lmax), 1 = live slot. Returns (B, nh, hd)."""
+    scales; kv_mask (B, Lmax), 1 = live slot; `slopes` (nh,) float32 the
+    ALiBi slopes, or None. Returns (B, nh, hd)."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     run = decode_attention_kernel if q.is_cuda else decode_attention_plain
-    return run(q, k_cache, v_cache, kv_mask, sm_scale)
+    return run(q, k_cache, v_cache, kv_mask, sm_scale, slopes=slopes)
+
+
+def chunk_decode_attention(q, k_cache: Cache, v_cache: Cache, kv_mask,
+                           q_positions, sm_scale: Optional[float] = None):
+    """Multi-token ("verify") attention over the KV cache (JAX
+    `chunk_decode_attention`): a chunk of D tokens, already written into
+    the cache at per-row offsets, each attending over the live slots up
+    to its own position. q (B, D, nh, hd); k/v_cache (B, Lmax, nkv, hd)
+    tensors or QuantArrays; kv_mask (B, Lmax), > 0 = live slot, the
+    chunk's slots included; q_positions (B, D) the chunk's absolute
+    positions (slot j holds position j, so a query sees slot <= its
+    position). Plain torch on every device, float32 softmax. Returns
+    (B, D, nh, hd) in q's dtype."""
+    b, d, nh, hd = q.shape
+    if sm_scale is None:
+        sm_scale = hd ** -0.5
+    k, v = _float_repeat(k_cache, v_cache, nh)
+    slots = torch.arange(k.shape[1], device=q.device)
+    s = torch.einsum("bdnh,blnh->bndl", q.float() * sm_scale, k)
+    visible = ((kv_mask > 0)[:, None, :]
+               & (slots[None, None, :] <= q_positions[:, :, None]))
+    s = s.masked_fill(~visible[:, None], -torch.inf)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bndl,blnh->bdnh", p, v).to(q.dtype)

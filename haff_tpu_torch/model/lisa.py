@@ -1,6 +1,8 @@
 """The composite 2Haff model (port of haff_tpu/model/lisa.py): CLIP ViT
-tower + mm_projector, LLaMA decoder emitting [SEG], the [SEG] projection
-MLP, and SAM with the dual mask decoders and the taxonomy head.
+tower + mm_projector, LLaMA decoder emitting [SEG] (or, with
+`cfg.decoder == "mpt"`, the MPT decoder of nn/mpt.py at the LLaMA
+config's widths), the [SEG] projection MLP, and SAM with the dual mask
+decoders and the taxonomy head.
 
 The model is built on the `meta` device, then materialised on `device`
 (default "cuda": the card, unless the caller asks for the CPU) in
@@ -27,6 +29,7 @@ from ..core.dtypes import resolve, set_reference_precision
 from ..nn.clip_vit import ClipVisionTower
 from ..nn.layers import LayerNorm, QDense
 from ..nn.llama import LlamaForCausalLM, RMSNorm
+from ..nn.mpt import MptConfig, MptForCausalLM
 from ..nn.lora import LoraDense
 from ..nn.sam import Sam, postprocess_masks_padded
 from . import losses as L
@@ -75,11 +78,20 @@ class LisaModel(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16,
                  device="cuda", generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.decoder != "llama":
-            raise NotImplementedError("the MPT decoder is not ported yet")
         self.cfg = cfg
         with torch.device("meta"):
-            self.llm = LlamaForCausalLM(cfg.llama)
+            if cfg.decoder == "mpt":
+                # The alternative MPT backend (reference llava_mpt.py) at
+                # the LLaMA config's widths: the same (logits, hidden,
+                # caches) interface; ALiBi ignores the positions.
+                self.llm = MptForCausalLM(MptConfig(
+                    vocab_size=cfg.llama.vocab_size,
+                    d_model=cfg.llama.hidden_size,
+                    n_heads=cfg.llama.num_heads,
+                    n_layers=cfg.llama.num_layers,
+                    max_seq_len=cfg.llama.max_seq_len))
+            else:
+                self.llm = LlamaForCausalLM(cfg.llama)
             self.vision_tower = ClipVisionTower(cfg.clip)
             self.mm_projector = QDense(cfg.clip.hidden_size,
                                        cfg.llama.hidden_size)

@@ -105,17 +105,19 @@ class QDense(nn.Linear):
 
 class LayerNorm(nn.Module):
     """flax `nn.LayerNorm(dtype=float32)`: statistics and output in float32
-    (callers cast to the compute dtype, as the JAX modules do)."""
+    (callers cast to the compute dtype, as the JAX modules do); `bias`
+    False is `use_bias=False` (MPT's norms)."""
 
-    def __init__(self, dim: int, eps: float = 1e-6):
+    def __init__(self, dim: int, eps: float = 1e-6, bias: bool = True):
         super().__init__()
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim))
-        self.bias = nn.Parameter(torch.zeros(dim))
+        self.bias = nn.Parameter(torch.zeros(dim)) if bias else None
 
     def forward(self, x):
+        bias = None if self.bias is None else self.bias.float()
         return F.layer_norm(x.float(), (x.shape[-1],), self.weight.float(),
-                            self.bias.float(), self.eps)
+                            bias, self.eps)
 
 
 class ChannelLayerNorm(LayerNorm):

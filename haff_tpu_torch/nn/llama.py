@@ -22,7 +22,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.config import LlamaConfig
-from ..kernels.decode_attention import flash_decode_attention
+from ..kernels.decode_attention import (chunk_decode_attention,
+                                        flash_decode_attention)
 from ..kernels.flash_attention import flash_attention
 from .layers import QDense
 from .lora import LoraDense, fold_in
@@ -63,6 +64,30 @@ def apply_rope(x, positions, table):
                      dim=-1).to(x.dtype)
 
 
+def write_kv_cache(kv_cache, k, v, cache_index=None):
+    """Write fresh k/v (B, L, nkv, hd) into a (k, v) cache pair in place at
+    per-row offsets `cache_index` (B,) (default 0): tensors take them in
+    their dtype; an int8 cache (QuantArrays) quantizes each token-head
+    over head_dim and writes values and scales at the same slots. Returns
+    the pair."""
+    ck, cv = kv_cache
+    b, l = k.shape[:2]
+    if cache_index is None:
+        cache_index = torch.zeros((b,), dtype=torch.long, device=k.device)
+    rows = torch.arange(b, device=k.device)[:, None]
+    cols = cache_index.long()[:, None] + torch.arange(
+        l, device=k.device)[None, :]
+    if isinstance(ck, QuantArray):
+        for cache, fresh in ((ck, k), (cv, v)):
+            qa = quantize_activation(fresh)
+            cache.values[rows, cols] = qa.values
+            cache.scales[rows, cols] = qa.scales
+    else:
+        ck[rows, cols] = k.to(ck.dtype)
+        cv[rows, cols] = v.to(cv.dtype)
+    return ck, cv
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
@@ -93,12 +118,15 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x, positions, table, segment_ids=None, kv_cache=None,
                 cache_index=None, cache_kv_segment_ids=None,
-                dropout_seed=None):
+                dropout_seed=None, q_positions=None):
         """Prefill (no cache_kv_segment_ids): causal flash attention over
         the L inputs, and, given a cache, their k/v written in place at
-        per-row offsets `cache_index` (B,). Decode (L == 1, cache and
-        cache_kv_segment_ids given; the mask includes the slot just
-        written): attention over the live cache slots. A cache is a pair
+        per-row offsets `cache_index` (B,). Decode (cache and
+        cache_kv_segment_ids given; the mask includes the slots just
+        written): L == 1 attends over the live cache slots through the
+        decode kernel; L > 1 is a speculative verify chunk, each token
+        over the live slots up to its own position (`q_positions`: the
+        positions before RoPE's table clamp; default `positions`). A cache is a pair
         of tensors, or of QuantArrays (int8). `dropout_seed`
         (training) turns LoRA dropout on. Returns (out, kv_cache)."""
         cfg = self.cfg
@@ -112,31 +140,16 @@ class LlamaAttention(nn.Module):
         v = proj("v_proj", x).reshape(b, l, nkv, hd)
 
         if kv_cache is not None:
-            ck, cv = kv_cache
-            if cache_index is None:
-                cache_index = torch.zeros((b,), dtype=torch.long,
-                                          device=x.device)
-            rows = torch.arange(b, device=x.device)[:, None]
-            cols = cache_index.long()[:, None] + torch.arange(
-                l, device=x.device)[None, :]
-            if isinstance(ck, QuantArray):
-                # int8 cache: each fresh token-head quantized over head_dim,
-                # values and scales written at the same slots.
-                for cache, fresh in ((ck, k), (cv, v)):
-                    qa = quantize_activation(fresh)
-                    cache.values[rows, cols] = qa.values
-                    cache.scales[rows, cols] = qa.scales
-            else:
-                ck[rows, cols] = k.to(ck.dtype)
-                cv[rows, cols] = v.to(cv.dtype)
+            ck, cv = write_kv_cache(kv_cache, k, v, cache_index)
 
         if kv_cache is not None and cache_kv_segment_ids is not None:
-            if l != 1:
-                raise NotImplementedError(
-                    "multi-token cache attention (speculative verify) is "
-                    "not ported yet")
-            out = flash_decode_attention(q[:, 0].contiguous(), ck, cv,
-                                         cache_kv_segment_ids)[:, None]
+            if l == 1:
+                out = flash_decode_attention(q[:, 0].contiguous(), ck, cv,
+                                             cache_kv_segment_ids)[:, None]
+            else:  # a speculative verify chunk, each token up to itself
+                out = chunk_decode_attention(
+                    q, ck, cv, cache_kv_segment_ids,
+                    positions if q_positions is None else q_positions)
         else:
             if nkv != nh:
                 k = k.repeat_interleave(nh // nkv, dim=2)
@@ -169,10 +182,10 @@ class LlamaBlock(nn.Module):
 
     def forward(self, x, positions, table, segment_ids=None, kv_cache=None,
                 cache_index=None, cache_kv_segment_ids=None,
-                dropout_seed=None):
+                dropout_seed=None, q_positions=None):
         attn, kv_cache = self.self_attn(
             self.input_layernorm(x), positions, table, segment_ids, kv_cache,
-            cache_index, cache_kv_segment_ids, dropout_seed)
+            cache_index, cache_kv_segment_ids, dropout_seed, q_positions)
         x = x + attn
         return x + self.mlp(self.post_attention_layernorm(x)), kv_cache
 
@@ -203,14 +216,15 @@ class LlamaModel(nn.Module):
                            device=x.device)
         # A position past the table reads its last row, as JAX's clamped
         # gather does (a long prompt at the tiny preset's 128 positions).
-        positions = positions.long().clamp(max=cfg.max_seq_len - 1)
+        positions = positions.long()
+        rope_positions = positions.clamp(max=cfg.max_seq_len - 1)
         remat = remat and torch.is_grad_enabled()
         new_caches = []
         for i, layer in enumerate(self.layers):
             cache = kv_caches[i] if kv_caches is not None else None
             seed = None if dropout_seed is None else fold_in(dropout_seed, i)
-            args = (x, positions, table, segment_ids, cache, cache_index,
-                    cache_kv_segment_ids, seed)
+            args = (x, rope_positions, table, segment_ids, cache, cache_index,
+                    cache_kv_segment_ids, seed, positions)
             if remat:
                 # The dropout masks come from explicit seeds, so the global
                 # RNG state need not be saved for the recompute.

@@ -15,7 +15,10 @@ indices; Dense kernels (in, out) become Linear weights (out, in); Conv
 kernels HWIO become OIHW; flax ConvTranspose(transpose_kernel=True)
 kernels (kh, kw, out, in) become ConvTranspose2d weights (in, out, kh,
 kw) (the inverse of haff_tpu/tools/convert_weights.py t_convT);
-LayerNorm `scale` and Embed `embedding` become `weight`.
+LayerNorm `scale` and Embed `embedding` become `weight`. An MPT decoder's
+tree (`llm/blocks_i/{norm_1, attn/Wqkv, attn/out_proj, norm_2, up_proj,
+down_proj}`, `llm/wte/embedding`, `llm/norm_f/scale`) maps by the same
+rules.
 
 A tree that `quantize_dense_tree` made loads too: a Dense scope with an
 int8 `kernel` (in, out) and `scale` (out,), or a packed uint8 `kernel`

@@ -17,8 +17,8 @@ Each `convert_*` returns the JAX package's parameter tree (nested dicts
 of numpy arrays, flax scope names and layouts: Dense (in, out), NHWC
 convolutions), equal to haff_tpu's conversion; `to_state_dict` carries
 it through tools/bridge.py into the port's state_dict names and layouts,
-and `merge_into_init` overlays it onto a built model. The MPT conversion
-waits for the MPT decoder (ROADMAP Queue 1 item 8).
+and `merge_into_init` overlays it onto a built model. `convert_mpt` maps
+a mosaicml/HF MPT state dict to nn/mpt.MptForCausalLM's tree.
 
 Layout conversions: torch Linear (out,in) -> Dense kernel (in,out);
 Conv2d (out,in,kh,kw) -> NHWC Conv kernel (kh,kw,in,out);
@@ -371,6 +371,41 @@ def convert_llama(sd: Dict[str, np.ndarray], num_layers: int,
 # ---------------------------------------------------------------------------
 # Full 2HAff merged checkpoint
 # ---------------------------------------------------------------------------
+
+def convert_mpt(sd: Dict[str, np.ndarray], n_layers: int,
+                prefix: str = "transformer.") -> Dict:
+    """HF/mosaicml MPTForCausalLM keys -> the MPT decoder's tree (the
+    vendored reference mpt/modeling_mpt.py layout: wte, blocks.i
+    {norm_1, attn.{Wqkv, out_proj}, norm_2, ffn.{up,down}_proj}, norm_f;
+    no biases, the LM head tied to wte). Through `to_state_dict` it loads
+    into nn/mpt.MptForCausalLM (the `llm` of an MPT LisaModel)."""
+    p: Dict = {}
+
+    def put(path, val):
+        d = p
+        parts = path.split("/")
+        for k in parts[:-1]:
+            d = d.setdefault(k, {})
+        d[parts[-1]] = np.asarray(val)
+
+    put("wte/embedding", sd[prefix + "wte.weight"])
+    put("norm_f/scale", sd[prefix + "norm_f.weight"])
+    for i in range(n_layers):
+        b = f"{prefix}blocks.{i}."
+        o = f"blocks_{i}"
+        put(f"{o}/norm_1/scale", sd[b + "norm_1.weight"])
+        put(f"{o}/attn/Wqkv/kernel", t_linear(sd[b + "attn.Wqkv.weight"]))
+        put(f"{o}/attn/out_proj/kernel",
+            t_linear(sd[b + "attn.out_proj.weight"]))
+        if b + "attn.q_ln.weight" in sd:  # qk_ln variants
+            put(f"{o}/attn/q_ln/scale", sd[b + "attn.q_ln.weight"])
+            put(f"{o}/attn/k_ln/scale", sd[b + "attn.k_ln.weight"])
+        put(f"{o}/norm_2/scale", sd[b + "norm_2.weight"])
+        put(f"{o}/up_proj/kernel", t_linear(sd[b + "ffn.up_proj.weight"]))
+        put(f"{o}/down_proj/kernel",
+            t_linear(sd[b + "ffn.down_proj.weight"]))
+    return p
+
 
 def convert_2haff(sd: Dict[str, np.ndarray], llama_layers: int,
                   sam_depth: int) -> Dict:

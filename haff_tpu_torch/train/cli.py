@@ -208,8 +208,9 @@ def check_flags(args) -> None:
     if args.moe_experts > 0:
         raise SystemExit(f"--moe_experts {args.moe_experts}: {_NOT_PORTED}")
     if args.decoder != "llama":
-        raise SystemExit("--decoder mpt: not ported yet (ROADMAP Queue 1 "
-                         "item 8)")
+        raise SystemExit("--decoder mpt: serving only; training the MPT "
+                         "decoder is not ported yet (ROADMAP Queue 1 item 8, "
+                         "open part)")
     if args.load_in_8bit and args.load_in_4bit:
         raise SystemExit("--load_in_8bit and --load_in_4bit exclude each "
                          "other")

@@ -44,7 +44,8 @@ def both():
     got = evaluate_fn(port_model(params), isam, iclip, ids, att, T, EOS)
     return ({k: np.asarray(v) for k, v in ref._asdict().items()
              if v is not None},
-            {k: v.numpy() for k, v in got._asdict().items()})
+            {k: v.numpy() for k, v in got._asdict().items()
+             if v is not None})
 
 
 def test_tokens_and_lengths_identical(both):

@@ -892,3 +892,183 @@ def test_graphed_evaluate_equals_eager(dev, kv_cache_8bit):
                                        rtol=0, atol=1e-6)
         assert n_got == n_ref and n_ref["decode_attn"] == 5 * cfg.llama.num_layers
     assert (graphed.captures, graphed.replays) == (1, 2)
+
+
+# ----- speculative decode and the MPT decoder -----
+
+# MPT-7B's W8A8 products (K, N): the fused Wqkv, up and down at expansion 4.
+MPT_7B = [(4096, 12288), (4096, 16384), (16384, 4096)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [2, 16, 1150])
+@pytest.mark.parametrize("k,n", MPT_7B)
+def test_w8a8_kernel_at_mpt_shapes(dev, dtype, m, k, n):
+    """MPT-7B's products at a decode step (M = 2), a speculative verify
+    step (M = 16, both on the skinny kernel) and its prefill (the tensor
+    cores), as test_w8a8_kernel_matches_plain holds them."""
+    test_w8a8_kernel_matches_plain(dev, dtype, m, k, n)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("b,lmax,nh,nkv,hd,lengths", [
+    (2, 591, 32, 32, 128, (590, 1)), (2, 591, 32, 32, 128, (590, 590)),
+    (2, 300, 12, 12, 64, (17, 300)), (2, 200, 32, 1, 128, (200, 0))])
+def test_decode_kernel_with_alibi_slopes_matches_plain(dev, kind, b, lmax, nh,
+                                                       nkv, hd, lengths):
+    """The kernel's ALiBi variant (MPT's decode step: slot j's score gains
+    slope_h * j, up to 0.84 x 590 here) at MPT-7B's shape, 12 heads
+    (interleaved slopes) and multi-query attention (one kv head, 32 query
+    heads: four head blocks), against the plain version and the split
+    emulation with the same slopes; one launch counted under
+    `decode_attn/alibi` too; an all-dead row exactly 0."""
+    from haff_tpu_torch.nn.mpt import alibi_slopes
+
+    g = torch.Generator(dev).manual_seed(lmax + nh + nkv)
+    q = (0.5 * torch.randn(b, nh, hd, generator=g, device=dev)).bfloat16()
+    k = 0.5 * torch.randn(b, lmax, nkv, hd, generator=g, device=dev)
+    v = torch.randn(b, lmax, nkv, hd, generator=g, device=dev)
+    if kind == "int8":
+        k, v = quant.quantize_activation(k), quant.quantize_activation(v)
+    elif kind == "bf16":
+        k, v = k.bfloat16(), v.bfloat16()
+    mask = (torch.arange(lmax, device=dev)[None]
+            < torch.tensor(lengths, device=dev)[:, None]).int()
+    slopes = alibi_slopes(nh, device=dev)
+    before = dict(_build.LAUNCHES)
+    got = da.decode_attention_kernel(q, k, v, mask, hd ** -0.5, slopes=slopes)
+    torch.cuda.synchronize()
+    for key in ("decode_attn", "decode_attn/alibi"):
+        assert _build.LAUNCHES[key] == before.get(key, 0) + 1, key
+    ref = da.decode_attention_plain(q.float(), k, v, mask, hd ** -0.5,
+                                    slopes=slopes)
+    _close(got, ref)
+    _close(got, da.decode_attention_split(q.float(), k, v, mask, hd ** -0.5,
+                                          slopes=slopes))
+    plain = da.decode_attention_plain(q.float(), k, v, mask, hd ** -0.5)
+    assert not torch.allclose(got.float(), plain, atol=1e-2)
+    for row, n in enumerate(lengths):
+        if n == 0:
+            assert not got[row].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,l,h,d", [(2, 575, 32, 128), (2, 130, 12, 64)])
+def test_flash_prefill_with_alibi_bias(dev, dtype, b, l, h, d):
+    """The flash forward with MPT's ALiBi column bias (1, nh, 1, L) as its
+    bias operand, read through strides, magnitudes up to ~480 at MPT-7B's
+    prefill (2, 575, 32, 128), causal, row 1 right-padded."""
+    from haff_tpu_torch.nn.mpt import alibi_column_bias
+
+    g = torch.Generator(dev).manual_seed(l + h)
+    q, k, v = (torch.randn(b, l, h, d, generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    seg = torch.ones(b, l, dtype=torch.int32, device=dev)
+    seg[1, l - l // 5:] = 0
+    bias = alibi_column_bias(h, l, device=dev)
+    assert float(bias.max()) > 0.5 * (l - 1)
+    _flash_path(dtype, q, k, v)
+    scalar = _scalar_bf16_launches()
+    out, lse = fa.flash_attention(q, k, v, bias, seg, seg, True,
+                                  return_lse=True)
+    torch.cuda.synchronize()
+    _assert_tensor_cores(dtype, scalar)
+    ref, ref_lse = fa.attention_plain(q.float(), k.float(), v.float(), bias,
+                                      seg, seg, True)
+    _close(out, ref)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-3)
+    assert not out[1, l - l // 5:].any()
+
+
+def _tiny_requests(cfg, rng, call):
+    import numpy as np
+
+    ids = rng.randint(5, 400, (2, 12))
+    ids[:, 2] = -200
+    att = np.ones((2, 12), np.int64)
+    att[1, 8 + call:] = 0
+    S, C = cfg.sam_encoder.image_size, cfg.clip.image_size
+    return (rng.randn(2, S, S, 3).astype(np.float32),
+            rng.randn(2, C, C, 3).astype(np.float32), ids, att)
+
+
+def _counted(fn, req):
+    import collections
+
+    before = collections.Counter(_build.LAUNCHES)
+    out = fn(*req)
+    torch.cuda.synchronize()
+    after = collections.Counter(_build.LAUNCHES)
+    after.subtract(before)
+    return out, +after
+
+
+@pytest.mark.parametrize("kv_cache_8bit", [False, True])
+def test_graphed_speculative_evaluate_equals_eager(dev, kv_cache_8bit):
+    """make_jitted_evaluate(draft_corpus=...) on the card (one verify step
+    captured at the first call, replayed while a row is live at the next
+    two) against evaluate_fn's eager speculative decode and against greedy
+    at the tiny preset in float32: identical tokens and decode steps,
+    masks within 1e-6 of eager, the same launches per call, replays
+    equal to the replayed calls' decode steps."""
+    import numpy as np
+
+    from haff_tpu_torch.core.config import ModelConfig
+    from haff_tpu_torch.infer.evaluate import evaluate_fn, make_jitted_evaluate
+    from haff_tpu_torch.infer.generate import make_lookup_corpus
+    from haff_tpu_torch.model.lisa import LisaModel
+
+    cfg = ModelConfig.preset("tiny")
+    model = LisaModel(cfg, torch.float32, device=dev)
+    corpus, lens = make_lookup_corpus([[3, 4, 5]], 8, 1, 2)
+    kw = dict(kv_cache_8bit=kv_cache_8bit, draft_corpus=corpus,
+              corpus_lengths=lens, draft_len=3)
+    graphed = make_jitted_evaluate(model, 6, 2, **kw)
+    rng = np.random.RandomState(0)
+    replayed = 0
+    for call in range(3):
+        req = _tiny_requests(cfg, rng, call)
+        got, n_got = _counted(graphed, req)
+        ref, n_ref = _counted(lambda *r: evaluate_fn(model, *r, 6, 2, **kw),
+                              req)
+        plain = evaluate_fn(model, *req, 6, 2, kv_cache_8bit=kv_cache_8bit)
+        for other in (ref, plain):
+            assert torch.equal(got.output_ids, other.output_ids)
+            assert torch.equal(got.gen_lengths, other.gen_lengths)
+        assert int(got.decode_steps) == int(ref.decode_steps)
+        for key in ("pred_masks_left", "pred_masks_right", "taxonomies"):
+            torch.testing.assert_close(getattr(got, key), getattr(ref, key),
+                                       rtol=0, atol=1e-6)
+        assert n_got == n_ref and "decode_attn" not in n_ref
+        replayed += int(got.decode_steps) if call else 0
+    assert graphed.captures == 1 and graphed.replays == replayed
+
+
+@pytest.mark.parametrize("kv_cache_8bit", [False, True])
+def test_mpt_evaluate_on_the_card_matches_the_cpu(dev, kv_cache_8bit):
+    """The MPT decoder at tiny in float32: evaluate_fn and the graphed
+    evaluate on the card against evaluate_fn on the CPU from the same
+    weights: identical tokens, masks within 1e-4, every decode step on
+    the decode kernel's ALiBi variant."""
+    import numpy as np
+
+    from haff_tpu_torch.core.config import ModelConfig
+    from haff_tpu_torch.infer.evaluate import evaluate_fn, make_jitted_evaluate
+    from haff_tpu_torch.model.lisa import LisaModel
+
+    cfg = ModelConfig.preset("tiny").replace(decoder="mpt")
+    gpu = LisaModel(cfg, torch.float32, device=dev)
+    cpu = LisaModel(cfg, torch.float32, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    req = _tiny_requests(cfg, np.random.RandomState(1), 0)
+    ref = evaluate_fn(cpu, *req, 6, 2, kv_cache_8bit=kv_cache_8bit)
+    graphed = make_jitted_evaluate(gpu, 6, 2, kv_cache_8bit=kv_cache_8bit)
+    for run in (lambda *r: evaluate_fn(gpu, *r, 6, 2,
+                                       kv_cache_8bit=kv_cache_8bit),
+                graphed, graphed):
+        got, n = _counted(run, req)
+        assert torch.equal(got.output_ids.cpu(), ref.output_ids)
+        for key in ("pred_masks_left", "pred_masks_right", "taxonomies"):
+            torch.testing.assert_close(getattr(got, key).cpu(),
+                                       getattr(ref, key), rtol=1e-4, atol=1e-4)
+        assert n["decode_attn"] == n["decode_attn/alibi"] == 5 * 2

@@ -69,7 +69,8 @@ def test_the_walk_covers_every_module_of_the_port():
                 "haff_tpu_torch/tools/convert_weights.py",
                 "haff_tpu_torch/train/metrics.py",
                 "haff_tpu_torch/train/checkpoints.py",
-                "haff_tpu_torch/train/cli.py", "chip_smoke.py"):
+                "haff_tpu_torch/train/cli.py", "haff_tpu_torch/nn/mpt.py",
+                "chip_smoke.py"):
         assert rel in names, rel
 
 
@@ -94,3 +95,15 @@ def test_model_defaults_to_the_card():
         with pytest.raises((RuntimeError, AssertionError)):
             LisaModel(cfg)
     assert LisaModel(cfg, torch.float32, device="cpu").device.type == "cpu"
+
+
+def test_mpt_model_defaults_to_the_card():
+    cfg = ModelConfig.preset("tiny").replace(decoder="mpt")
+    if torch.cuda.is_available():
+        assert LisaModel(cfg).device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            LisaModel(cfg)
+    model = LisaModel(cfg, torch.float32, device="cpu")
+    assert model.device.type == "cpu"
+    assert type(model.llm).__name__ == "MptForCausalLM"

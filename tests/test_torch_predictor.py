@@ -81,8 +81,8 @@ def test_jitted_evaluate_on_the_cpu_is_evaluate_fn(port_pred):
     fn = make_jitted_evaluate(model, 5, 2)
     got, ref = fn(isam, iclip, ids, att), evaluate_fn(model, isam, iclip,
                                                       ids, att, 5, 2)
-    for a, b in zip(got, ref):
-        assert torch.equal(a, b)
+    for a, b in zip(got, ref):  # decode_steps: None, greedy decode
+        assert (a is None and b is None) or torch.equal(a, b)
 
 
 def test_checkpoint_directory_and_speculative_raise(tmp_path):
@@ -90,5 +90,6 @@ def test_checkpoint_directory_and_speculative_raise(tmp_path):
     # one, say) raises; a port checkpoint loads (test_torch_train_cli.py).
     with pytest.raises(NotImplementedError, match="orbax checkpoints are not"):
         Predictor(**KW, checkpoint=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        Predictor(**KW, speculative=True, device="cpu")
+    # Speculative decoding serves the llama decoder only, as in JAX.
+    with pytest.raises(ValueError, match="requires the llama decoder"):
+        Predictor(**KW, decoder="mpt", speculative=True, device="cpu")
