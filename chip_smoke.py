@@ -41,6 +41,12 @@ Phases (any failure raises and exits non-zero):
    and against greedy on both: junk, oracle and template corpora and an
    EOS inside an accepted chunk; tokens, lengths and decode steps
    identical, masks within 1e-3, the oracle in <= ceil(T / D) + 1 steps.
+4e. moe small (moe_small_vs_cpu): the small preset with MoE MLPs in every
+   layer (4 experts, top-2), float32, seeded weights, card against CPU in
+   three modes (float, W8A8 LLM + int8 cache, W4A16 at group 16): greedy
+   (eager, graphed) and speculative (oracle corpus, graphed verify) with
+   identical tokens, lengths and steps, masks within 1e-4 (float) or 1e-3;
+   the quantized products launch, routers and experts stay float.
 4d. mpt tiny: the MPT decoder at tiny in float32, card (eager and
    graphed) against CPU, float and int8 cache: identical tokens, masks
    within 1e-4, every decode launch on the ALiBi variant.
@@ -98,6 +104,14 @@ Phases (any failure raises and exits non-zero):
    with the ALiBi bias, 480 decode launches an evaluate all on the ALiBi
    variant (`decode_attn/alibi`), the w8a8 count derived from the model;
    weight bytes and peak memory.
+7e. MoE-7B (evaluate_moe_bf16, evaluate_spec_moe_bf16): the 7b preset with
+   MoE MLPs (MOE_7B: 8 experts, top-2, every other layer, capacity factor
+   1.25; ~21.9 B decoder parameters, built on the card), bf16: as phase 6
+   (2 eager calls, PER_EVALUATE launches each), then graphed (a capture
+   call and two replays, equal to eager) and speculative (oracle and
+   template corpora, 8 tokens a verify step: launches derived from the
+   decode steps, tokens against greedy's with the 2^-6 top-2-gap rule);
+   weight bytes, peak memory, latencies, profiled calls.
 7b. serve_bf16 and stream: a 7b bf16 Predictor (seeded weights, 16 new
    tokens, prompt 320) behind MicroBatcher(batch_size=2) and the HTTP
    handler on 127.0.0.1: four concurrent POST /predict with seeded
@@ -122,6 +136,15 @@ Phases (any failure raises and exits non-zero):
    1e-3; the decode graph captured at the first validation and replayed
    after a training step equal to an eager evaluate on the updated
    weights.
+8d. train_moe: make_train_step at 7b widths cut to 4 layers (MoE in layers 1
+   and 3, MOE_7B), LoRA r8 + the experts and routers trained in float32,
+   bf16 compute, remat, batch 2 at 575 tokens, 4 steps: the Switch aux
+   term moves the loss, exact launches (8 flash, 4 dq, 4 dk/dv a step),
+   MoE weights updated; step time, samples/s, peak memory.
+8e. train_cli_moe_small: the train CLI at small with --moe_experts 4
+   --moe_top_k 2 --moe_every 2, bf16: 2 steps, a validation and a
+   checkpoint; an auto-resumed run equal bit for bit to an uninterrupted
+   one; exact flash and decode launches.
 8c. train CLI, 7b: the CLI at the full 7b preset (LoRA r8, bf16, remat,
    batch 2) on a 4-frame 720 x 1280 ReasonSeg folder and a 2-frame
    benchmark folder, --val_batch_size 2, three runs in-process (each model freed
@@ -146,8 +169,9 @@ Phases (any failure raises and exits non-zero):
    pass) and tools/bench_kernels.py int8probe.
 
 The bf16 full-width paths (evaluate in three modes, speculative in two,
-MPT in two, serve_bf16, stream, train, train_cli, train_cli_8bit, the
-ViT-B predictor, the encoder backward) must run every SAM,
+MPT in two, MoE greedy and speculative, serve_bf16, stream, train,
+train_moe, train_cli, train_cli_8bit, the ViT-B predictor, the encoder
+backward) must run every SAM,
 flash forward, dq and dk/dv launch on the tensor cores, and every w8a8
 launch on the tensor cores (M > 16) or the streamed skinny kernel
 (decode), and every w4a16 launch on the tensor cores: no `<key>/scalar`
@@ -158,6 +182,7 @@ Prints a {"kernels": [...]} JSON line, the nvidia-smi line, and last
 """
 
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -197,16 +222,19 @@ PER_ENCODER_BACKWARD = {"sam_window_relpos_attn": 56,
 # The 7b evaluate paths of this slice's speculative decode and MPT decoder.
 SPEC_MPT_7B = ("evaluate_spec_bf16", "evaluate_spec_w8a8",
                "evaluate_mpt_bf16", "evaluate_mpt_w8a8")
+# The MoE slice's paths: the 7b MoE model greedy (eager and graphed) and
+# speculative, and the 7b-width MoE train step.
+MOE_7B_PATHS = ("evaluate_moe_bf16", "evaluate_spec_moe_bf16", "train_moe")
 EXPECTED_ON = {
     "sam_window_relpos_attn": ("evaluate_bf16", "evaluate_w8a8",
                                "evaluate_w4a16", "train", "encoder_backward",
                                "serve_bf16", "stream", "train_cli",
-                               "train_cli_8bit") + SPEC_MPT_7B,
+                               "train_cli_8bit") + SPEC_MPT_7B + MOE_7B_PATHS,
     "sam_global_relpos_attn": ("evaluate_bf16", "evaluate_w8a8",
                                "evaluate_w4a16", "train", "encoder_backward",
                                "predictor_vit_b", "small", "serve_bf16",
                                "stream", "train_cli", "train_cli_8bit")
-                              + SPEC_MPT_7B,
+                              + SPEC_MPT_7B + MOE_7B_PATHS,
     # The split window entry at the geometries of the TPU head-loop kernel
     # (counted under the split entry's key, on the paths that run it there).
     "sam_window_relpos_attn/vit_b": ("predictor_vit_b", "small"),
@@ -217,19 +245,31 @@ EXPECTED_ON = {
     "flash_prefill_fwd": ("evaluate_bf16", "evaluate_w8a8", "evaluate_w4a16",
                           "train", "serve_bf16", "stream", "train_cli",
                           "train_cli_8bit", "spec_small", "mpt_tiny")
-                         + SPEC_MPT_7B,
-    "flash_bwd_dq": ("train", "train_cli", "train_cli_8bit"),
-    "flash_bwd_dkv": ("train", "train_cli", "train_cli_8bit"),
+                         + SPEC_MPT_7B + MOE_7B_PATHS
+                         + ("moe_small", "train_cli_moe_small"),
+    "flash_bwd_dq": ("train", "train_cli", "train_cli_8bit", "train_moe",
+                     "train_cli_moe_small"),
+    "flash_bwd_dkv": ("train", "train_cli", "train_cli_8bit", "train_moe",
+                      "train_cli_moe_small"),
     "decode_attn": ("evaluate_w8a8", "evaluate_bf16", "evaluate_w4a16",
                     "serve_bf16", "stream", "train_cli", "train_cli_8bit",
-                    "evaluate_mpt_bf16", "evaluate_mpt_w8a8", "mpt_tiny"),
+                    "evaluate_mpt_bf16", "evaluate_mpt_w8a8", "mpt_tiny",
+                    "evaluate_moe_bf16", "moe_small", "train_cli_moe_small"),
     # train_cli_8bit: the QLoRA train step (tensor-core path, under grad)
     # and its validation's decode (skinny path); train_cli_tiny: the tiny
     # card-vs-CPU CLI runs (float32: w4a16 on its scalar kernel).
     "w8a8_matmul": ("evaluate_w8a8", "train_cli_8bit", "train_cli_tiny",
-                    "evaluate_spec_w8a8", "evaluate_mpt_w8a8", "spec_small"),
-    "w4a16_matmul": ("evaluate_w4a16", "train_cli_tiny", "spec_small"),
+                    "evaluate_spec_w8a8", "evaluate_mpt_w8a8", "spec_small",
+                    "moe_small"),
+    "w4a16_matmul": ("evaluate_w4a16", "train_cli_tiny", "spec_small",
+                     "moe_small"),
 }
+
+# The MoE configuration at LLaMA-7B widths: Mixtral-8x7B's 8 experts and
+# top-2 (arXiv 2401.04088) in every other layer (GLaM's interleave, arXiv
+# 2112.06905), capacity factor 1.25 (Switch's, the repo's default).
+MOE_7B = dict(moe_num_experts=8, moe_top_k=2, moe_every=2,
+              moe_capacity_factor=1.25)
 
 
 # The card's nvidia-smi name and power limit, printed beside every time.
@@ -1510,6 +1550,99 @@ def check_mpt_tiny(launches):
     return counts
 
 
+def check_moe_small(launches):
+    """moe_small_vs_cpu: the small preset with MoE MLPs in every layer (4
+    experts, top-2), float32, seeded weights, in three weight modes (float;
+    W8A8 on the LLM's projections + the int8 cache; W4A16 at group 16), the
+    card against the CPU from the same weights: greedy through evaluate_fn
+    and make_jitted_evaluate (a capture call and a replay) and speculative
+    (the oracle corpus, 4 tokens a verify step, the verify step graphed on
+    the card): identical tokens, lengths and decode steps, speculative
+    equal to greedy; masks and taxonomy within 1e-4 (float) or 1e-3 (the
+    quantized modes, as spec_small). The quantized products must launch,
+    and the routers and experts stay float. Returns the card's launches."""
+    from haff_tpu_torch.core.config import ModelConfig
+    from haff_tpu_torch.infer.evaluate import evaluate_fn, make_jitted_evaluate
+    from haff_tpu_torch.kernels import _build
+    from haff_tpu_torch.model.lisa import LisaModel
+    from haff_tpu_torch.nn import quant
+    from haff_tpu_torch.nn.moe import MoEMLP
+
+    base = ModelConfig.preset("small")
+    cfg = base.replace(llama=dataclasses.replace(
+        base.llama, moe_num_experts=4, moe_top_k=2, moe_every=1))
+    sd = {k: v.cpu() for k, v in LisaModel(
+        cfg, torch.float32, device="cuda",
+        generator=torch.Generator("cuda").manual_seed(1)).state_dict().items()}
+    T, D = 12, 4
+    req = make_requests(cfg, 2, 24, seed=3)
+    req[3][1, 20:] = 0
+    launches.clear()
+    for mode in ("float", "w8a8", "w4a16"):
+        models = {}
+        for dev in ("cuda", "cpu"):
+            m = LisaModel(cfg, torch.float32, device=dev)
+            m.load_state_dict(sd)
+            if mode != "float":
+                quant.quantize_model_(m, quant.default_llm_predicate,
+                                      bits=8 if mode == "w8a8" else 4,
+                                      group=16)
+            moes = [x for x in m.modules() if isinstance(x, MoEMLP)]
+            if len(moes) != cfg.llama.num_layers or any(
+                    x.router.quantized or any(
+                        p.dtype != torch.float32 for p in x.parameters())
+                    for x in moes):
+                raise AssertionError(f"moe small {mode}: MoE layers "
+                                     "quantized or missing")
+            models[dev] = m
+        kv8 = mode == "w8a8"
+        tol = 1e-4 if mode == "float" else 1e-3
+        before = collections.Counter(_build.LAUNCHES)
+        ref = evaluate_fn(models["cpu"], *req, T, 2, kv_cache_8bit=kv8)
+        graphed = make_jitted_evaluate(models["cuda"], T, 2, kv_cache_8bit=kv8)
+        oracle = torch.cat([torch.full((2, 1), -1), ref.output_ids], dim=1)
+        kw = dict(kv_cache_8bit=kv8, draft_corpus=oracle, draft_len=D)
+        spec_ref = evaluate_fn(models["cpu"], *req, T, 2, **kw)
+        spec = make_jitted_evaluate(models["cuda"], T, 2, **kw)
+        worst = 0.0
+        for what, got, want in (
+                ("eager", evaluate_fn(models["cuda"], *req, T, 2,
+                                      kv_cache_8bit=kv8), ref),
+                ("graphed capture", graphed(*req), ref),
+                ("graphed replay", graphed(*req), ref),
+                ("speculative capture", spec(*req), spec_ref),
+                ("speculative replay", spec(*req), spec_ref),
+                ("speculative (CPU) against greedy", spec_ref, ref)):
+            if not (torch.equal(got.output_ids.cpu(), want.output_ids)
+                    and torch.equal(got.gen_lengths.cpu(), want.gen_lengths)):
+                raise AssertionError(
+                    f"moe small {mode} {what}: tokens {got.output_ids.tolist()}"
+                    f" vs {want.output_ids.tolist()}")
+            if "speculative" in what and want is spec_ref and int(
+                    got.decode_steps) != int(want.decode_steps):
+                raise AssertionError(f"moe small {mode} {what}: "
+                                     f"{int(got.decode_steps)} decode steps, "
+                                     f"{int(want.decode_steps)} on the CPU")
+            for key in ("pred_masks_left", "pred_masks_right", "taxonomies"):
+                g, r = getattr(got, key).cpu(), getattr(want, key)
+                torch.testing.assert_close(g, r, rtol=tol, atol=tol)
+                worst = max(worst, float((g - r).abs().max()))
+        ran = collections.Counter(_build.LAUNCHES)
+        ran.subtract(before)
+        product = {"w8a8": "w8a8_matmul", "w4a16": "w4a16_matmul"}.get(mode)
+        if product and not ran[product]:
+            raise AssertionError(f"moe small {mode}: {product} never "
+                                 f"launched: {dict(+ran)}")
+        log(f"moe small {mode}: card (kernels, f32; eager, graphed, "
+            f"speculative graphed) = CPU in tokens, lengths and steps, "
+            f"speculative = greedy; masks/taxonomy max abs err {worst:.3g}; "
+            f"greedy tokens {ref.output_ids.tolist()}; speculative "
+            f"{int(spec_ref.decode_steps)} steps for {T} tokens; routers and "
+            f"experts float; launches {dict(+ran)}")
+        del models
+    return dict(launches)
+
+
 def product_launches(model, mode, new_tokens):
     """Launches of the quantized product's kernel in one evaluate(),
     derived from the model: each quantized LLM layer runs once a forward
@@ -1531,34 +1664,44 @@ def product_launches(model, mode, new_tokens):
     return llm * new_tokens + sam
 
 
-def run_slice(launches, mode="bf16", decoder="llama"):
+def run_slice(launches, mode="bf16", decoder="llama", moe=False):
     """evaluate() at the full 7b preset in one serving mode: "bf16", "w8a8"
     (int8 weights + int8 KV cache) or "w4a16" (packed-int4 LLM), with the
     LLaMA decoder or (`decoder="mpt"`, MPT-7B at the preset's widths: its
     decode steps on the decode kernel's ALiBi variant, counted under
-    `decode_attn/alibi` too) the MPT one. Returns {path: launch counts}:
-    `evaluate_{mode}` (`evaluate_mpt_{mode}`) over its 2 eager evaluate
-    calls, and for LLaMA in bf16 and w8a8 `evaluate_spec_{mode}`, the
-    speculative phase on the same model (run_speculative)."""
+    `decode_attn/alibi` too) the MPT one; `moe` gives the LLaMA decoder
+    MoE MLPs (MOE_7B: 16 MoE layers of 8 experts, ~21.9 B decoder
+    parameters). Returns {path: launch counts}: `evaluate_{mode}`
+    (`evaluate_mpt_{mode}`, `evaluate_moe_{mode}`) over its 2 eager
+    evaluate calls, and for LLaMA in bf16 and w8a8 `evaluate_spec_{mode}`
+    (`evaluate_spec_moe_{mode}`), the speculative phase on the same model
+    (run_speculative)."""
     from haff_tpu_torch.core.config import ModelConfig
     from haff_tpu_torch.infer.evaluate import evaluate_fn
     from haff_tpu_torch.model.lisa import LisaModel
     from haff_tpu_torch.nn.layers import QDense
+    from haff_tpu_torch.nn.moe import MoEMLP
 
     mpt = decoder == "mpt"
     cfg = ModelConfig.preset("7b").replace(decoder=decoder)
-    label = f"mpt {mode}" if mpt else mode
-    path = f"evaluate_mpt_{mode}" if mpt else f"evaluate_{mode}"
+    if moe:
+        cfg = cfg.replace(llama=dataclasses.replace(cfg.llama, **MOE_7B))
+    kind = "mpt " if mpt else "moe " if moe else ""
+    label = f"{kind}{mode}"
+    path = f"evaluate_{kind.strip()}_{mode}" if kind else f"evaluate_{mode}"
     t0 = time.perf_counter()
     model = LisaModel(cfg, torch.bfloat16, device="cuda",
                       generator=torch.Generator("cuda").manual_seed(0))
     torch.cuda.synchronize()
     nparam = sum(p.numel() for p in model.parameters())
     llm = sum(p.numel() for p in model.llm.parameters())
-    log(f"slice {label}: 7b preset ({type(model.llm).__name__}) built in "
+    experts = sum(p.numel() for m in model.modules() if isinstance(m, MoEMLP)
+                  for p in m.parameters())
+    log(f"slice {label}: 7b preset ({type(model.llm).__name__}"
+        f"{', MoE layers ' + str(model.moe_layers) if moe else ''}) built in "
         f"{time.perf_counter() - t0:.1f} s, {nparam / 1e9:.3f} B parameters "
-        f"bf16 ({llm / 1e9:.3f} B in the decoder), "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        f"bf16 ({llm / 1e9:.3f} B in the decoder, {experts / 1e9:.3f} B in "
+        f"MoE layers), {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     B, P, T, S = 2, 320, 16, cfg.sam_encoder.image_size
     expected = dict(PER_EVALUATE, w8a8_matmul=0, w4a16_matmul=0)
     expected["decode_attn/alibi"] = PER_EVALUATE["decode_attn"] if mpt else 0
@@ -1633,8 +1776,9 @@ def run_slice(launches, mode="bf16", decoder="llama"):
                                     eager_ms, expected)
     paths = {path: counts}
     if not mpt and mode != "w4a16":
-        paths[f"evaluate_spec_{mode}"] = run_speculative(
-            model, mode, cfg, launches, greedy, greedy_ms)
+        paths[f"evaluate_spec_{kind}{mode}".replace(" ", "_")] = \
+            run_speculative(model, mode, cfg, launches, greedy, greedy_ms,
+                            label)
     return paths
 
 
@@ -1696,30 +1840,154 @@ def run_graphed(model, mode, kv8, cfg, eager, eager_ms, expected):
 # The 7b bf16 speculative token check: where the speculative stream parts
 # from greedy's, greedy's top-2 logit gap at that step must be within
 # 2^-6 of the top logit's magnitude (a near tie that bf16 rounding of a
-# verify chunk can flip); a larger gap is a bug, not rounding.
+# verify chunk can flip); a larger gap is a bug, not rounding. With MoE
+# layers a second near tie can flip it: a router's top-k choice, after
+# which the token's MLP sums other experts. So a parting with a larger
+# logit gap passes only where the token's experts differ between greedy's
+# forward and the verify forward, and at the first MoE layer where they
+# do, greedy's k-th and (k+1)-th router probabilities lie within 2^-6 of
+# the k-th (the same rule, on the router's decision).
 TOP2_GAP_LIMIT = 2.0 ** -6
 
 
-def greedy_top2(model, req, tokens, row, step):
-    """Greedy's two largest logits at decode `step` of `row`: the row's
-    prompt and its first `step` greedy tokens through one prefill (the
-    flash kernel), the logits of the last position. Returns (gap, top)."""
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside the block are left out of _build.LAUNCHES: a
+    check's recomputation is not a launch of the path it checks."""
+    from haff_tpu_torch.kernels import _build
+
+    saved = collections.Counter(_build.LAUNCHES)
+    try:
+        yield
+    finally:
+        _build.LAUNCHES.clear()
+        _build.LAUNCHES.update(saved)
+
+
+class RoutingTrace:
+    """While active, every decoder forward of `model` is recorded as
+    (router probabilities of each MoE layer, (tokens, E) float32; logits,
+    float32) in `calls` (forward hooks; eager calls only)."""
+
+    def __init__(self, model):
+        self.model, self.calls, self._probs, self._hooks = model, [], [], []
+
+    def __enter__(self):
+        from haff_tpu_torch.nn.moe import MoEMLP
+
+        for m in self.model.modules():
+            if isinstance(m, MoEMLP):
+                self._hooks.append(m.router.register_forward_hook(
+                    lambda mod, a, out: self._probs.append(
+                        torch.softmax(out.float(), dim=-1))))
+        llm = self.model.llm
+        self._hooks.append(llm.register_forward_pre_hook(
+            lambda mod, a: self._probs.clear()))
+        self._hooks.append(llm.register_forward_hook(
+            lambda mod, a, out: self.calls.append((list(self._probs),
+                                                   out[0].float()))))
+        return self
+
+    def __exit__(self, *exc):
+        for h in self._hooks:
+            h.remove()
+
+
+def greedy_top2(model, req, tokens, row, step, eos_id, kv8=False):
+    """Greedy's two largest logits at decode `step` of `row`, recomputed
+    eagerly through generate's own prefill and decode_loop, into caches of
+    greedy's size and kind (`kv8`: int8); the recomputed tokens must equal
+    greedy's `tokens` up to `step`. Returns (gap, top, the token's router
+    probabilities at each MoE layer: (E,) tensors, none without MoE
+    layers)."""
     from haff_tpu_torch.infer.evaluate import _inputs, _prompt
+    from haff_tpu_torch.infer.generate import DecodeState, decode_loop, prefill
 
     _, images_clip, ids, att = _inputs(model, *req)
-    with torch.inference_mode():
+    tokens = tokens.long().to(model.device)
+    b = ids.shape[0]
+    with torch.inference_mode(), RoutingTrace(model) as trace:
         sp = _prompt(model, images_clip, ids, att)
-        n = int(sp.segment_ids[row].sum())
-        emb = torch.cat([sp.embeds[row:row + 1, :n], model.embed_tokens(
-            tokens[row:row + 1, :step].long().to(model.device))], dim=1)
-        pos = torch.arange(n + step, device=model.device)[None]
-        logits, _, _ = model.llm_forward(
-            emb, pos, torch.ones_like(pos, dtype=torch.int32))
-    top = logits[0, -1].float().topk(2).values
-    return float(top[0] - top[1]), float(top[0].abs())
+        state = DecodeState(model.llm.cfg, b, sp.embeds.shape[1],
+                            tokens.shape[1], model.device, kv_cache_8bit=kv8)
+        prefill(state, model.llm_forward, sp.embeds, sp.positions,
+                sp.segment_ids, sp.segment_ids.sum(dim=1))
+        decode_loop(state, model.embed_tokens, model.llm_forward, step + 1,
+                    eos_id)
+    if not torch.equal(state.tokens[:, :step + 1], tokens[:, :step + 1]):
+        raise AssertionError(f"greedy's eager recomputation parts from its "
+                             f"tokens before step {step}")
+    top = state.last_logits[row].float().topk(2).values
+    # The forward that chose token `step`: the prefill at the row's last
+    # prompt position, or decode forward `step`.
+    probs, _ = trace.calls[step]
+    pos = int(sp.segment_ids[row].sum()) - 1 if step == 0 else 0
+    routing = [x.reshape(b, -1, x.shape[-1])[row, pos] for x in probs]
+    return float(top[0] - top[1]), float(top[0].abs()), routing
 
 
-def run_speculative(model, mode, cfg, launches, greedy, greedy_ms):
+def router_near_tie(model, req, spec_kw, got, row, step, greedy_routing):
+    """The MoE clause of the near-tie rule for a parting at (row, step):
+    runs the same speculative evaluate eagerly (its tokens must equal the
+    graphed call's, `got`), recording each verify step's emitted counts
+    and each forward's routing, finds the verify forward that chose token
+    `step` and compares the token's top-k experts there with greedy's
+    (`greedy_routing`, from greedy_top2). Returns a description of the
+    first MoE layer where they differ, whose greedy k-th and (k+1)-th
+    probabilities must lie within TOP2_GAP_LIMIT of the k-th; raises
+    otherwise."""
+    from haff_tpu_torch.infer import generate as G
+    from haff_tpu_torch.infer.evaluate import evaluate_fn
+
+    k = min(model.cfg.llama.moe_top_k, model.cfg.llama.moe_num_experts)
+    real, counts = G.verify_step, []
+
+    def verify_step(state, *a):
+        before = int(state.emitted[row])
+        real(state, *a)
+        counts.append((before, int(state.emitted[row])))
+
+    G.verify_step = verify_step
+    try:
+        with RoutingTrace(model) as trace:
+            eager = evaluate_fn(model, *req, **spec_kw)
+    finally:
+        G.verify_step = real
+    if not torch.equal(eager.output_ids, got.output_ids):
+        raise AssertionError("speculative: the eager rerun's tokens differ "
+                             "from the graphed call's")
+    for v, (before, after) in enumerate(counts):
+        p = step - 1 - before
+        if 0 <= p < after - before:
+            probs, _ = trace.calls[1 + v]  # calls[0] is the prefill
+            b = got.output_ids.shape[0]
+            verify = [x.reshape(b, -1, x.shape[-1])[row, p] for x in probs]
+            break
+    else:
+        raise AssertionError(f"speculative: no verify step chose token {step}")
+    for layer, (g, v) in enumerate(zip(greedy_routing, verify)):
+        top_g, idx_g = g.topk(k + 1)
+        if set(idx_g[:k].tolist()) == set(v.topk(k).indices.tolist()):
+            continue
+        gap = float(top_g[k - 1] - top_g[k])
+        what = (f"router near tie at MoE layer {layer} (model layer "
+                f"{model.moe_layers[layer]}): greedy's experts "
+                f"{idx_g[:k].tolist()}, the verify step's "
+                f"{v.topk(k).indices.tolist()}; greedy's k-th and (k+1)-th "
+                f"probabilities {float(top_g[k - 1]):.5f}, "
+                f"{float(top_g[k]):.5f}")
+        if gap > TOP2_GAP_LIMIT * float(top_g[k - 1]):
+            raise AssertionError(f"speculative: tokens part from greedy's at "
+                                 f"row {row} step {step}, first routing "
+                                 f"difference not a near tie: {what}")
+        return what
+    raise AssertionError(f"speculative: tokens part from greedy's at row "
+                         f"{row} step {step} with the same experts in every "
+                         "MoE layer")
+
+
+def run_speculative(model, mode, cfg, launches, greedy, greedy_ms,
+                    label=None):
     """Speculative decode through make_jitted_evaluate(draft_corpus=...) on
     the 7b model run_slice built ("bf16", or "w8a8" with the int8 cache):
     batch 2, prompt 320, 16 new tokens, 8 tokens a verify step, the verify
@@ -1733,15 +2001,19 @@ def run_speculative(model, mode, cfg, launches, greedy, greedy_ms):
     once a forward: the prefill and every verify step, M = 16 on the
     skinny kernel), decode steps equal to the graph's replays, and the
     tokens against greedy's: equal, or else the first step where they
-    part must be a near tie of greedy's (TOP2_GAP_LIMIT). Prints latency
-    beside greedy's, steps and tokens a step; profiles a replayed call.
-    Returns the launch counts of its calls (the profiled ones included)."""
+    part must be a near tie of greedy's (TOP2_GAP_LIMIT), of its logits
+    or, with MoE layers, of a router's choice (router_near_tie). Prints
+    latency beside greedy's, steps and tokens a step; profiles a replayed call.
+    `label` names the model in the log (default `mode`). Returns the
+    launch counts of its calls (the profiled ones included; the near-tie
+    checks' recomputations left out)."""
     from haff_tpu_torch.data.tokenizer import ByteTokenizer
     from haff_tpu_torch.infer.evaluate import make_jitted_evaluate
     from haff_tpu_torch.infer.generate import answer_template_corpus
     from haff_tpu_torch.kernels import _build
 
     B, P, T, D = 2, 320, 16, 8
+    label = label or mode
     oracle = torch.cat([greedy[0].output_ids, greedy[1].output_ids], dim=1)
     template, template_len = answer_template_corpus(ByteTokenizer())
     base = {k: v for k, v in PER_EVALUATE.items() if k != "decode_attn"}
@@ -1752,7 +2024,7 @@ def run_speculative(model, mode, cfg, launches, greedy, greedy_ms):
                                   draft_corpus=corpus, corpus_lengths=lens,
                                   draft_len=D)
         lat, steps, per_step, verdicts = [], [], [], []
-        replays = 0
+        replays = router_ties = 0
         for i, seed in enumerate((0, 1, 0)):
             req = make_requests(cfg, B, P, seed=seed)
             before = collections.Counter(_build.LAUNCHES)
@@ -1767,7 +2039,7 @@ def run_speculative(model, mode, cfg, launches, greedy, greedy_ms):
             ran = +ran
             n = int(got.decode_steps)
             if i and ev.replays - replays_before != n:
-                raise AssertionError(f"speculative {mode} {name} call {i}: "
+                raise AssertionError(f"speculative {label} {name} call {i}: "
                                      f"{n} decode steps, "
                                      f"{ev.replays - replays_before} replays")
             replays += ev.replays - replays_before
@@ -1775,7 +2047,7 @@ def run_speculative(model, mode, cfg, launches, greedy, greedy_ms):
             if mode == "w8a8":
                 want["w8a8_matmul"] = product_launches(model, "w8a8", 1 + n)
             if ran != want:
-                raise AssertionError(f"speculative {mode} {name} call {i}: "
+                raise AssertionError(f"speculative {label} {name} call {i}: "
                                      f"launches {dict(ran)}, expected {want} "
                                      f"({n} decode steps)")
             steps.append(n)
@@ -1785,7 +2057,7 @@ def run_speculative(model, mode, cfg, launches, greedy, greedy_ms):
                            ("taxonomies", (B, 4))):
                 out = getattr(got, key)
                 if tuple(out.shape) != t or not torch.isfinite(out).all():
-                    raise AssertionError(f"speculative {mode} {name}: {key}")
+                    raise AssertionError(f"speculative {label} {name}: {key}")
             if (torch.equal(got.output_ids, ref.output_ids)
                     and torch.equal(got.gen_lengths, ref.gen_lengths)):
                 verdicts.append("tokens equal")
@@ -1793,25 +2065,38 @@ def run_speculative(model, mode, cfg, launches, greedy, greedy_ms):
             diff = (got.output_ids != ref.output_ids).int()
             row = int(diff.any(dim=1).int().argmax())
             step = int(diff[row].argmax())
-            gap, top = greedy_top2(model, req, ref.output_ids, row, step)
+            with uncounted():
+                gap, top, routing = greedy_top2(model, req, ref.output_ids,
+                                                row, step, 2, mode == "w8a8")
             verdicts.append(f"row {row} parts at step {step}: greedy top-2 "
                             f"gap {gap:.4g}, top |logit| {top:.4g}")
-            if gap > TOP2_GAP_LIMIT * top:
+            if gap > TOP2_GAP_LIMIT * top and routing:
+                with uncounted():
+                    verdicts[-1] += "; " + router_near_tie(
+                        model, req, dict(max_new_tokens=T, eos_id=2,
+                                         kv_cache_8bit=mode == "w8a8",
+                                         draft_corpus=corpus,
+                                         corpus_lengths=lens, draft_len=D),
+                        got, row, step, routing)
+                router_ties += 1
+            elif gap > TOP2_GAP_LIMIT * top:
                 raise AssertionError(
-                    f"speculative {mode} {name} call {i}: tokens part from "
+                    f"speculative {label} {name} call {i}: tokens part from "
                     f"greedy's at row {row} step {step} where greedy's top-2 "
                     f"gap {gap} exceeds 2^-6 of |top logit| {top}")
         if ev.captures != 1:
-            raise AssertionError(f"speculative {mode} {name}: {ev.captures} "
+            raise AssertionError(f"speculative {label} {name}: {ev.captures} "
                                  "captures")
-        log(f"speculative {mode} {name}: decode steps {steps} (16 tokens; "
+        log(f"speculative {label} {name}: decode steps {steps} (16 tokens; "
             f"tokens a step {per_step}), {replays} replays of the verify "
-            f"graph in calls 2-3; {verdicts}; launches as derived | latency "
+            f"graph in calls 2-3; {verdicts}; router near-tie clause passed "
+            f"{router_ties} of {len(verdicts)} calls; launches as derived "
+            f"| latency "
             f"{[round(t, 1) for t in lat]} ms (first captures) against greedy "
             f"graphed {[round(t, 1) for t in greedy_ms]} ms (host clock, "
             f"synchronized) | {CARD}")
         req = make_requests(cfg, B, P, seed=1)
-        profile_call(f"graphed speculative {mode} {name}", lambda: ev(*req))
+        profile_call(f"graphed speculative {label} {name}", lambda: ev(*req))
     return dict(launches)
 
 
@@ -2310,6 +2595,105 @@ def run_train_slice(launches):
     return counts
 
 
+# Launches per train step of the train_moe model (4 LLaMA layers, remat):
+# the frozen SAM encoder's forward, each layer's flash forward twice and
+# its two backward kernels once.
+TRAIN_MOE_LAYERS = 4
+PER_TRAIN_MOE_STEP = dict(PER_TRAIN_STEP,
+                          flash_prefill_fwd=2 * TRAIN_MOE_LAYERS,
+                          flash_bwd_dq=TRAIN_MOE_LAYERS,
+                          flash_bwd_dkv=TRAIN_MOE_LAYERS)
+
+
+def run_train_moe(launches):
+    """train_moe: make_train_step at LLaMA-7B widths cut to 4 layers, MoE
+    MLPs in layers 1 and 3 (MOE_7B: 8 experts, top-2, 2.16 B expert
+    parameters), with CLIP ViT-L and SAM ViT-H; LoRA r8 on q/v, the
+    experts and routers trained (`extra=("moe",)`, float32 with AdamW
+    moments), bf16 compute, remat, batch 2 (prompt 320 spliced to 575), 4
+    steps on one batch. The depth is cut because the 32-layer model's 16
+    MoE layers hold 17.3 B expert parameters: trained in float32 with
+    AdamW that is ~277 GB, more than one card. Checks: the loss with
+    moe_aux_weight 0.01 differs from the loss without the term on the same
+    batch, finite metrics, exact launches a step (PER_TRAIN_MOE_STEP), the
+    experts and routers changed, frozen weights unchanged. Prints the aux
+    term, step times, samples/s and peak memory; profiles one step.
+    Returns the launch counts over the 4 steps."""
+    from haff_tpu_torch.core.config import ModelConfig, TrainConfig
+    from haff_tpu_torch.model.lisa import LisaModel
+    from haff_tpu_torch.train import trainer as T
+
+    base = ModelConfig.preset("7b")
+    cfg = base.replace(llama=dataclasses.replace(
+        base.llama, lora_rank=8, num_layers=TRAIN_MOE_LAYERS, **MOE_7B))
+    t0 = time.perf_counter()
+    model = LisaModel(cfg, torch.bfloat16, device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(0))
+    trainable, frozen = T.partition_params(model, extra=("moe",))
+    torch.cuda.synchronize()
+    experts = {k: p for k, p in trainable.items() if ".moe." in k}
+    log(f"train moe: 7b widths, {TRAIN_MOE_LAYERS} layers (depth cut from "
+        f"32), MoE layers {model.moe_layers}, LoRA r8, built in "
+        f"{time.perf_counter() - t0:.1f} s: "
+        f"{T.count_params(trainable) / 1e9:.4f} B trainable (f32; "
+        f"{T.count_params(experts) / 1e9:.4f} B in the MoE layers), "
+        f"{T.count_params(frozen) / 1e9:.3f} B frozen (bf16), "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    tcfg = TrainConfig(model=cfg, lr=3e-4, warmup_steps=1, total_steps=1000,
+                       grad_accumulation_steps=1)
+    assert tcfg.remat and cfg.llama.moe_aux_weight == 0.01
+    state = T.init_train_state(tcfg, trainable)
+    step = T.make_train_step(model, tcfg)
+    batch = make_train_batch(cfg, 2, 320, seed=0, image_index=[0, 1],
+                             pad=100).to("cuda")
+    with torch.no_grad():
+        out = model(batch)
+        weighted = T.with_moe_aux(model, out)
+    aux, plain, total = (float(out.moe_aux), float(out.loss),
+                         float(weighted.loss))
+    if not (np.isfinite(aux) and np.isfinite(total)) or total == plain:
+        raise AssertionError(f"train moe: loss {plain} without the aux term, "
+                             f"{total} with it (aux {aux})")
+    frozen0 = {k: fingerprint(p) for k, p in frozen.items()}
+    train0 = {k: fingerprint(p) for k, p in trainable.items()}
+    torch.cuda.reset_peak_memory_stats()
+    launches.clear()  # count the train path's launches only
+    losses, times = [], []
+    for i in range(4):
+        before = dict(launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, 0)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        m = {k: float(v) for k, v in m.items()}
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"train moe step {i}: non-finite {m}")
+        for name, per in PER_TRAIN_MOE_STEP.items():
+            got = launches[name] - before.get(name, 0)
+            if got != per:
+                raise AssertionError(f"train moe step {i}: {name} launched "
+                                     f"{got} times, expected {per}")
+        losses.append(m["loss"])
+    counts = dict(launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if any(fingerprint(p) != frozen0[k] for k, p in frozen.items()):
+        raise AssertionError("train moe: a frozen weight changed")
+    unchanged = [k for k in experts if fingerprint(trainable[k]) == train0[k]]
+    if unchanged:
+        raise AssertionError(f"train moe: MoE weights unchanged {unchanged}")
+    steady = times[1:]
+    log(f"train moe: aux term (sum over {len(model.moe_layers)} MoE layers) "
+        f"{aux:.6f}, loss {plain:.6f} without it, {total:.6f} with weight "
+        f"0.01; losses {[round(x, 5) for x in losses]}; step time "
+        f"{[round(t * 1e3, 1) for t in times]} ms (host clock, synchronized),"
+        f" steady mean {np.mean(steady) * 1e3:.1f} ms = "
+        f"{2 / np.mean(steady):.3f} samples/s; peak memory {peak:.2f} GiB; "
+        f"launches over 4 steps {counts} | {CARD}")
+    profile_call("train step moe", lambda: step(state, batch, 0))
+    return counts
+
+
 # The train CLI's validation is an evaluate with 32 new tokens
 # (infer/evaluate.py validate_on_benchmark): 31 decode forwards of the 32
 # LLaMA layers after the prefill; the SAM and prefill counts as evaluate's.
@@ -2721,6 +3105,109 @@ def run_train_cli_7b(launches):
     return dict(paths["train_cli"]), dict(paths["train_cli_8bit"])
 
 
+def run_train_cli_moe_small(launches):
+    """train_cli_moe_small: the train CLI at the small preset with MoE MLPs
+    (`--moe_experts 4 --moe_top_k 2 --moe_every 2`: layers 1 and 3), bf16,
+    remat, --epochs 2 --steps_per_epoch 2, on a 4-frame ReasonSeg folder
+    and a 2-frame benchmark folder: (1) stopped after 2 steps by the CLI's
+    preemption hook (HAFF_TEST_PREEMPT_STEP), which writes a checkpoint;
+    (2) the same --exp_name again, which auto-resumes at step 2, trains
+    epoch 1, validates and checkpoints; (3) uninterrupted under another
+    name, validating after each epoch. Run 1's checkpoint holds its trained
+    tensors, the experts and routers among them; run 2's losses and final
+    trainable tensors equal run 3's bit for bit
+    (deterministic algorithms for the phase). Launches of the flash
+    forward, dq, dk/dv and decode kernels exact: per step 2, 1 and 1 a
+    layer (remat), per validation 1 flash a layer and (32 - 1) decode
+    steps a layer. Returns the launch counts of the three runs."""
+    import os
+    import shutil
+
+    from haff_tpu_torch.core.config import ModelConfig
+
+    layers = ModelConfig.preset("small").llama.num_layers
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "runs", TRAIN_CLI_WORK, "moe_small")
+    shutil.rmtree(work, ignore_errors=True)
+    data, bench = write_train_data(work, 4, (180, 320), seed=47)
+    base = data_flags(data, bench) + [
+            "--model_preset", "small", "--moe_experts", "4", "--moe_top_k",
+            "2", "--moe_every", "2", "--batch_size", "2", "--grad_accum", "1",
+            "--warmup_steps", "0", "--lr", "1e-3", "--val_batch_size", "2",
+            "--workers", "2", "--print_freq", "1",
+            "--log_base_dir", os.path.join(work, "runs")]
+    base += ["--epochs", "2", "--steps_per_epoch", "2"]
+    plan = (("moe", "1"), ("moe", None), ("moe_once", None))
+    total = collections.Counter()
+    runs = []
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for i, (name, preempt) in enumerate(plan):
+            launches.clear()  # count this run's launches only
+            if preempt:
+                os.environ["HAFF_TEST_PREEMPT_STEP"] = preempt
+            t0 = time.perf_counter()
+            try:
+                run = run_train_cli(base + ["--exp_name", name])
+            finally:
+                os.environ.pop("HAFF_TEST_PREEMPT_STEP", None)
+            wall = time.perf_counter() - t0
+            got = dict(launches)
+            total.update(got)
+            steps, vals = len(run.steps), len(run.validations)
+            if not all(np.isfinite(s["loss"]) for s in run.steps):
+                raise AssertionError(f"train cli moe small run {i + 1}: "
+                                     f"{run.steps}")
+            want = {"flash_prefill_fwd": 2 * layers * steps + layers * vals,
+                    "flash_bwd_dq": layers * steps,
+                    "flash_bwd_dkv": layers * steps,
+                    "decode_attn": (VALIDATE_NEW_TOKENS - 1) * layers * vals}
+            if {k: got.get(k, 0) for k in want} != want:
+                raise AssertionError(f"train cli moe small run {i + 1}: "
+                                     f"launches {got}, expected {want}")
+            trained = {k: p.detach().cpu().clone()
+                       for k, p in run.model.named_parameters()
+                       if p.requires_grad}
+            moe = sorted(k for k in trained if ".moe." in k)
+            if len(moe) != 8:
+                raise AssertionError(f"train cli moe small run {i + 1}: "
+                                     f"trainable MoE tensors {moe}")
+            if [s["step"] for s in run.steps] != [[1, 2], [3, 4],
+                                                  [1, 2, 3, 4]][i]:
+                raise AssertionError(f"train cli moe small run {i + 1}: "
+                                     f"steps {run.steps}")
+            step, saved = saved_trainable(os.path.join(work, "runs", name))
+            if i == 0 and (step != 2 or set(saved) != set(trained) or any(
+                    not torch.equal(saved[k], t) for k, t in trained.items())):
+                raise AssertionError(f"train cli moe small run 1: checkpoint "
+                                     f"step {step} not the trained tensors")
+            runs.append(([s["loss"] for s in run.steps], trained,
+                         [v[1:3] for v in run.validations]))
+            what = f"{name}, preempted after step 2" if preempt else name
+            log(f"train cli moe small run {i + 1} ({what}):"
+                f" steps {[s['step'] for s in run.steps]}, losses "
+                f"{[round(s['loss'], 5) for s in run.steps]}, validations "
+                f"{[(round(v[1], 4), round(v[2], 4)) for v in run.validations]}"
+                f", newest checkpoint step {step}; {len(moe)} MoE tensors "
+                f"trained; wall {wall:.1f} s; launches {got} | {CARD}")
+            del run
+            gc.collect()
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    _, (resumed, last, val), (once, full, vals) = runs
+    if resumed != once[2:] or set(last) != set(full) or any(
+            not torch.equal(last[k], full[k]) for k in full):
+        raise AssertionError(f"train cli moe small: the resumed run differs "
+                             f"from the uninterrupted one: losses {resumed} "
+                             f"vs {once[2:]}")
+    log(f"train cli moe small: resumed run = uninterrupted run bit for bit "
+        f"(losses {resumed}, {len(full)} trainable tensors); epoch 1 "
+        f"validation (IoU, IoCM) {val} resumed, {vals[1:]} uninterrupted")
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(total)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -2728,6 +3215,7 @@ def main():
         return 2
     from haff_tpu_torch.kernels import _build  # fails outside a checkout
 
+    start = time.perf_counter()
     global CARD
     card = CARD = card_line()
     log(f"device: {card} | torch {torch.__version__} cuda "
@@ -2771,6 +3259,7 @@ def main():
         check_tiny_against_cpu(mode)
     paths_spec_small = check_spec_small(_build.LAUNCHES)
     paths_mpt_tiny = check_mpt_tiny(_build.LAUNCHES)
+    paths_moe_small = check_moe_small(_build.LAUNCHES)
     check_tiny_serving()
     check_small_cli()
     check_tiny_train()
@@ -2778,11 +3267,14 @@ def main():
     _build.LAUNCHES.clear()
     paths_tiny = check_tiny_train_cli()
     torch.cuda.empty_cache()
+    paths_cli_moe = run_train_cli_moe_small(_build.LAUNCHES)
+    torch.cuda.empty_cache()
 
     # Each path is driven with the counts set to 0 just before it and read
     # just after; each model is freed before the next is built.
     paths = {"train_cli_tiny": paths_tiny, "spec_small": paths_spec_small,
-             "mpt_tiny": paths_mpt_tiny,
+             "mpt_tiny": paths_mpt_tiny, "moe_small": paths_moe_small,
+             "train_cli_moe_small": paths_cli_moe,
              "encoder_backward": run_encoder_backward(_build.LAUNCHES)}
     gc.collect()
     torch.cuda.empty_cache()
@@ -2794,17 +3286,23 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     # LLaMA-7B in three modes (speculative on the bf16 and w8a8 models),
-    # then MPT-7B in two; each model is freed before the next is built.
-    for decoder, mode in (("llama", "bf16"), ("llama", "w8a8"),
-                          ("llama", "w4a16"), ("mpt", "bf16"),
-                          ("mpt", "w8a8")):
-        paths.update(run_slice(_build.LAUNCHES, mode, decoder))
+    # then MPT-7B in two, then the 7b MoE model in bf16 (greedy and
+    # speculative); each model is freed before the next is built.
+    for decoder, mode, moe in (("llama", "bf16", False),
+                               ("llama", "w8a8", False),
+                               ("llama", "w4a16", False),
+                               ("mpt", "bf16", False), ("mpt", "w8a8", False),
+                               ("llama", "bf16", True)):
+        paths.update(run_slice(_build.LAUNCHES, mode, decoder, moe))
         gc.collect()
         torch.cuda.empty_cache()
     paths["serve_bf16"], paths["stream"] = run_serve(_build.LAUNCHES)
     gc.collect()
     torch.cuda.empty_cache()
     paths["train"] = run_train_slice(_build.LAUNCHES)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["train_moe"] = run_train_moe(_build.LAUNCHES)
     gc.collect()
     torch.cuda.empty_cache()
     paths["train_cli"], paths["train_cli_8bit"] = run_train_cli_7b(
@@ -2816,13 +3314,17 @@ def main():
     for p in ("encoder_backward", "predictor_vit_b", "evaluate_bf16",
               "evaluate_w8a8", "evaluate_w4a16", "evaluate_spec_bf16",
               "evaluate_spec_w8a8", "evaluate_mpt_bf16", "evaluate_mpt_w8a8",
-              "serve_bf16", "stream", "train", "train_cli", "train_cli_8bit"):
+              "serve_bf16", "stream", "train", "train_cli", "train_cli_8bit",
+              "evaluate_moe_bf16", "evaluate_spec_moe_bf16", "train_moe"):
         scalar = {k: n for k, n in paths[p].items() if k.endswith("/scalar") and n}
         if scalar:
             raise AssertionError(f"{p}: launches on the scalar path {scalar}")
     log("scalar SAM, flash_prefill_fwd, flash_bwd_dq, flash_bwd_dkv, "
         "w8a8_matmul and w4a16_matmul launches on the bf16 full-width "
         "paths: none")
+    log("launches by path: " + json.dumps(
+        {p: {k: n for k, n in sorted(c.items()) if n}
+         for p, c in paths.items()}))
     for rec in kernels:
         name = rec["name"]
         counter = rec.get("counter", name)
@@ -2832,6 +3334,8 @@ def main():
         if not all(rec["launches_by_path"].values()):
             raise AssertionError(f"{name} did not launch on every path it is "
                                  f"expected on: {rec['launches_by_path']}")
+    log(f"chip_smoke: {time.perf_counter() - start:.1f} s wall in all, the "
+        f"kernels' build included | {card}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

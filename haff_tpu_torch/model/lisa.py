@@ -29,6 +29,7 @@ from ..core.dtypes import resolve, set_reference_precision
 from ..nn.clip_vit import ClipVisionTower
 from ..nn.layers import LayerNorm, QDense
 from ..nn.llama import LlamaForCausalLM, RMSNorm
+from ..nn.moe import MoEMLP, moe_layers
 from ..nn.mpt import MptConfig, MptForCausalLM
 from ..nn.lora import LoraDense
 from ..nn.sam import Sam, postprocess_masks_padded
@@ -72,6 +73,9 @@ class LisaOutputs(NamedTuple):
     pred_masks_left: torch.Tensor   # (B, S, S) logits on the canvas
     pred_masks_right: torch.Tensor
     pred_taxonomies: torch.Tensor   # (B, 4)
+    # The MoE blocks' summed Switch load-balance terms (None without MoE
+    # blocks); train/trainer.py weighs them into the loss.
+    moe_aux: Optional[torch.Tensor] = None
 
 
 class LisaModel(nn.Module):
@@ -79,6 +83,8 @@ class LisaModel(nn.Module):
                  device="cuda", generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
+        # The LLaMA decoder's MoE layers (the MPT decoder has none).
+        self.moe_layers = () if cfg.decoder == "mpt" else moe_layers(cfg.llama)
         with torch.device("meta"):
             if cfg.decoder == "mpt":
                 # The alternative MPT backend (reference llava_mpt.py) at
@@ -164,11 +170,15 @@ class LisaModel(nn.Module):
                 remat: bool = False) -> LisaOutputs:
         """`dropout_seed` None is the deterministic forward; `remat`
         recomputes each LLaMA block (and each SAM encoder block, when the
-        encoder is trained) in the backward."""
+        encoder is trained) in the backward. With MoE layers the outputs
+        carry their load-balance terms' sum (`moe_aux`), which the loss
+        leaves out, as JAX's `apply` does."""
         sam_emb, sp = self.splice_inputs(batch, remat)
-        logits, hidden, _ = self.llm(sp.embeds, sp.positions, sp.segment_ids,
-                                     dropout_seed=dropout_seed, remat=remat)
-        return self.finish_outputs(batch, sam_emb, sp, logits, hidden)
+        logits, hidden, _, aux = self.llm(
+            sp.embeds, sp.positions, sp.segment_ids,
+            dropout_seed=dropout_seed, remat=remat, with_aux=True)
+        out = self.finish_outputs(batch, sam_emb, sp, logits, hidden)
+        return out._replace(moe_aux=aux)
 
     def finish_outputs(self, batch: TrainBatch, sam_emb, sp: SplicedBatch,
                        logits, hidden) -> LisaOutputs:
@@ -205,7 +215,8 @@ class LisaModel(nn.Module):
 @torch.no_grad()
 def init_random_(model: nn.Module, generator: torch.Generator) -> None:
     """Fill every parameter from `generator`: normal(0, fan_in^-1/2) for
-    dense and convolution weights, zero biases, unit norms, normal(0, 0.02)
+    dense and convolution weights and the stacked MoE experts (fan-in: d
+    for gate/up, f for down), zero biases, unit norms, normal(0, 0.02)
     for embeddings and position tables, normal(0, 1) for the SAM decoder's
     tokens and prompt embeddings; LoRA a he-uniform, b zero."""
 
@@ -227,6 +238,9 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> None:
                 mod.bias.zero_()
         elif isinstance(mod, nn.Embedding):
             normal_(mod.weight, 0.02)
+        elif isinstance(mod, MoEMLP):
+            for p in (mod.gate_proj, mod.up_proj, mod.down_proj):
+                normal_(p, 1.0 / math.sqrt(p.shape[1]))
         else:
             for name, p in mod.named_parameters(recurse=False):
                 normal_(p, 1.0 if name in _UNIT_SCALE else 0.02)

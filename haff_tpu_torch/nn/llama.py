@@ -12,6 +12,14 @@ projection's mask is seeded from it, the layer index and the projection,
 so a recomputed block redraws the same masks), and `remat` recomputes
 each decoder block in the backward (torch.utils.checkpoint, the
 counterpart of `nn.remat(..., nothing_saveable)`).
+
+MoE: with `moe_num_experts` > 0, every `moe_every`-th block holds an MoE
+MLP (nn/moe.py) named `moe` in place of `mlp`, so a dense checkpoint
+never half-loads into an MoE model. It routes per row (`no_drop`) exactly
+when a KV cache is passed, and masks padding (segment id 0) out of the
+routing. The blocks' Switch load-balance terms are summed and returned
+when the caller asks for them (`with_aux`); the flax `moe_aux`
+collection's counterpart.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from ..kernels.decode_attention import (chunk_decode_attention,
 from ..kernels.flash_attention import flash_attention
 from .layers import QDense
 from .lora import LoraDense, fold_in
+from .moe import MoEMLP, moe_layers
 from .quant import QuantArray, quantize_activation
 
 _PROJ_IDS = {"q_proj": 0, "k_proj": 1, "v_proj": 2, "o_proj": 3}
@@ -173,21 +182,32 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaBlock(nn.Module):
-    def __init__(self, cfg: LlamaConfig):
+    def __init__(self, cfg: LlamaConfig, is_moe: bool = False):
         super().__init__()
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.self_attn = LlamaAttention(cfg)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
-        self.mlp = LlamaMLP(cfg)
+        self.is_moe = is_moe
+        if is_moe:
+            self.moe = MoEMLP(cfg)
+        else:
+            self.mlp = LlamaMLP(cfg)
 
     def forward(self, x, positions, table, segment_ids=None, kv_cache=None,
                 cache_index=None, cache_kv_segment_ids=None,
                 dropout_seed=None, q_positions=None):
-        attn, kv_cache = self.self_attn(
+        """Returns (x, kv_cache, aux): aux is the MoE MLP's load-balance
+        term, None in a dense block."""
+        attn, new_cache = self.self_attn(
             self.input_layernorm(x), positions, table, segment_ids, kv_cache,
             cache_index, cache_kv_segment_ids, dropout_seed, q_positions)
         x = x + attn
-        return x + self.mlp(self.post_attention_layernorm(x)), kv_cache
+        h = self.post_attention_layernorm(x)
+        if not self.is_moe:
+            return x + self.mlp(h), new_cache, None
+        mask = None if segment_ids is None else segment_ids > 0
+        out, aux = self.moe(h, mask, no_drop=kv_cache is not None)
+        return x + out, new_cache, aux
 
 
 class LlamaModel(nn.Module):
@@ -196,20 +216,23 @@ class LlamaModel(nn.Module):
 
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
-        if cfg.moe_num_experts or cfg.sequence_parallel:
+        if cfg.sequence_parallel:
             raise NotImplementedError(
-                "MoE and sequence-parallel LLaMA are not ported yet")
+                "sequence-parallel LLaMA is not ported yet")
         self.cfg = cfg
-        self.layers = nn.ModuleList(LlamaBlock(cfg) for _ in range(cfg.num_layers))
+        moe = moe_layers(cfg)
+        self.layers = nn.ModuleList(LlamaBlock(cfg, i in moe)
+                                    for i in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
 
     def forward(self, inputs_embeds, positions, segment_ids=None,
                 kv_caches=None, cache_index=None, cache_kv_segment_ids=None,
                 dropout_seed=None, remat=False):
-        """Returns (hidden states post final norm, kv caches or None).
-        `dropout_seed`: LoRA dropout on, layer i seeded fold_in(seed, i).
-        `remat` (with grad mode on): each block's activations are
-        recomputed in the backward instead of stored."""
+        """Returns (hidden states post final norm, kv caches or None, the
+        sum of the MoE blocks' load-balance terms or None without MoE
+        blocks). `dropout_seed`: LoRA dropout on, layer i seeded
+        fold_in(seed, i). `remat` (with grad mode on): each block's
+        activations are recomputed in the backward instead of stored."""
         cfg = self.cfg
         x = inputs_embeds.to(self.norm.weight.dtype)
         table = rope_table(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta,
@@ -219,7 +242,7 @@ class LlamaModel(nn.Module):
         positions = positions.long()
         rope_positions = positions.clamp(max=cfg.max_seq_len - 1)
         remat = remat and torch.is_grad_enabled()
-        new_caches = []
+        new_caches, aux = [], None
         for i, layer in enumerate(self.layers):
             cache = kv_caches[i] if kv_caches is not None else None
             seed = None if dropout_seed is None else fold_in(dropout_seed, i)
@@ -228,12 +251,16 @@ class LlamaModel(nn.Module):
             if remat:
                 # The dropout masks come from explicit seeds, so the global
                 # RNG state need not be saved for the recompute.
-                x, cache = checkpoint(layer, *args, use_reentrant=False,
-                                      preserve_rng_state=False)
+                x, cache, block_aux = checkpoint(
+                    layer, *args, use_reentrant=False,
+                    preserve_rng_state=False)
             else:
-                x, cache = layer(*args)
+                x, cache, block_aux = layer(*args)
             new_caches.append(cache)
-        return self.norm(x), (new_caches if kv_caches is not None else None)
+            if block_aux is not None:
+                aux = block_aux if aux is None else aux + block_aux
+        return (self.norm(x), (new_caches if kv_caches is not None else None),
+                aux)
 
 
 class Embed(nn.Embedding):
@@ -262,9 +289,13 @@ class LlamaForCausalLM(nn.Module):
 
     def forward(self, inputs_embeds, positions, segment_ids=None,
                 kv_caches=None, cache_index=None, cache_kv_segment_ids=None,
-                dropout_seed=None, remat=False):
-        """Returns (logits, hidden post-norm, kv caches)."""
-        hidden, caches = self.model(inputs_embeds, positions, segment_ids,
-                                    kv_caches, cache_index,
-                                    cache_kv_segment_ids, dropout_seed, remat)
-        return self.lm_head(hidden), hidden, caches
+                dropout_seed=None, remat=False, with_aux=False):
+        """Returns (logits, hidden post-norm, kv caches), and with
+        `with_aux` a fourth item: the MoE blocks' summed load-balance
+        term (None when the model has no MoE block)."""
+        hidden, caches, aux = self.model(inputs_embeds, positions,
+                                         segment_ids, kv_caches, cache_index,
+                                         cache_kv_segment_ids, dropout_seed,
+                                         remat)
+        out = (self.lm_head(hidden), hidden, caches)
+        return out + (aux,) if with_aux else out

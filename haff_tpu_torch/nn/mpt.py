@@ -218,8 +218,10 @@ class MptForCausalLM(nn.Module):
 
     def forward(self, inputs_embeds, positions=None, segment_ids=None,
                 kv_caches=None, cache_index=None, cache_kv_segment_ids=None,
-                prefix_mask=None, dropout_seed=None, remat=False):
-        """Returns (logits, hidden post final norm, kv caches or None).
+                prefix_mask=None, dropout_seed=None, remat=False,
+                with_aux=False):
+        """Returns (logits, hidden post final norm, kv caches or None),
+        and with `with_aux` a fourth item, None (MPT has no MoE layers).
         `positions` are accepted and ignored (ALiBi), as is
         `dropout_seed` (MPT has no dropout): the LLaMA interface, so
         generate.py and model/lisa.py call either backend.
@@ -242,7 +244,8 @@ class MptForCausalLM(nn.Module):
             new_caches.append(cache)
         x = self.norm_f(x).to(dtype)
         logits = F.linear(x, self.wte.weight.to(dtype))  # the tied head
-        return logits, x, (new_caches if kv_caches is not None else None)
+        out = (logits, x, (new_caches if kv_caches is not None else None))
+        return out + (None,) if with_aux else out
 
     def init_kv_caches(self, batch: int, max_len: int, dtype=torch.bfloat16,
                        device=None):

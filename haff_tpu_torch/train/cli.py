@@ -40,9 +40,9 @@ import time
 import numpy as np
 
 # The mesh, pipeline and expert-parallel flags parse as in the JAX CLI and
-# raise here until the multi-GPU and MoE modules are ported.
-_NOT_PORTED = ("not ported yet: one card only (ROADMAP Queue 1 item 9, "
-               "MoE, and item 10, multi-GPU)")
+# raise here until the multi-GPU modules are ported.
+_NOT_PORTED = ("not ported yet: one card only (ROADMAP Queue 1 item 10, "
+               "multi-GPU)")
 
 
 def parse_args(argv=None):
@@ -131,8 +131,9 @@ def parse_args(argv=None):
     p.add_argument("--ep", type=int, default=1,
                    help="expert-parallel axis size (not ported)")
     p.add_argument("--moe_experts", type=int, default=0,
-                   help="Mixture-of-Experts decoder MLPs (not ported; 0 = "
-                        "dense, the reference architecture)")
+                   help="Mixture-of-Experts decoder MLPs (nn/moe.py; 0 = "
+                        "dense, the reference architecture); their experts "
+                        "and routers are trained")
     p.add_argument("--moe_top_k", type=int, default=2)
     p.add_argument("--moe_every", type=int, default=1,
                    help="MoE layer interleave (1 = every layer, 2 = "
@@ -205,8 +206,6 @@ def check_flags(args) -> None:
     for flag in ("pp", "sp", "fsdp", "tensor", "ep"):
         if getattr(args, flag) > 1:
             raise SystemExit(f"--{flag} {getattr(args, flag)}: {_NOT_PORTED}")
-    if args.moe_experts > 0:
-        raise SystemExit(f"--moe_experts {args.moe_experts}: {_NOT_PORTED}")
     if args.decoder != "llama":
         raise SystemExit("--decoder mpt: serving only; training the MPT "
                          "decoder is not ported yet (ROADMAP Queue 1 item 8, "
@@ -234,7 +233,9 @@ def model_config(args, tok):
             lora_dropout=args.lora_dropout,
             lora_targets=tuple(
                 m for m in args.lora_target_modules.split(",") if m),
-            vocab_size=max(base.llama.vocab_size, len(tok) + 4)))
+            vocab_size=max(base.llama.vocab_size, len(tok) + 4),
+            moe_num_experts=args.moe_experts, moe_top_k=args.moe_top_k,
+            moe_every=args.moe_every))
 
 
 def build_model(cfg, precision: str, device, seed: int,
@@ -289,7 +290,10 @@ def model_meta(args, cfg) -> dict:
                            lora_alpha=llama.lora_alpha,
                            lora_dropout=llama.lora_dropout,
                            lora_targets=list(llama.lora_targets),
-                           vocab_size=llama.vocab_size))
+                           vocab_size=llama.vocab_size,
+                           moe_num_experts=llama.moe_num_experts,
+                           moe_top_k=llama.moe_top_k,
+                           moe_every=llama.moe_every))
 
 
 def frozen_predicate(frozen, should_quantize):
@@ -457,7 +461,9 @@ def main(argv=None) -> TrainRun:
                         args.reset_mask_decoder)
     exclude = () if args.train_mask_decoder else (
         "mask_decoder_left", "mask_decoder_right")
-    extra = ("image_encoder",) if args.train_vision_encoder else ()
+    extra = ("moe",) if args.moe_experts > 0 else ()
+    if args.train_vision_encoder:
+        extra = extra + ("image_encoder",)
     trainable, frozen = partition_params(model, exclude, extra)
     print(f"trainable params: {count_params(trainable):,} / "
           f"{count_params(trainable) + count_params(frozen):,}")

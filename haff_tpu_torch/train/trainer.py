@@ -3,12 +3,16 @@ trainable set, WarmupDecay schedule, global-norm clip + AdamW, gradient
 accumulation, one train step.
 
 * The trainable set is the reference's (train_ds.py:192-244): LoRA a/b on
-  q/v, embed_tokens, lm_head, both mask decoders and the [SEG] projection.
+  q/v, embed_tokens, lm_head, both mask decoders and the [SEG] projection
+  (and, with `extra=("moe",)`, the MoE layers' experts and routers).
   The port's parameter names mirror the flax scopes, so `partition_params`
   picks it by name and turns `requires_grad` on for it and off for every
   other parameter. It is held in float32 with its AdamW moments (flax
   `param_dtype`) and cast to the model's dtype at use (flax `dtype`); the
   frozen weights stay in the model's dtype, outside autograd.
+* With MoE decoder layers the loss gains the Switch load-balance term,
+  moe_aux_weight * (sum over the MoE layers) / (their number), as JAX's
+  `_forward` adds it, in the train step and the eval step alike.
 * The optimizer is optax's `chain(clip_by_global_norm, adamw(schedule))`,
   wrapped in `MultiSteps` for gradient accumulation, written out over
   `torch.optim.AdamW`; parameters are updated in place.
@@ -171,11 +175,20 @@ def init_train_state(cfg: TrainConfig,
 
 
 def _check_supported(model: LisaModel, mesh) -> None:
-    if getattr(model.cfg.llama, "moe_num_experts", 0) > 0:
-        raise NotImplementedError("MoE training is not ported yet")
     if mesh is not None:
         raise NotImplementedError(
             "mesh-parallel (pipeline) training is not ported yet")
+
+
+def with_moe_aux(model: LisaModel, out: LisaOutputs) -> LisaOutputs:
+    """`out` with the weighted MoE load-balance term added to its loss
+    (JAX `_forward`: moe_aux_weight * aux / n_moe); as it is without MoE
+    layers."""
+    if out.moe_aux is None:
+        return out
+    weight = model.cfg.llama.moe_aux_weight
+    return out._replace(
+        loss=out.loss + weight * out.moe_aux / len(model.moe_layers))
 
 
 def make_train_step(model: LisaModel, cfg: TrainConfig, mesh=None
@@ -193,8 +206,8 @@ def make_train_step(model: LisaModel, cfg: TrainConfig, mesh=None
         params = list(state.trainable.values())
         for p in params:
             p.grad = None
-        out = model(batch, dropout_seed=fold_in(seed, state.step),
-                    remat=cfg.remat)
+        out = with_moe_aux(model, model(
+            batch, dropout_seed=fold_in(seed, state.step), remat=cfg.remat))
         out.loss.backward()
         grads = [p.grad for p in params]
         grad_norm = global_norm([g for g in grads if g is not None])
@@ -219,6 +232,6 @@ def make_eval_step(model: LisaModel, cfg: TrainConfig = None,
 
     @torch.no_grad()
     def step(batch: TrainBatch) -> LisaOutputs:
-        return model(batch)
+        return with_moe_aux(model, model(batch))
 
     return step

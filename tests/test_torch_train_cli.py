@@ -262,7 +262,7 @@ def test_train_cli_qlora_with_validation(synth_data, tmp_path, bits):
     (("--fsdp", "2"), "--fsdp 2: not ported yet"),
     (("--tensor", "2"), "--tensor 2: not ported yet"),
     (("--moe_experts", "4", "--ep", "2"), "--ep 2: not ported yet"),
-    (("--moe_experts", "4"), "--moe_experts 4: not ported yet"),
+    (("--moe_experts", "4", "--moe_every", "0"), "--moe_every must be >= 1"),
     (("--pp", "2", "--sp", "2"), "--pp cannot be combined with --sp"),
     (("--ep", "2"), "--ep > 1 requires --moe_experts > 0"),
     (("--moe_experts", "3", "--ep", "2"), "must be divisible by"),
