@@ -167,11 +167,31 @@ Phases (any failure raises and exits non-zero):
    card against the CPU (logits within 1e-3).
 10. audit and bench: tools/kernel_audit.py in-process (every check must
    pass) and tools/bench_kernels.py int8probe.
+11. pipeline_vit_h: the 2HANDS pipeline (video_records, the records
+   run_pipeline_from_video packs; the card has no h5py) on a
+   seeded synthetic 32-frame clip at 480 x 854 (textured object and hands
+   moving over a textured background, frame-0 seeds): propagation and
+   inpainting on the card, object completion through a SamPredictor over
+   the 7b preset's SAM ViT-H in bf16 (seeded weights), records filtered
+   and their contour JSON written; the propagated (first 8 frames) and
+   inpainted results against the CPU, exactly 28 + 4 SAM launches per
+   completed frame; stage times, frames/s and the device's busy share of
+   a profiled clip (its records only). The ViT-H phases' wall times.
+12. export_vit_h: tools/export_model.py's encoder and mask_path of the same
+   SAM exported (torch.export), saved, and loaded and run in a fresh
+   process: outputs equal to the eager Sam's, no model code imported
+   there, 28 + 4 SAM launches an image; export, save, load seconds and
+   bytes.
+13. tools_small: a small fp32 train-CLI checkpoint through export_params
+   and merge_lora; a Predictor on the .npz against one on the checkpoint;
+   the native host library; FLOPs and MFU of the ViT-H encoder against a
+   bf16 matmul peak measured in the run.
 
 The bf16 full-width paths (evaluate in three modes, speculative in two,
 MPT in two, MoE greedy and speculative, serve_bf16, stream, train,
 train_moe, train_cli, train_cli_8bit, the ViT-B predictor, the encoder
-backward) must run every SAM,
+backward, the pipeline's SAM completion and the exported SAM programs)
+must run every SAM,
 flash forward, dq and dk/dv launch on the tensor cores, and every w8a8
 launch on the tensor cores (M > 16) or the streamed skinny kernel
 (decode), and every w4a16 launch on the tensor cores: no `<key>/scalar`
@@ -225,16 +245,20 @@ SPEC_MPT_7B = ("evaluate_spec_bf16", "evaluate_spec_w8a8",
 # The MoE slice's paths: the 7b MoE model greedy (eager and graphed) and
 # speculative, and the 7b-width MoE train step.
 MOE_7B_PATHS = ("evaluate_moe_bf16", "evaluate_spec_moe_bf16", "train_moe")
+# The pipeline slice's paths at SAM ViT-H: the 2HANDS pipeline's mask
+# completion and the exported encoder and mask_path programs.
+VIT_H_TOOLS = ("pipeline_vit_h", "export_vit_h")
 EXPECTED_ON = {
     "sam_window_relpos_attn": ("evaluate_bf16", "evaluate_w8a8",
                                "evaluate_w4a16", "train", "encoder_backward",
                                "serve_bf16", "stream", "train_cli",
-                               "train_cli_8bit") + SPEC_MPT_7B + MOE_7B_PATHS,
+                               "train_cli_8bit") + SPEC_MPT_7B + MOE_7B_PATHS
+                              + VIT_H_TOOLS,
     "sam_global_relpos_attn": ("evaluate_bf16", "evaluate_w8a8",
                                "evaluate_w4a16", "train", "encoder_backward",
                                "predictor_vit_b", "small", "serve_bf16",
                                "stream", "train_cli", "train_cli_8bit")
-                              + SPEC_MPT_7B + MOE_7B_PATHS,
+                              + SPEC_MPT_7B + MOE_7B_PATHS + VIT_H_TOOLS,
     # The split window entry at the geometries of the TPU head-loop kernel
     # (counted under the split entry's key, on the paths that run it there).
     "sam_window_relpos_attn/vit_b": ("predictor_vit_b", "small"),
@@ -3208,6 +3232,443 @@ def run_train_cli_moe_small(launches):
     return dict(total)
 
 
+# ---------------------------------------------------------------------------
+# The 2HANDS pipeline and the deployment tools (pipeline_vit_h,
+# export_vit_h, tools_small)
+# ---------------------------------------------------------------------------
+
+PIPELINE_HW = (480, 854)      # VISOR's frame size
+PIPELINE_FRAMES = 32
+# Frames of the clip the CPU re-runs propagation on (host time).
+PIPELINE_CPU_FRAMES = 8
+# Share of a frame's pixels on which card and CPU masks may differ
+# (window sums in another order can flip a near-tie shift).
+PIPELINE_PIXEL_TOL = 1e-3
+PER_SAM_IMAGE = {"sam_window_relpos_attn": 28, "sam_global_relpos_attn": 4}
+
+
+def pipeline_clip(seed=0):
+    """A seeded synthetic clip at VISOR's frame size, built as haff_tpu's
+    pipeline quality clips are (textured patches moving over a textured
+    background): an object translating (1, 2) px/frame, a left hand
+    (2, 1) and a right hand (-1, -2) moving over its edges, drawn on top.
+    Returns (frames (N, H, W, 3) uint8, seed masks on frame 0: left,
+    right, object (its visible part))."""
+    rng = np.random.RandomState(seed)
+    H, W = PIPELINE_HW
+    bg = rng.randint(0, 120, (H, W, 3)).astype(np.uint8)
+    size = {"obj": (H * 5 // 16, W // 4), "left": (H * 3 // 16, W // 8),
+            "right": (H * 3 // 16, W // 8)}
+    tex = {"obj": (140, 256), "left": (60, 200), "right": (30, 170)}
+    tex = {k: rng.randint(*tex[k], size[k] + (3,)).astype(np.uint8)
+           for k in size}
+    start = {"obj": (H // 3, W * 3 // 8), "left": (H * 5 // 12, W * 9 // 32),
+             "right": (H * 23 // 48, W * 9 // 16)}
+    step = {"obj": (1, 2), "left": (2, 1), "right": (-1, -2)}
+    frames = np.zeros((PIPELINE_FRAMES, H, W, 3), np.uint8)
+    seeds = {}
+    for t in range(PIPELINE_FRAMES):
+        f = bg.copy()
+        for name in ("obj", "left", "right"):
+            y = start[name][0] + step[name][0] * t
+            x = start[name][1] + step[name][1] * t
+            h, w = tex[name].shape[:2]
+            f[y:y + h, x:x + w] = tex[name]
+            if t == 0:
+                m = np.zeros((H, W), np.uint8)
+                m[y:y + h, x:x + w] = 1
+                seeds[name] = m
+        frames[t] = f
+    seeds["obj"] = seeds["obj"] & ~(seeds["left"] | seeds["right"])
+    return frames, seeds["left"], seeds["right"], seeds["obj"]
+
+
+def run_pipeline_vit_h(launches, sam, cfg):
+    """pipeline_vit_h: video_records (run_pipeline_from_video up to its
+    packing: this host has no h5py) on pipeline_clip() with the default
+    propagation and inpainting on the card and stage 5 through a
+    SamPredictor over `sam` (ViT-H, bf16): each frame's partial object
+    mask's centroid, in frame pixels, as one point prompt; the left
+    decoder's single-mask logits. The filtered records' JSON contours
+    written with the shard's writer. Held: the propagated masks of the
+    first PIPELINE_CPU_FRAMES frames and the inpainted clip against the
+    same functions on the CPU (PIPELINE_PIXEL_TOL of a frame's pixels;
+    the inpainted frames within 1 of 255); SAM launches exactly 28 + 4 per
+    completed frame. Then video_records over the clip's first
+    PIPELINE_CPU_FRAMES frames once more under torch.profiler
+    (`profile_call`: device time by kernel, idle share; no JSON). Returns
+    the launch counts of the first run."""
+    import os
+    import shutil
+
+    from haff_tpu_torch.infer.sam_predictor import SamPredictor
+    from haff_tpu_torch.pipeline import defaults as D
+    from haff_tpu_torch.pipeline import orchestrate as R
+
+    frames, seed_l, seed_r, seed_obj = pipeline_clip()
+    n = len(frames)
+    pred = SamPredictor(sam, image_size=cfg.sam_encoder.image_size)
+    times, kept = collections.defaultdict(float), {}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[name] += time.perf_counter() - t0
+            kept[name] = out
+            return out
+        return call
+
+    completed = []
+
+    def sam_apply(images, pts, labels):
+        out = []
+        for img, p, lab in zip(images, pts, labels):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pred.set_image(img)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            masks, _, _ = pred.predict(point_coords=p, point_labels=lab,
+                                       multimask_output=False,
+                                       return_logits=True, hand="left")
+            out.append(masks)
+            completed.append((t1 - t0, time.perf_counter() - t1))
+        return np.stack(out)
+
+    def complete(f, o):
+        return R.sam_mask_completion(sam_apply, f, o)
+
+    stages = R.PipelineStages(propagate_masks=timed("propagate",
+                                                    D.default_propagate),
+                              complete_masks=timed("complete", complete))
+    real_inpaint = D.default_inpaint
+    D.default_inpaint = timed("inpaint", real_inpaint)
+    clip = (seed_l, seed_r, seed_obj, "stir the pot", [0.0, 0.0, 1.0])
+    try:
+        launches.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        records = R.video_records(frames, *clip, stages=stages)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(launches)
+    finally:
+        D.default_inpaint = real_inpaint
+    want = {k: v * len(completed) for k, v in PER_SAM_IMAGE.items()}
+    if len(completed) != n or sam_launches(counts) != want:
+        raise AssertionError(f"pipeline: {len(completed)} frames completed, "
+                             f"SAM launches {sam_launches(counts)}, expected "
+                             f"{want}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "runs", "chip_smoke_pipeline")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    json_path = os.path.join(work, f"0-{len(records) - 1}_P00.json")
+    t0 = time.perf_counter()
+    R.write_contours_json(records, json_path)
+    json_s = time.perf_counter() - t0
+    json_bytes = os.path.getsize(json_path)
+    with open(json_path) as f:
+        entries = json.load(f)
+    if not records or len(entries) != len(records):
+        raise AssertionError(f"pipeline: {len(records)} records, "
+                             f"{len(entries)} JSON entries")
+    for e in entries.values():
+        if e["original_size"] != list(PIPELINE_HW) or not (
+                e["aff_left"] or e["aff_right"]):
+            raise AssertionError(f"pipeline: bad record {e.keys()}")
+
+    left, right, obj = kept["propagate"]
+    m = PIPELINE_CPU_FRAMES
+    cpu = D.default_propagate(frames[:m], seed_l, seed_r, seed_obj,
+                              device="cpu")
+    worst = 0.0
+    for card_m, cpu_m in zip((left, right, obj), cpu):
+        off = (card_m[:m] != cpu_m).reshape(m, -1).mean(-1)
+        worst = max(worst, float(off.max()))
+    if worst > PIPELINE_PIXEL_TOL:
+        raise AssertionError(f"pipeline: propagated masks differ on "
+                             f"{worst:.5f} of a frame's pixels")
+    hands = ((left != 0) | (right != 0)).astype(np.uint8)
+    cpu_inp = D.default_inpaint(frames, hands, device="cpu")
+    diff = np.abs(kept["inpaint"].astype(int) - cpu_inp.astype(int))
+    off_inp = (diff > 0).reshape(n, -1).mean(-1)
+    if diff.max() > 1 or off_inp.max() > PIPELINE_PIXEL_TOL:
+        raise AssertionError(f"pipeline: inpainted frames differ by up to "
+                             f"{diff.max()} on {off_inp.max():.5f} of a frame")
+    rest = wall - sum(times.values())
+    set_ms = [1e3 * a for a, _ in completed]
+    pred_ms = [1e3 * b for _, b in completed]
+    log(f"pipeline_vit_h: {n} frames at {PIPELINE_HW[0]} x {PIPELINE_HW[1]}, "
+        f"SAM ViT-H bf16 completion: records in {wall:.3f} s ({n / wall:.2f} "
+        f"frames/s); propagate {times['propagate']:.3f} s, inpaint "
+        f"{times['inpaint']:.3f} s, SAM completion {times['complete']:.3f} s "
+        f"({n / times['complete']:.2f} frames/s; set_image median "
+        f"{np.median(set_ms):.1f} ms (first {set_ms[0]:.1f}), point decode + "
+        f"logits to the host median {np.median(pred_ms):.1f} ms), dilate + "
+        f"affordance + filter {rest:.3f} s (host clock, synchronized); "
+        f"{len(records)} records, contour JSON {json_s:.3f} s ({json_bytes} "
+        f"bytes); card vs CPU: propagated masks (first {m} frames) differ on "
+        f"at most {worst:.6f} of a frame's pixels, inpainted frames by at "
+        f"most {diff.max()} on {off_inp.max():.6f} of a frame; launches "
+        f"{counts} | {CARD}")
+
+    k = PIPELINE_CPU_FRAMES
+    profile_call(f"pipeline_vit_h video_records (the clip's first {k} "
+                 f"frames)", lambda: R.video_records(
+                     frames[:k], *clip,
+                     stages=R.PipelineStages(complete_masks=complete)))
+    shutil.rmtree(work, ignore_errors=True)
+    return counts
+
+
+EXPORT_CHILD = r"""
+import json, sys, time
+import torch
+from haff_tpu_torch.kernels import _build
+from haff_tpu_torch.tools.export_model import load_exported
+work = sys.argv[1]
+inputs = torch.load(work + "/inputs.pt")
+res, outs = {}, {}
+for comp, args in (("encoder", inputs[:1]), ("mask_path", inputs)):
+    t0 = time.perf_counter()
+    m = load_exported(work + "/" + comp + ".pt2")
+    load_s = time.perf_counter() - t0
+    _build.LAUNCHES.clear()
+    with torch.no_grad():
+        y = m(*[a.cuda() for a in args])
+    y = y if isinstance(y, (tuple, list)) else (y,)
+    outs[comp] = [t.cpu() for t in y]
+    res[comp] = {"load_s": load_s, "launches": dict(_build.LAUNCHES)}
+torch.save(outs, work + "/outputs.pt")
+res["nn_imported"] = sorted(k for k in sys.modules
+                            if k.startswith("haff_tpu_torch.nn"))
+print(json.dumps(res))
+"""
+
+
+def run_export_vit_h(sam, cfg):
+    """export_vit_h: the encoder and mask_path components of `sam` (7b,
+    bf16) exported with torch.export and saved as .pt2 (plus manifests),
+    then loaded and run in a fresh process on a seeded image and text;
+    held: the outputs equal the eager Sam's bit for bit, the loading
+    process never imported haff_tpu_torch.nn, and each program launched
+    28 + 4 SAM kernels an image. Returns the fresh process's launch counts
+    (both programs)."""
+    import os
+    import shutil
+
+    from haff_tpu_torch.data.transforms import sam_preprocess
+    from haff_tpu_torch.tools import export_model as X
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "runs", "chip_smoke_export")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    frame = np.random.RandomState(5).randint(0, 256, (720, 1280, 3)).astype(
+        np.uint8)
+    image = torch.as_tensor(sam_preprocess(frame, cfg.sam_encoder.image_size)[0])[None]
+    text = torch.randn((1, 1, cfg.sam_decoder.prompt_embed_dim),
+                       generator=torch.Generator().manual_seed(6))
+    torch.save((image, text), os.path.join(work, "inputs.pt"))
+    timing = {}
+    for comp in ("encoder", "mask_path"):
+        t0 = time.perf_counter()
+        program = X.export_sam_component(sam, cfg, comp)
+        t1 = time.perf_counter()
+        size = X.save_exported(program, os.path.join(work, comp + ".pt2"), {
+            "component": comp, "model_preset": "7b", "batch": 1,
+            "precision": "bf16", "device": "cuda"})
+        timing[comp] = (t1 - t0, time.perf_counter() - t1, size)
+        del program
+    gc.collect()
+    with torch.no_grad():
+        eager = {"encoder": [sam.encode_image(image.to("cuda"))],
+                 "mask_path": list(X._Component(
+                     sam, "mask_path", cfg.sam_encoder.image_size)(
+                         image.to("cuda"), text.to("cuda")))}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", EXPORT_CHILD, work],
+                          capture_output=True, text=True, cwd=root,
+                          env=dict(os.environ, PYTHONPATH=root))
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"export: the loading process failed:\n"
+                             f"{proc.stderr[-4000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    if res["nn_imported"]:
+        raise AssertionError(f"export: the loading process imported "
+                             f"{res['nn_imported']}")
+    outs = torch.load(os.path.join(work, "outputs.pt"))
+    worst, total = 0.0, collections.Counter()
+    for comp in ("encoder", "mask_path"):
+        got, want = outs[comp], eager[comp]
+        if len(got) != len(want):
+            raise AssertionError(f"export {comp}: {len(got)} outputs")
+        for g, w in zip(got, want):
+            w = w.cpu()
+            if g.shape != w.shape or g.dtype != w.dtype:
+                raise AssertionError(f"export {comp}: {g.shape} {g.dtype} "
+                                     f"vs {w.shape} {w.dtype}")
+            worst = max(worst, float((g.float() - w.float()).abs().max()))
+            if not torch.equal(g, w):
+                raise AssertionError(f"export {comp}: loaded output differs "
+                                     f"from eager by {worst}")
+        got_l = res[comp]["launches"]
+        if sam_launches(got_l) != PER_SAM_IMAGE:
+            raise AssertionError(f"export {comp}: launches {got_l}, expected "
+                                 f"{PER_SAM_IMAGE}")
+        total.update(got_l)
+    log("export_vit_h: " + "; ".join(
+        f"{c}: export {timing[c][0]:.2f} s, save {timing[c][1]:.2f} s, "
+        f"{timing[c][2]} bytes ({timing[c][2] / 2**30:.3f} GiB), load "
+        f"{res[c]['load_s']:.2f} s in a fresh process" for c in timing)
+        + f"; loading process {child_s:.1f} s wall; loaded outputs = eager "
+        f"(max abs diff {worst}); haff_tpu_torch.nn not imported there; "
+        f"launches per image {PER_SAM_IMAGE} | {CARD}")
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(total)
+
+
+def run_tools_small(sam, cfg):
+    """tools_small: a small-preset train-CLI checkpoint (float32, LoRA r 8,
+    one step, --no_eval) through export_params (LoRA folded) and
+    merge_lora; a Predictor serving the .npz against one serving the
+    checkpoint directory (tokens equal, masks and taxonomy within 1e-3:
+    the folded product rounds differently); merge_lora over the unfolded
+    export equal to export_params' fold bit for bit. Then the native host
+    library (available, against the Python path) and the FLOPs and MFU of
+    the 7b SAM encoder (`sam`) against a bf16 matmul peak measured here.
+    Returns the launch counts of the two Predictors' calls."""
+    import os
+    import shutil
+
+    from haff_tpu_torch.data import native
+    from haff_tpu_torch.data.transforms import sam_preprocess
+    from haff_tpu_torch.infer.predictor import Predictor
+    from haff_tpu_torch.kernels import _build
+    from haff_tpu_torch.nn.sam import PIXEL_MEAN, PIXEL_STD
+    from haff_tpu_torch.tools import merge_lora
+    from haff_tpu_torch.tools.bridge import load_npz
+    from haff_tpu_torch.tools.export_params import export_params
+    from haff_tpu_torch.utils import flops as FL
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "runs", "chip_smoke_tools")
+    shutil.rmtree(work, ignore_errors=True)
+    data, bench = write_train_data(work, 2, (180, 320), seed=53)
+    t0 = time.perf_counter()
+    run = run_train_cli(data_flags(data, bench) + [
+        "--model_preset", "small", "--precision", "fp32", "--batch_size", "2",
+        "--grad_accum", "1", "--epochs", "1", "--steps_per_epoch", "1",
+        "--lr", "1e-2", "--warmup_steps", "0", "--lora_dropout", "0",
+        "--no_eval", "--workers", "1", "--exp_name", "tools", "--device", "cuda",
+        "--log_base_dir", os.path.join(work, "runs")])
+    train_s = time.perf_counter() - t0
+    del run
+    gc.collect()
+    ckpt = os.path.join(work, "runs", "tools", "ckpt_model")
+    t0 = time.perf_counter()
+    npz = export_params(ckpt, os.path.join(work, "p.npz"), "small",
+                        "float32")
+    export_s = time.perf_counter() - t0
+    raw = export_params(ckpt, os.path.join(work, "raw.npz"), dtype="float32",
+                        merge_lora=False)
+    t0 = time.perf_counter()
+    merge_lora.main(["--checkpoint", raw, "--out",
+                     os.path.join(work, "merged.npz"), "--dtype", "float32",
+                     "--keep_vision_tower"])
+    merge_s = time.perf_counter() - t0
+    a, b = load_npz(npz), load_npz(os.path.join(work, "merged.npz"))
+    from haff_tpu_torch.tools.bridge import flatten_tree
+
+    a, b = flatten_tree(a), flatten_tree(b)
+    if sorted(a) != sorted(b) or any(not np.array_equal(a[k], b[k]) for k in a):
+        raise AssertionError("tools: merge_lora over the unfolded export "
+                             "differs from export_params' fold")
+    folded = sum(k.endswith("lora_a") for k in flatten_tree(load_npz(raw)))
+
+    rng = np.random.RandomState(8)
+    frames = [rng.randint(0, 256, (240, 320, 3)).astype(np.uint8)
+              for _ in range(2)]
+    prompts = ["open the drawer", "where would you grab the cup?"]
+    kw = dict(model_preset="small", precision="fp32", max_new_tokens=8,
+              max_text_len=448)
+    _build.LAUNCHES.clear()
+    pred_npz = Predictor(checkpoint=npz, **kw)
+    pred_dir = Predictor(checkpoint=ckpt, **kw)
+    got = pred_npz.predict_batch(frames, prompts)
+    want = pred_dir.predict_batch(frames, prompts)
+    counts = dict(_build.LAUNCHES)
+    worst = 0.0
+    for (t, ml, mr, tax), (rt, rml, rmr, rtax) in zip(got, want):
+        if t != rt:
+            raise AssertionError(f"tools: tokens {t!r} vs {rt!r}")
+        for x, y in ((ml, rml), (mr, rmr), (tax, rtax)):
+            worst = max(worst, float(np.abs(x - y).max()))
+    if worst > 1e-3:
+        raise AssertionError(f"tools: .npz serving differs from the "
+                             f"checkpoint's by {worst}")
+    # Each folded projection against the adapter's: the same outputs, and
+    # a LoRA delta that is not zero.
+    served = {k: m for k, m in pred_npz.model.named_modules()}
+    fold_err, delta = 0.0, 0.0
+    with torch.no_grad():
+        for name, mod in pred_dir.model.named_modules():
+            if getattr(mod, "rank", 0):
+                x = torch.randn((4, mod.base.in_features), device="cuda",
+                                generator=torch.Generator("cuda").manual_seed(1))
+                y = mod(x)
+                fold_err = max(fold_err, float((served[name](x) - y).abs().max()))
+                delta = max(delta, float((mod.base(x) - y).abs().max()))
+    if not delta or fold_err > 1e-4 * max(delta, 1.0) + 1e-5:
+        raise AssertionError(f"tools: folded projections off by {fold_err} "
+                             f"(LoRA delta {delta})")
+    log(f"tools_small: train CLI small fp32 1 step {train_s:.1f} s; "
+        f"export_params {export_s:.2f} s ({folded} LoRA pairs folded, "
+        f"{os.path.getsize(npz)} bytes); merge_lora {merge_s:.2f} s, = the "
+        f"fold bit for bit; Predictor on the .npz = on the checkpoint: "
+        f"answers {[g[0] for g in got]}, masks and taxonomy max abs diff "
+        f"{worst:.3g}; folded q/v projections vs base + adapter: max abs "
+        f"diff {fold_err:.3g} (the adapters' delta up to {delta:.3g}) | "
+        f"{CARD}")
+    del pred_npz, pred_dir
+
+    if not native.available():
+        raise AssertionError("tools: the native host library did not load")
+    frame = np.random.RandomState(9).randint(0, 256, PIPELINE_HW + (3,)).astype(
+        np.uint8)   # upscaled to 1024 (the native resize has no antialias)
+    t0 = time.perf_counter()
+    nat, hw = native.sam_preprocess_native(frame, 1024, PIXEL_MEAN, PIXEL_STD)
+    nat_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ref, hw2 = sam_preprocess(frame, 1024)
+    py_ms = (time.perf_counter() - t0) * 1e3
+    if tuple(hw) != tuple(hw2) or np.abs(nat - ref).max() > 2.5 / 57.0:
+        raise AssertionError("tools: native SAM preprocess off the Python path")
+
+    S = cfg.sam_encoder.image_size
+    x = torch.as_tensor(sam_preprocess(frame, S)[0], device="cuda")[None]
+    with torch.no_grad():
+        enc_flops = FL.count_flops(sam.encode_image, x)
+        enc_ms = cuda_ms(lambda: sam.encode_image(x), 5)
+    peak = FL.measure_peak_tflops()
+    mfu = FL.mfu_fields(enc_flops, 1e3 / enc_ms, peak)
+    log(f"tools_small: native library {native.library_path()} loaded; SAM "
+        f"preprocess of a {PIPELINE_HW[0]} x {PIPELINE_HW[1]} frame native "
+        f"{nat_ms:.1f} ms vs Python "
+        f"{py_ms:.1f} ms (host), max abs diff {np.abs(nat - ref).max():.4f}; "
+        f"SAM ViT-H encoder (bf16, batch 1): {enc_flops / 1e12:.4f} TFLOP "
+        f"(FlopCounterMode), {enc_ms:.3f} ms (events), {mfu['tflops']:.1f} "
+        f"TFLOP/s = {mfu['mfu_pct']:.1f}% of the bf16 matmul peak measured "
+        f"here ({peak:.1f} TFLOP/s, 8192^3 torch.matmul chain) | {CARD}")
+    shutil.rmtree(work, ignore_errors=True)
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -3285,6 +3746,24 @@ def main():
     paths["audit"], paths["bench"] = run_tools(_build.LAUNCHES)
     gc.collect()
     torch.cuda.empty_cache()
+    # The 2HANDS pipeline and the deployment tools over one SAM ViT-H.
+    from haff_tpu_torch.tools.export_model import build_sam
+
+    marks = [("", time.perf_counter())]
+    cfg_h, sam_h = build_sam("7b", None, "bf16")
+    marks.append(("build_sam", time.perf_counter()))
+    paths["pipeline_vit_h"] = run_pipeline_vit_h(_build.LAUNCHES, sam_h, cfg_h)
+    marks.append(("pipeline_vit_h", time.perf_counter()))
+    paths["export_vit_h"] = run_export_vit_h(sam_h, cfg_h)
+    marks.append(("export_vit_h", time.perf_counter()))
+    paths["tools_small"] = run_tools_small(sam_h, cfg_h)
+    marks.append(("tools_small", time.perf_counter()))
+    log("ViT-H phases, wall s: " + ", ".join(
+        f"{name} {t - marks[i][1]:.1f}" for i, (name, t) in enumerate(
+            marks[1:])) + f"; total {marks[-1][1] - marks[0][1]:.1f}")
+    del sam_h
+    gc.collect()
+    torch.cuda.empty_cache()
     # LLaMA-7B in three modes (speculative on the bf16 and w8a8 models),
     # then MPT-7B in two, then the 7b MoE model in bf16 (greedy and
     # speculative); each model is freed before the next is built.
@@ -3311,7 +3790,8 @@ def main():
     # launch and every w4a16 launch on the tensor cores or (w8a8 decode)
     # the streamed skinny kernel: the first skinny kernels and the tile
     # count under /scalar.
-    for p in ("encoder_backward", "predictor_vit_b", "evaluate_bf16",
+    for p in ("encoder_backward", "predictor_vit_b", "pipeline_vit_h",
+              "export_vit_h", "evaluate_bf16",
               "evaluate_w8a8", "evaluate_w4a16", "evaluate_spec_bf16",
               "evaluate_spec_w8a8", "evaluate_mpt_bf16", "evaluate_mpt_w8a8",
               "serve_bf16", "stream", "train", "train_cli", "train_cli_8bit",

@@ -10,6 +10,7 @@ are the streaming path's counterparts on tensors on the model's device
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
@@ -41,7 +42,18 @@ def resize_longest_side(image: np.ndarray, long_side: int) -> np.ndarray:
 def sam_preprocess(image: np.ndarray, image_size: int = 1024):
     """uint8 RGB (H, W, 3) -> (image_size, image_size, 3) float32,
     normalized and zero-padded bottom and right; returns
-    (canvas, (resize_h, resize_w))."""
+    (canvas, (resize_h, resize_w)).
+
+    HAFF_NATIVE_PREPROCESS=1 takes the fused C++ path (data/native.py),
+    whose cv2.INTER_LINEAR-style resampling has no antialias: downscaled
+    pixels differ slightly from this PIL path."""
+    if (os.environ.get("HAFF_NATIVE_PREPROCESS") == "1"
+            and image.dtype == np.uint8):
+        from . import native
+
+        if native.available():
+            return native.sam_preprocess_native(image, image_size,
+                                                PIXEL_MEAN, PIXEL_STD)
     resized = resize_longest_side(image, image_size).astype(np.float32)
     resized = (resized - PIXEL_MEAN) / PIXEL_STD
     h, w = resized.shape[:2]
@@ -54,7 +66,17 @@ def clip_preprocess(image: np.ndarray, image_size: int = 224) -> np.ndarray:
     """uint8 RGB -> (image_size, image_size, 3) float32 with HF
     CLIPImageProcessor semantics: PIL-bicubic resize of the short side to
     image_size (the long side int-truncated), centre crop, scale 1/255,
-    normalize with the CLIP statistics."""
+    normalize with the CLIP statistics.
+
+    HAFF_NATIVE_PREPROCESS=1 takes the fused C++ path, which reproduces
+    PIL's resampler to 1 LSB of its fixed-point rounding."""
+    if (os.environ.get("HAFF_NATIVE_PREPROCESS") == "1"
+            and image.dtype == np.uint8):
+        from . import native
+
+        if native.available():
+            return native.clip_preprocess_native(image, image_size,
+                                                 CLIP_MEAN, CLIP_STD)
     from PIL import Image
 
     h, w = image.shape[:2]

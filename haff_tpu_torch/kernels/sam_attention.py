@@ -76,6 +76,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from .flash_attention import mha_reference
@@ -272,7 +273,7 @@ def _operands(name, q, k, v, rel_h, rel_w, hw):
     return b, nh, d, strides
 
 
-def _launch_global(counter, q, k, v, rel_h, rel_w, hw, sm_scale):
+def _launch_global(q, k, v, rel_h, rel_w, hw, sm_scale, counter):
     """csrc/sam_global_attn.cu on (B, L, nh, d) views -> (B, L, nh, d).
     The tensor-core path builds the band in the kernel from the rel-pos
     tables; the scalar path reads the wrapper's band tables."""
@@ -297,7 +298,7 @@ def _launch_global(counter, q, k, v, rel_h, rel_w, hw, sm_scale):
     return out
 
 
-def _launch_window(counter, q, k, v, rel_h, rel_w, hw, sm_scale):
+def _launch_window(q, k, v, rel_h, rel_w, hw, sm_scale, counter):
     """csrc/sam_window_attn.cu on (BW, L, nh, d) views -> (BW, L, nh, d);
     a window too large for one block's shared memory on its path runs on
     the global kernel instead (a window is a small grid)."""
@@ -305,7 +306,7 @@ def _launch_window(counter, q, k, v, rel_h, rel_w, hw, sm_scale):
     lib = _lib("sam_window_attn")
     path = kernel_path("window", q, k, v)
     if lib.sam_window_relpos_attn_smem(hw[0], hw[1], d, path) > _SMEM_LIMIT:
-        return _launch_global(counter, q, k, v, rel_h, rel_w, hw, sm_scale)
+        return _launch_global(q, k, v, rel_h, rel_w, hw, sm_scale, counter)
     rh, rw = _table(rel_h, q.device), _table(rel_w, q.device)
     out = torch.empty((b, q.shape[1], nh, d), dtype=q.dtype, device=q.device)
     ptr = _build.ptr
@@ -316,6 +317,56 @@ def _launch_window(counter, q, k, v, rel_h, rel_w, hw, sm_scale):
     _build.count(counter, q, path)
     _build.check(err, counter)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The kernels as custom ops
+# ---------------------------------------------------------------------------
+#
+# `torch.ops.haff.sam_window_relpos_attn` and `..._global_...`: (q, k, v,
+# rel_h, rel_w, hw, sm_scale, counter) -> out (B, L, nh, d) in q's dtype,
+# a new tensor; functional (the schema mutates no argument). The CUDA
+# implementation is the launcher itself (its arguments in the schema's
+# order; it counts under `counter` in _build.LAUNCHES), the CPU one runs
+# the plain version; the fake one gives the shape and dtype, so
+# torch.export traces a model through them and an exported program calls
+# them by name (importing this module registers them). They are defined through `torch.library.Library` with one
+# implementation a device: the dispatcher reaches it without the Python
+# autograd layer a `torch.library.custom_op` adds to every call. No
+# autograd formula is registered: gradients go through RelPosAttentionFn
+# (a direct call is not differentiable; PyTorch warns at its backward).
+
+_SCHEMA = ("(Tensor q, Tensor k, Tensor v, Tensor rel_h, Tensor rel_w, "
+           "int[] hw, float sm_scale, str counter) -> Tensor")
+
+
+def _cpu_impl(q, k, v, rel_h, rel_w, hw, sm_scale, counter):
+    return relpos_attention_plain(q, k, v, rel_h, rel_w, hw,
+                                  sm_scale).contiguous()
+
+
+def _op_fake(q, k, v, rel_h, rel_w, hw, sm_scale, counter):
+    return q.new_empty(q.shape)
+
+
+def _op_flops(q_shape, k_shape, v_shape, rel_h_shape, rel_w_shape, hw,
+              *args, out_shape=None, **kwargs) -> int:
+    """Multiply-adds x 2 of one call: the band tables q . Rh and q . Rw,
+    q k^T and p v (L = H * W keys a query; softmax not counted)."""
+    b, l, nh, d = q_shape
+    return 2 * b * nh * l * d * (2 * l + hw[0] + hw[1])
+
+
+_LIB = torch.library.Library("haff", "DEF")
+for _name, _launch in ((WINDOW_SPLIT, _launch_window),
+                       (GLOBAL_FUSED, _launch_global)):
+    _LIB.define(_name + _SCHEMA)
+    _LIB.impl(_name, _launch, "CUDA")
+    _LIB.impl(_name, _cpu_impl, "CPU")
+    torch.library.register_fake("haff::" + _name, _op_fake, lib=_LIB)
+    register_flop_formula(getattr(torch.ops.haff, _name))(_op_flops)
+WINDOW_OP = torch.ops.haff.sam_window_relpos_attn.default
+GLOBAL_OP = torch.ops.haff.sam_global_relpos_attn.default
 
 
 # ---------------------------------------------------------------------------
@@ -388,8 +439,9 @@ def banded_attention_bwd(q, k, v, rel_h, rel_w, out, g, hw, sm_scale):
 
 class RelPosAttentionFn(torch.autograd.Function):
     """Rel-pos attention on (B, L, nh, d) operands. Forward: the `kind`
-    ("window" or "global") kernel on CUDA tensors, counted under
-    `counter`, the plain version on CPU tensors. Backward, plain torch:
+    ("window" or "global") custom op (`haff::sam_window_relpos_attn`,
+    `haff::sam_global_relpos_attn`): the kernel on CUDA tensors, counted
+    under `counter`, the plain version on CPU tensors. Backward, plain torch:
     `banded` (global entries where `global_tables_frozen`) takes
     `banded_attention_bwd` and gives the tables zeros; otherwise the VJP of
     the plain version recomputed from the saved inputs, tables included."""
@@ -397,11 +449,8 @@ class RelPosAttentionFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, rel_h, rel_w, hw, sm_scale, kind, counter,
                 banded):
-        if q.is_cuda:
-            launch = _launch_window if kind == "window" else _launch_global
-            out = launch(counter, q, k, v, rel_h, rel_w, hw, sm_scale)
-        else:
-            out = relpos_attention_plain(q, k, v, rel_h, rel_w, hw, sm_scale)
+        op = WINDOW_OP if kind == "window" else GLOBAL_OP
+        out = op(q, k, v, rel_h, rel_w, hw, sm_scale, counter)
         ctx.save_for_backward(q, k, v, rel_h, rel_w,
                               *((out,) if banded else ()))
         ctx.hw, ctx.sm_scale, ctx.banded = hw, sm_scale, banded

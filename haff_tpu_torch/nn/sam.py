@@ -12,6 +12,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.config import SamDecoderConfig, SamEncoderConfig
+from ..core.dtypes import set_reference_precision
 from .mask_decoder import MaskDecoder
 from .prompt_encoder import PromptEncoder
 from .sam_image_encoder import SamImageEncoder
@@ -38,6 +39,9 @@ class Sam(nn.Module):
     def __init__(self, encoder_cfg: SamEncoderConfig,
                  decoder_cfg: SamDecoderConfig):
         super().__init__()
+        # The float32 neck must not run in TF32, whoever builds the SAM
+        # (a LisaModel, a SamPredictor or an export).
+        set_reference_precision()
         grid = encoder_cfg.grid_size
         self.image_encoder = SamImageEncoder(encoder_cfg)
         self.prompt_encoder = PromptEncoder(

@@ -1,4 +1,4 @@
-"""Carry JAX parameters into the port.
+"""Carry JAX parameters into the port, and the port's back out.
 
 Two sources:
 
@@ -25,6 +25,13 @@ int8 `kernel` (in, out) and `scale` (out,), or a packed uint8 `kernel`
 (in/2, out) and `scale` (in/group, out), becomes the quantized `QDense`
 buffers `weight` (out, in) / (out, in/2) and `scale` (out,) /
 (out, in/group), integer dtypes kept.
+
+The inverse, `state_dict_to_flax`, gives a float model's JAX tree from
+its modules' types (a Linear's `weight` is a Dense `kernel`, a
+LayerNorm's a `scale`, an embedding's an `embedding`); `save_npz` writes a tree as
+the flat export `.npz` (bfloat16 as "::bf16" uint16 bit patterns,
+rounded to nearest even), which haff_tpu's `load_exported_params` and
+`load_npz` read.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import numpy as np
 import torch
 
 _INDEXED = re.compile(r"^(layers|blocks|hyper_mlps)_(\d+)$")
+_INDEX_OF = re.compile(r"^(layers|blocks|hyper_mlps)\.(\d+)(?=\.|$)")
 
 
 def widen_bf16(bits: np.ndarray) -> np.ndarray:
@@ -45,7 +53,7 @@ def widen_bf16(bits: np.ndarray) -> np.ndarray:
 
 def load_npz(path: str) -> Dict:
     """Flat export .npz -> nested dict of float32/int numpy arrays."""
-    tree: Dict = {}
+    flat = {}
     with np.load(path) as z:
         for key in z.files:
             arr = z[key]
@@ -54,12 +62,8 @@ def load_npz(path: str) -> Dict:
                 arr = widen_bf16(arr)
             elif arr.dtype == np.float16:
                 arr = arr.astype(np.float32)
-            node = tree
-            *scopes, leaf = key.split("/")
-            for s in scopes:
-                node = node.setdefault(s, {})
-            node[leaf] = arr
-    return tree
+            flat[key] = arr
+    return unflatten_tree(flat)
 
 
 def _flatten(tree: Mapping, prefix=()):
@@ -136,3 +140,114 @@ def load_jax_params(model: torch.nn.Module, params,
             mod.set_quantized_(weight.to(dev), scale.to(dev))
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def _leaf_name(module) -> str:
+    """The JAX leaf name of a module's `weight`."""
+    from torch import nn
+
+    from ..nn.layers import ChannelLayerNorm, LayerNorm
+
+    if isinstance(module, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+        return "kernel"
+    if isinstance(module, nn.Embedding):
+        return "embedding"
+    if (isinstance(module, (LayerNorm, nn.LayerNorm))
+            and not isinstance(module, ChannelLayerNorm)):
+        return "scale"
+    return "weight"  # SAM's LayerNorm2d and LLaMA's RMSNorm: `weight` in JAX
+
+
+def flax_path(name: str, module) -> tuple:
+    """The JAX path of state_dict entry `name` whose owner is `module`."""
+    prefix, _, leaf = name.rpartition(".")
+    scopes = []
+    rest = prefix
+    while rest:
+        m = _INDEX_OF.match(rest)
+        if m:
+            scopes.append(f"{m.group(1)}_{m.group(2)}")
+            rest = rest[m.end():].lstrip(".")
+        else:
+            head, _, rest = rest.partition(".")
+            scopes.append(head)
+    if leaf == "weight":
+        leaf = _leaf_name(module)
+    return tuple(scopes) + (leaf,)
+
+
+def to_flax_array(tensor: torch.Tensor, leaf: str) -> np.ndarray:
+    """A port tensor in its JAX layout, float32 for floats: a kernel (out,
+    in) -> (in, out), OIHW (or ConvTranspose (in, out, kh, kw)) -> the
+    JAX kernel (the inverse of `flax_to_state_dict`)."""
+    t = tensor.detach().cpu()
+    if not t.dtype.is_floating_point:
+        raise TypeError("state_dict_to_flax: a quantized model; export the "
+                        "float model")
+    arr = t.float().numpy()
+    if leaf == "kernel":
+        if arr.ndim == 2:
+            arr = arr.T
+        elif arr.ndim == 4:
+            arr = arr.transpose(2, 3, 1, 0)
+    return np.ascontiguousarray(arr)
+
+
+def state_dict_to_flax(model: torch.nn.Module,
+                       state_dict: Mapping[str, torch.Tensor] = None) -> Dict:
+    """The JAX parameter tree (nested dicts of float32 numpy arrays) of a
+    float model: its own state_dict, or `state_dict` (entries named as
+    the model's) mapped through the model's module types."""
+    modules = dict(model.named_modules())
+    if state_dict is None:
+        state_dict = model.state_dict()
+    tree: Dict = {}
+    for name, tensor in state_dict.items():
+        path = flax_path(name, modules[name.rpartition(".")[0]])
+        node = tree
+        for s in path[:-1]:
+            node = node.setdefault(s, {})
+        node[path[-1]] = to_flax_array(tensor, path[-1])
+    return tree
+
+
+def flatten_tree(tree: Mapping) -> Dict[str, np.ndarray]:
+    """Nested tree -> {"a/b/c": array}."""
+    return {"/".join(path): np.asarray(v) for path, v in _flatten(tree)}
+
+
+def unflatten_tree(flat: Mapping[str, np.ndarray]) -> Dict:
+    tree: Dict = {}
+    for key, v in flat.items():
+        node = tree
+        *scopes, leaf = key.split("/")
+        for s in scopes:
+            node = node.setdefault(s, {})
+        node[leaf] = v
+    return tree
+
+
+def bf16_bits(arr: np.ndarray) -> np.ndarray:
+    """float32 -> bfloat16 bit patterns (uint16), round to nearest even."""
+    t = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+    return t.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+
+
+def save_npz(tree: Mapping, out: str, dtype: str = "bfloat16") -> int:
+    """Write a tree as the flat export .npz (haff_tpu/tools/export_params.py
+    layout, compressed): float leaves as "::bf16" bit patterns when
+    `dtype` is "bfloat16", else float32; other leaves as they are.
+    Returns the number of arrays."""
+    import os
+
+    flat = {}
+    for key, arr in flatten_tree(tree).items():
+        if np.issubdtype(arr.dtype, np.floating) and dtype == "bfloat16":
+            flat[key + "::bf16"] = bf16_bits(arr)
+        elif np.issubdtype(arr.dtype, np.floating):
+            flat[key] = arr.astype(np.float32)
+        else:
+            flat[key] = arr
+    os.makedirs(os.path.dirname(os.path.abspath(out)) or ".", exist_ok=True)
+    np.savez_compressed(out, **flat)
+    return len(flat)

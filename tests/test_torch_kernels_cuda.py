@@ -1072,3 +1072,54 @@ def test_mpt_evaluate_on_the_card_matches_the_cpu(dev, kv_cache_8bit):
             torch.testing.assert_close(getattr(got, key).cpu(),
                                        getattr(ref, key), rtol=1e-4, atol=1e-4)
         assert n["decode_attn"] == n["decode_attn/alibi"] == 5 * 2
+
+
+@pytest.mark.parametrize("kind,b,hw,nh,d", [("window", 8, (14, 14), 4, 80),
+                                            ("global", 1, (32, 32), 4, 80)])
+def test_sam_custom_ops_eager_and_in_a_cuda_graph(dev, kind, b, hw, nh, d):
+    """`haff::sam_{window,global}_relpos_attn` called directly on CUDA
+    tensors against the plain version (forward), one launch counted a
+    call; the autograd entry's gradients through the op against autograd
+    through the plain version; and the op replayed from a CUDA graph gives
+    the eager output bit for bit, its launches counted at capture only."""
+    g = torch.Generator(dev).manual_seed(b * hw[0])
+    L = hw[0] * hw[1]
+    qkv = torch.randn((b, L, 3 * nh * d), generator=g, device=dev,
+                      dtype=torch.bfloat16)
+    rel = [0.5 * torch.randn((2 * s - 1, d), generator=g, device=dev)
+           for s in hw]
+    q, k, v = (sa.head_view(qkv, 3, i, nh) for i in range(3))
+    op = sa.WINDOW_OP if kind == "window" else sa.GLOBAL_OP
+    counter = sa.WINDOW_FUSED if kind == "window" else sa.GLOBAL_FUSED
+    scale = d ** -0.5
+    before = _build.LAUNCHES[counter]
+    out = op(q, k, v, *rel, hw, scale, counter)
+    assert _build.LAUNCHES[counter] == before + 1
+    _close(out, sa.relpos_attention_plain(q.float(), k.float(), v.float(),
+                                          *rel, hw, scale))
+
+    entry = (sa.sam_window_attention_qkv if kind == "window"
+             else sa.sam_global_attention_qkv)
+    x = qkv.float().requires_grad_(True)
+    ref = sa.global_attention_plain(x, *rel, hw, nh, scale)
+    dy = torch.randn(ref.shape, generator=g, device=dev)
+    (want,) = torch.autograd.grad(ref, x, dy)
+    xf = qkv.float().requires_grad_(True)
+    (got,) = torch.autograd.grad(entry(xf, *rel, hw, nh), xf, dy)
+    _close(got, want)
+
+    static = qkv.clone()
+    sq, sk, sv = (sa.head_view(static, 3, i, nh) for i in range(3))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        op(sq, sk, sv, *rel, hw, scale, counter)   # warm-up
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = op(sq, sk, sv, *rel, hw, scale, counter)
+    counted = _build.LAUNCHES[counter]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[counter] == counted
+    assert torch.equal(captured, out)

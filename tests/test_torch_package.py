@@ -70,6 +70,22 @@ def test_the_walk_covers_every_module_of_the_port():
                 "haff_tpu_torch/train/metrics.py",
                 "haff_tpu_torch/train/checkpoints.py",
                 "haff_tpu_torch/train/cli.py", "haff_tpu_torch/nn/mpt.py",
+                "haff_tpu_torch/pipeline/ops.py",
+                "haff_tpu_torch/pipeline/defaults.py",
+                "haff_tpu_torch/pipeline/orchestrate.py",
+                "haff_tpu_torch/pipeline/annotations.py",
+                "haff_tpu_torch/pipeline/acquire.py",
+                "haff_tpu_torch/pipeline/cli.py",
+                "haff_tpu_torch/tools/export_model.py",
+                "haff_tpu_torch/tools/export_params.py",
+                "haff_tpu_torch/tools/merge_lora.py",
+                "haff_tpu_torch/tools/convert_cli.py",
+                "haff_tpu_torch/tools/delta_weights.py",
+                "haff_tpu_torch/tools/bench_to_shards.py",
+                "haff_tpu_torch/data/native.py",
+                "haff_tpu_torch/utils/profiling.py",
+                "haff_tpu_torch/utils/flops.py",
+                "haff_tpu_torch/utils/bench_cache.py",
                 "chip_smoke.py"):
         assert rel in names, rel
 
@@ -107,3 +123,32 @@ def test_mpt_model_defaults_to_the_card():
     model = LisaModel(cfg, torch.float32, device="cpu")
     assert model.device.type == "cpu"
     assert type(model.llm).__name__ == "MptForCausalLM"
+
+
+@pytest.mark.parametrize("entry", [
+    ("haff_tpu_torch.pipeline.cli", ["--frames_dir", "F", "--out_dir", "O"]),
+    ("haff_tpu_torch.tools.export_model", ["--out", "x.pt2"]),
+    ("haff_tpu_torch.tools.export_params", ["--ckpt_dir", "C", "--out", "x"]),
+])
+def test_device_entry_points_default_to_the_card(entry):
+    """The pipeline CLI, export_model and export_params take --device,
+    default cuda."""
+    import argparse
+    import importlib
+
+    module, argv = entry
+    mod = importlib.import_module(module)
+    seen = {}
+    real = argparse.ArgumentParser.parse_args
+
+    def parse(self, args=None, namespace=None):
+        seen["args"] = real(self, args, namespace)
+        raise SystemExit(0)
+
+    argparse.ArgumentParser.parse_args = parse
+    try:
+        with pytest.raises(SystemExit):
+            mod.main(argv)
+    finally:
+        argparse.ArgumentParser.parse_args = real
+    assert seen["args"].device == "cuda"
