@@ -186,12 +186,33 @@ Phases (any failure raises and exits non-zero):
    and merge_lora; a Predictor on the .npz against one on the checkpoint;
    the native host library; FLOPs and MFU of the ViT-H encoder against a
    bf16 matmul peak measured in the run.
+14. the 7b paths of the W4A16 speculative and MPT decode, the
+   external-scales family, random serving weights and the MPT train CLI,
+   each printing its wall time: evaluate_spec_w4a16 (phase 7c on the
+   W4A16 model, every verify-step product on the mma kernel at M = 16);
+   evaluate_mpt_w4a16 (MPT-7B made by random_quantized_like(
+   default_llm_predicate, bits=4), its build's peak under the bf16
+   model's 14.03 GiB; as phase 7d, graphed = eager bit for bit, 1920
+   w4a16 launches an evaluate; speculative MPT refused);
+   random_w8a8_7b (LLaMA-7B made by random_quantized_like(
+   lisa_serving_predicate, bits=8), peak under 14.34 GiB; one graphed
+   evaluate with evaluate_w8a8's 3756 launches); evaluate_scales_int8
+   (the bf16 LLaMA model after its phases: quantize_tree, bound,
+   make_jitted_evaluate(quant_scales=): graphed = eager bit for bit, no
+   w8a8 / w4a16 launch; weights at rest and peak); train_cli_mpt (the
+   train CLI with --decoder mpt at 7b, 2 steps, a validation, a
+   checkpoint: JAX's MPT trainable set, every flash forward with the ALiBi
+   bias, no flash backward, the validation's decode on the ALiBi variant);
+   parity_tool (tools/parity_check.py: its tiny CLIP / SAM checkpoints
+   with the port on the card, PASS within 1e-4, and --dry_run_7b 0 / 0 /
+   0).
 
-The bf16 full-width paths (evaluate in three modes, speculative in two,
-MPT in two, MoE greedy and speculative, serve_bf16, stream, train,
-train_moe, train_cli, train_cli_8bit, the ViT-B predictor, the encoder
-backward, the pipeline's SAM completion and the exported SAM programs)
-must run every SAM,
+The bf16 full-width paths (evaluate in three modes, speculative in three,
+MPT in three, MoE greedy and speculative, serve_bf16, stream, train,
+train_moe, train_cli, train_cli_8bit, train_cli_mpt, random_w8a8_7b,
+evaluate_scales_int8, the ViT-B predictor, the encoder backward, the
+pipeline's SAM completion and the exported SAM programs) must run every
+SAM,
 flash forward, dq and dk/dv launch on the tensor cores, and every w8a8
 launch on the tensor cores (M > 16) or the streamed skinny kernel
 (decode), and every w4a16 launch on the tensor cores: no `<key>/scalar`
@@ -248,17 +269,22 @@ MOE_7B_PATHS = ("evaluate_moe_bf16", "evaluate_spec_moe_bf16", "train_moe")
 # The pipeline slice's paths at SAM ViT-H: the 2HANDS pipeline's mask
 # completion and the exported encoder and mask_path programs.
 VIT_H_TOOLS = ("pipeline_vit_h", "export_vit_h")
+# The 7b paths of the W4A16 speculative and MPT decode, the external-scales
+# family, random serving-precision weights and the MPT train CLI.
+SLICE_16_PATHS = ("evaluate_spec_w4a16", "evaluate_mpt_w4a16",
+                  "random_w8a8_7b", "evaluate_scales_int8", "train_cli_mpt")
 EXPECTED_ON = {
     "sam_window_relpos_attn": ("evaluate_bf16", "evaluate_w8a8",
                                "evaluate_w4a16", "train", "encoder_backward",
                                "serve_bf16", "stream", "train_cli",
                                "train_cli_8bit") + SPEC_MPT_7B + MOE_7B_PATHS
-                              + VIT_H_TOOLS,
+                              + VIT_H_TOOLS + SLICE_16_PATHS,
     "sam_global_relpos_attn": ("evaluate_bf16", "evaluate_w8a8",
                                "evaluate_w4a16", "train", "encoder_backward",
                                "predictor_vit_b", "small", "serve_bf16",
                                "stream", "train_cli", "train_cli_8bit")
-                              + SPEC_MPT_7B + MOE_7B_PATHS + VIT_H_TOOLS,
+                              + SPEC_MPT_7B + MOE_7B_PATHS + VIT_H_TOOLS
+                              + SLICE_16_PATHS,
     # The split window entry at the geometries of the TPU head-loop kernel
     # (counted under the split entry's key, on the paths that run it there).
     "sam_window_relpos_attn/vit_b": ("predictor_vit_b", "small"),
@@ -270,7 +296,8 @@ EXPECTED_ON = {
                           "train", "serve_bf16", "stream", "train_cli",
                           "train_cli_8bit", "spec_small", "mpt_tiny")
                          + SPEC_MPT_7B + MOE_7B_PATHS
-                         + ("moe_small", "train_cli_moe_small"),
+                         + ("moe_small", "train_cli_moe_small")
+                         + SLICE_16_PATHS,
     "flash_bwd_dq": ("train", "train_cli", "train_cli_8bit", "train_moe",
                      "train_cli_moe_small"),
     "flash_bwd_dkv": ("train", "train_cli", "train_cli_8bit", "train_moe",
@@ -278,15 +305,18 @@ EXPECTED_ON = {
     "decode_attn": ("evaluate_w8a8", "evaluate_bf16", "evaluate_w4a16",
                     "serve_bf16", "stream", "train_cli", "train_cli_8bit",
                     "evaluate_mpt_bf16", "evaluate_mpt_w8a8", "mpt_tiny",
-                    "evaluate_moe_bf16", "moe_small", "train_cli_moe_small"),
+                    "evaluate_moe_bf16", "moe_small", "train_cli_moe_small",
+                    "evaluate_mpt_w4a16", "random_w8a8_7b",
+                    "evaluate_scales_int8", "train_cli_mpt"),
     # train_cli_8bit: the QLoRA train step (tensor-core path, under grad)
     # and its validation's decode (skinny path); train_cli_tiny: the tiny
     # card-vs-CPU CLI runs (float32: w4a16 on its scalar kernel).
     "w8a8_matmul": ("evaluate_w8a8", "train_cli_8bit", "train_cli_tiny",
                     "evaluate_spec_w8a8", "evaluate_mpt_w8a8", "spec_small",
-                    "moe_small"),
+                    "moe_small", "random_w8a8_7b"),
     "w4a16_matmul": ("evaluate_w4a16", "train_cli_tiny", "spec_small",
-                     "moe_small"),
+                     "moe_small", "evaluate_spec_w4a16",
+                     "evaluate_mpt_w4a16"),
 }
 
 # The MoE configuration at LLaMA-7B widths: Mixtral-8x7B's 8 experts and
@@ -643,8 +673,10 @@ def check_w8a8(gen):
 
 def check_w4a16(gen):
     """The w4a16 product at the LLaMA-7B decode step's four shapes (M = 2:
-    gate/up, 4096 x 4096, down, lm_head), at M = 16 and at the largest M
-    the kernel takes (256), each on the bf16 mma path, and one float32
+    gate/up, 4096 x 4096, down, lm_head), at M = 16 (4096 x 4096 and the
+    speculative verify step's gate/up, down and lm_head), at MPT-7B's
+    decode shapes (M = 2: Wqkv, up, down) and at the largest M the kernel
+    takes (256), each on the bf16 mma path, and one float32
     case on the scalar kernel (counted under `w4a16_matmul/scalar`); the
     run fails on any other path. bf16 within one ulp of the product of the
     same rounded weight in float32, float32 within 1e-4 + 1e-4 |ref|. Each
@@ -663,6 +695,14 @@ def check_w4a16(gen):
                               ("decode down", 2, 11008, 4096, bf),
                               ("decode lm_head", 2, 4096, 32004, bf),
                               ("decode M=16", 16, 4096, 4096, bf),
+                              # A speculative verify step: batch 2 x 8 drafts.
+                              ("verify M=16 gate/up", 16, 4096, 11008, bf),
+                              ("verify M=16 down", 16, 11008, 4096, bf),
+                              ("verify M=16 lm_head", 16, 4096, 32004, bf),
+                              # MPT-7B's decode: fused Wqkv, up, down.
+                              ("MPT Wqkv decode", 2, 4096, 12288, bf),
+                              ("MPT up decode", 2, 4096, 16384, bf),
+                              ("MPT down decode", 2, 16384, 4096, bf),
                               ("M=256", 256, 4096, 11008, bf),
                               ("float32", 2, 4096, 11008, f32)):
         w = torch.randn(n, k, generator=gen, device=dev) * k ** -0.5
@@ -1695,11 +1735,14 @@ def run_slice(launches, mode="bf16", decoder="llama", moe=False):
     decode steps on the decode kernel's ALiBi variant, counted under
     `decode_attn/alibi` too) the MPT one; `moe` gives the LLaMA decoder
     MoE MLPs (MOE_7B: 16 MoE layers of 8 experts, ~21.9 B decoder
-    parameters). Returns {path: launch counts}: `evaluate_{mode}`
-    (`evaluate_mpt_{mode}`, `evaluate_moe_{mode}`) over its 2 eager
-    evaluate calls, and for LLaMA in bf16 and w8a8 `evaluate_spec_{mode}`
-    (`evaluate_spec_moe_{mode}`), the speculative phase on the same model
-    (run_speculative)."""
+    parameters). MPT's w4a16 model is made by random_quantized_like (the
+    float model never made; its build peak checked), the others built in
+    bf16 and quantized in place. Returns {path: launch counts}:
+    `evaluate_{mode}` (`evaluate_mpt_{mode}`, `evaluate_moe_{mode}`) over
+    its 2 eager evaluate calls (an MPT prefill's flash calls each with the
+    ALiBi bias), for LLaMA `evaluate_spec_{mode}` (`evaluate_spec_moe_
+    {mode}`), the speculative phase on the same model (run_speculative),
+    and for LLaMA bf16 `evaluate_scales_int8` (run_scales_int8)."""
     from haff_tpu_torch.core.config import ModelConfig
     from haff_tpu_torch.infer.evaluate import evaluate_fn
     from haff_tpu_torch.model.lisa import LisaModel
@@ -1713,10 +1756,21 @@ def run_slice(launches, mode="bf16", decoder="llama", moe=False):
     kind = "mpt " if mpt else "moe " if moe else ""
     label = f"{kind}{mode}"
     path = f"evaluate_{kind.strip()}_{mode}" if kind else f"evaluate_{mode}"
+    # MPT-7B W4A16 is made directly in serving precision (the float model
+    # never exists); the other models are built in bf16 and quantized.
+    random = mpt and mode == "w4a16"
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = LisaModel(cfg, torch.bfloat16, device="cuda",
-                      generator=torch.Generator("cuda").manual_seed(0))
+    if random:
+        from haff_tpu_torch.nn import quant
+
+        model = quant.random_quantized_like(cfg, quant.default_llm_predicate,
+                                            seed=0, bits=4)
+    else:
+        model = LisaModel(cfg, torch.bfloat16, device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(0))
     torch.cuda.synchronize()
+    build_peak = torch.cuda.max_memory_allocated()
     nparam = sum(p.numel() for p in model.parameters())
     llm = sum(p.numel() for p in model.llm.parameters())
     experts = sum(p.numel() for m in model.modules() if isinstance(m, MoEMLP)
@@ -1729,7 +1783,20 @@ def run_slice(launches, mode="bf16", decoder="llama", moe=False):
     B, P, T, S = 2, 320, 16, cfg.sam_encoder.image_size
     expected = dict(PER_EVALUATE, w8a8_matmul=0, w4a16_matmul=0)
     expected["decode_attn/alibi"] = PER_EVALUATE["decode_attn"] if mpt else 0
-    if mode != "bf16":
+    if random:
+        held = sum(t.numel() * t.element_size() for t in
+                   list(model.parameters()) + list(model.buffers()))
+        expected["w4a16_matmul"] = product_launches(model, mode, T)
+        # The bf16 MPT-7B model's weights (PERF.md, evaluate_mpt_bf16).
+        if not build_peak < 14.03 * 2**30:
+            raise AssertionError(f"slice {label}: build peak "
+                                 f"{build_peak / 2**30:.2f} GiB")
+        log(f"slice {label}: random_quantized_like(default_llm_predicate, "
+            f"bits=4) in {time.perf_counter() - t0:.1f} s, weights "
+            f"{held / 2**30:.2f} GiB, build peak {build_peak / 2**30:.2f} GiB "
+            f"(under the bf16 model's 14.03: no float model); expecting "
+            f"{expected['w4a16_matmul']} w4a16_matmul launches an evaluate")
+    elif mode != "bf16":
         t0 = time.perf_counter()
         pred = quantize_for(model, mode)
         torch.cuda.synchronize()
@@ -1764,8 +1831,12 @@ def run_slice(launches, mode="bf16", decoder="llama", moe=False):
         req = make_requests(cfg, B, P, seed=i)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = run(req)
+        with flash_bias_calls() as flash:
+            res = run(req)
         torch.cuda.synchronize()
+        if mpt and dict(flash) != {"bias": PER_EVALUATE["flash_prefill_fwd"]}:
+            raise AssertionError(f"{label}: flash forward calls {flash}, "
+                                 "each should carry the ALiBi bias")
         dt = time.perf_counter() - t0
         eager.append(res)
         eager_ms.append(dt * 1e3)
@@ -1797,22 +1868,183 @@ def run_slice(launches, mode="bf16", decoder="llama", moe=False):
     req = make_requests(cfg, B, P, seed=2)
     profile_call(f"evaluate {label}", lambda: run(req))
     greedy, greedy_ms = run_graphed(model, label, mode == "w8a8", cfg, eager,
-                                    eager_ms, expected)
+                                    eager_ms, expected, exact=random)
     paths = {path: counts}
-    if not mpt and mode != "w4a16":
-        paths[f"evaluate_spec_{kind}{mode}".replace(" ", "_")] = \
-            run_speculative(model, mode, cfg, launches, greedy, greedy_ms,
-                            label)
+    if random:
+        # Speculative MPT stays refused, as JAX refuses it.
+        from haff_tpu_torch.infer.evaluate import make_jitted_evaluate
+
+        try:
+            make_jitted_evaluate(model, T, 2, draft_corpus=[[3, 4, 5]])
+        except ValueError as e:
+            log(f"slice {label}: speculative refused: {e}")
+        else:
+            raise AssertionError(f"slice {label}: speculative MPT accepted")
+    if not mpt:
+        spec = f"evaluate_spec_{kind}{mode}".replace(" ", "_")
+        t0 = time.perf_counter()
+        paths[spec] = run_speculative(model, mode, cfg, launches, greedy,
+                                      greedy_ms, label)
+        log(f"{spec}: {time.perf_counter() - t0:.1f} s wall")
+    if mode == "bf16" and not mpt and not moe:
+        t0 = time.perf_counter()
+        paths["evaluate_scales_int8"] = run_scales_int8(model, cfg, launches,
+                                                        eager)
+        log(f"evaluate_scales_int8: {time.perf_counter() - t0:.1f} s wall")
     return paths
 
 
-def run_graphed(model, mode, kv8, cfg, eager, eager_ms, expected):
+def run_scales_int8(model, cfg, launches, eager_bf16):
+    """evaluate_scales_int8: the external-scales family on the 7b bf16
+    LLaMA model run_slice built (no new build): quantize_tree over
+    default_llm_predicate (int8), bound in place (bind_quantized_tree_,
+    each float weight freed), then make_jitted_evaluate(quant_scales=...,
+    quant_dtype=bf16): an eager evaluate of requests 0 and 1 (under
+    DequantizeAtUse, the context that evaluator enters a call) and the
+    graphed one (a capture call and two replays, requests 0, 1, 0), graphed
+    = eager bit for bit, PER_EVALUATE launches a call and no w8a8 / w4a16
+    launch (each layer is dequantized just before its plain product).
+    Prints weights at rest, the calls' peak memory and latencies, and the
+    tokens' agreement with the bf16 model's (`eager_bf16`: informative,
+    int8 weights change the model). Returns the launch counts."""
+    from haff_tpu_torch.infer.evaluate import evaluate_fn, make_jitted_evaluate
+    from haff_tpu_torch.nn import quant
+
+    B, P, T = 2, 320, 16
+    t0 = time.perf_counter()
+    qstate, scales = quant.quantize_tree(model, quant.default_llm_predicate)
+    quant.bind_quantized_tree_(model, qstate, scales)
+    del qstate
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = sum(t.numel() * t.element_size() for t in
+               list(model.parameters()) + list(model.buffers()))
+    log(f"evaluate_scales_int8: {len(scales)} layers quantize_tree'd and "
+        f"bound in {time.perf_counter() - t0:.1f} s; weights at rest "
+        f"{held / 2**30:.2f} GiB, allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    expected = {k: v for k, v in PER_EVALUATE.items()}
+    torch.cuda.reset_peak_memory_stats()
+    launches.clear()
+    eager, eager_ms = [], []
+    for seed in (0, 1):
+        req = make_requests(cfg, B, P, seed=seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with quant.DequantizeAtUse(model, scales, torch.bfloat16):
+            eager.append(evaluate_fn(model, *req, max_new_tokens=T, eos_id=2))
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+    graphed = make_jitted_evaluate(model, T, 2, quant_scales=scales,
+                                   quant_dtype=torch.bfloat16)
+    graph_ms = []
+    for i, seed in enumerate((0, 1, 0)):
+        req = make_requests(cfg, B, P, seed=seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = graphed(*req)
+        torch.cuda.synchronize()
+        graph_ms.append((time.perf_counter() - t0) * 1e3)
+        ref = eager[seed]
+        for key in ("output_ids", "gen_lengths", "pred_masks_left",
+                    "pred_masks_right", "taxonomies"):
+            if not torch.equal(getattr(got, key), getattr(ref, key)):
+                raise AssertionError(f"evaluate_scales_int8 graphed call {i}:"
+                                     f" {key} differs from eager")
+        if not torch.isfinite(got.pred_masks_left).all():
+            raise AssertionError("evaluate_scales_int8: non-finite masks")
+    counts = {k: n for k, n in launches.items() if n}
+    want = {k: 5 * v for k, v in expected.items()}
+    if counts != want:
+        raise AssertionError(f"evaluate_scales_int8: launches {counts}, "
+                             f"expected {want} (5 calls, no quantized "
+                             "product)")
+    peak = torch.cuda.max_memory_allocated()
+    same = [bool(torch.equal(e.output_ids, b.output_ids))
+            for e, b in zip(eager, eager_bf16)]
+    log(f"evaluate_scales_int8: graphed = eager bit for bit in 3 calls (1 "
+        f"capture, 2 replays); launches {counts} over 2 eager + 3 graphed "
+        f"calls, no w8a8 / w4a16; weights at rest {held / 2**30:.2f} GiB, "
+        f"peak {peak / 2**30:.2f} GiB; latency eager "
+        f"{[round(t, 1) for t in eager_ms]} ms, graphed "
+        f"{[round(t, 1) for t in graph_ms]} ms (first captures; host clock, "
+        f"synchronized); tokens equal to the bf16 model's {same} | {CARD}")
+    req = make_requests(cfg, B, P, seed=1)
+    profile_call("graphed evaluate scales_int8", lambda: graphed(*req))
+    return counts
+
+
+def run_random_w8a8(launches):
+    """random_w8a8_7b: LLaMA-7B made directly in serving precision by
+    random_quantized_like(lisa_serving_predicate, bits=8) (int8 SAM encoder
+    and LLM projections, the rest bf16 normal(0, 0.02)): the build's peak
+    under the bf16 model's 14.34 GiB; then one graphed evaluate (the
+    capture call) with the int8 KV cache: finite outputs of the expected
+    shapes and evaluate_w8a8's launches (PER_EVALUATE and the w8a8 count
+    derived from the model, 3756). Returns the launch counts."""
+    from haff_tpu_torch.core.config import ModelConfig
+    from haff_tpu_torch.infer.evaluate import make_jitted_evaluate
+    from haff_tpu_torch.nn import quant
+
+    B, P, T = 2, 320, 16
+    cfg = ModelConfig.preset("7b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = quant.random_quantized_like(cfg, quant.lisa_serving_predicate,
+                                        seed=0, bits=8)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    held = sum(t.numel() * t.element_size() for t in
+               list(model.parameters()) + list(model.buffers()))
+    if not build_peak < 14.34 * 2**30:
+        raise AssertionError(f"random_w8a8_7b: build peak "
+                             f"{build_peak / 2**30:.2f} GiB")
+    expected = dict(PER_EVALUATE,
+                    w8a8_matmul=product_launches(model, "w8a8", T))
+    if expected["w8a8_matmul"] != 3756:
+        raise AssertionError(f"random_w8a8_7b: {expected['w8a8_matmul']} "
+                             "w8a8 launches derived, evaluate_w8a8 has 3756")
+    launches.clear()
+    torch.cuda.reset_peak_memory_stats()
+    graphed = make_jitted_evaluate(model, T, 2, kv_cache_8bit=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = graphed(*make_requests(cfg, B, P, seed=0))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    S = cfg.sam_encoder.image_size
+    for key, shape in (("output_ids", (B, T)), ("pred_masks_left", (B, S, S)),
+                       ("pred_masks_right", (B, S, S)), ("taxonomies", (B, 4))):
+        t = getattr(res, key)
+        if tuple(t.shape) != shape or (t.is_floating_point()
+                                       and not torch.isfinite(t).all()):
+            raise AssertionError(f"random_w8a8_7b: {key}")
+    counts = {k: n for k, n in launches.items() if n}
+    if counts != expected:
+        raise AssertionError(f"random_w8a8_7b: launches {counts}, expected "
+                             f"{expected}")
+    log(f"random_w8a8_7b: made in {build_s:.1f} s, weights "
+        f"{held / 2**30:.2f} GiB, build peak {build_peak / 2**30:.2f} GiB "
+        f"(under the bf16 model's 14.34: no float model); graphed evaluate "
+        f"(capture call) {ms:.1f} ms, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{counts} | {CARD}")
+    del model, graphed, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_graphed(model, mode, kv8, cfg, eager, eager_ms, expected,
+                exact=False):
     """The eager slice's requests through make_jitted_evaluate (the decode
     loop captured in a CUDA graph): one capture call and two replays
     (requests 0, 1, 0), each against the eager call on the same request:
-    identical tokens, masks and taxonomy within one bf16 ulp, the same
-    launches per call and none on a scalar path. Prints both latencies
-    and profiles one replayed call."""
+    identical tokens, masks and taxonomy within one bf16 ulp (with `exact`
+    bit for bit), the same launches per call and none on a scalar path.
+    Prints both latencies and profiles one replayed call."""
     from haff_tpu_torch.infer.evaluate import make_jitted_evaluate
     from haff_tpu_torch.kernels import _build
 
@@ -1850,6 +2082,9 @@ def run_graphed(model, mode, kv8, cfg, eager, eager_ms, expected):
     if (graphed.captures, graphed.replays) != (1, 2):
         raise AssertionError(f"graphed {mode}: {graphed.captures} captures, "
                              f"{graphed.replays} replays")
+    if exact and not all(identical):
+        raise AssertionError(f"graphed {mode}: masks/taxonomy not bit-"
+                             f"identical to eager {identical}")
     log(f"graphed {mode}: tokens equal to eager in 3 calls (1 capture, 2 "
         f"replays), masks/taxonomy bit-identical {identical}, launches per "
         f"call as eager; decode graph adds {graphed.decode_launches()} a "
@@ -1874,6 +2109,9 @@ def run_graphed(model, mode, kv8, cfg, eager, eager_ms, expected):
 TOP2_GAP_LIMIT = 2.0 ** -6
 
 
+UNCOUNTED = [0]  # > 0 inside uncounted()
+
+
 @contextlib.contextmanager
 def uncounted():
     """Launches inside the block are left out of _build.LAUNCHES: a
@@ -1881,9 +2119,11 @@ def uncounted():
     from haff_tpu_torch.kernels import _build
 
     saved = collections.Counter(_build.LAUNCHES)
+    UNCOUNTED[0] += 1
     try:
         yield
     finally:
+        UNCOUNTED[0] -= 1
         _build.LAUNCHES.clear()
         _build.LAUNCHES.update(saved)
 
@@ -2010,6 +2250,31 @@ def router_near_tie(model, req, spec_kw, got, row, step, greedy_routing):
                          "MoE layer")
 
 
+class w4a16_paths:
+    """Records (M, path) of every w4a16 kernel launch decision outside
+    uncounted() until closed (`seen`: a Counter), by wrapping
+    quant.w4a16_path."""
+
+    def __init__(self):
+        from haff_tpu_torch.nn import quant
+
+        self.seen = collections.Counter()
+        self._real = real = quant.w4a16_path
+
+        def recording(x, packed, scale, group):
+            path = real(x, packed, scale, group)
+            if not UNCOUNTED[0]:
+                self.seen[(x.shape[0], path)] += 1
+            return path
+
+        quant.w4a16_path = recording
+
+    def close(self):
+        from haff_tpu_torch.nn import quant
+
+        quant.w4a16_path = self._real
+
+
 def run_speculative(model, mode, cfg, launches, greedy, greedy_ms,
                     label=None):
     """Speculative decode through make_jitted_evaluate(draft_corpus=...) on
@@ -2042,6 +2307,7 @@ def run_speculative(model, mode, cfg, launches, greedy, greedy_ms,
     template, template_len = answer_template_corpus(ByteTokenizer())
     base = {k: v for k, v in PER_EVALUATE.items() if k != "decode_attn"}
     launches.clear()
+    paths4 = w4a16_paths()
     for name, corpus, lens in (("oracle", oracle, None),
                                ("template", template, template_len)):
         ev = make_jitted_evaluate(model, T, 2, kv_cache_8bit=mode == "w8a8",
@@ -2068,8 +2334,8 @@ def run_speculative(model, mode, cfg, launches, greedy, greedy_ms,
                                      f"{ev.replays - replays_before} replays")
             replays += ev.replays - replays_before
             want = dict(base)
-            if mode == "w8a8":
-                want["w8a8_matmul"] = product_launches(model, "w8a8", 1 + n)
+            if mode in ("w8a8", "w4a16"):
+                want[f"{mode}_matmul"] = product_launches(model, mode, 1 + n)
             if ran != want:
                 raise AssertionError(f"speculative {label} {name} call {i}: "
                                      f"launches {dict(ran)}, expected {want} "
@@ -2121,6 +2387,17 @@ def run_speculative(model, mode, cfg, launches, greedy, greedy_ms,
             f"synchronized) | {CARD}")
         req = make_requests(cfg, B, P, seed=1)
         profile_call(f"graphed speculative {label} {name}", lambda: ev(*req))
+    paths4.close()
+    if mode == "w4a16":
+        # Every verify-step product: the mma kernel at M = B * D.
+        from haff_tpu_torch.nn.quant import W4A16_MMA
+
+        mma = {(B * D, W4A16_MMA)}
+        if set(paths4.seen) != mma:
+            raise AssertionError(f"speculative {label}: w4a16 (M, path) "
+                                 f"{sorted(paths4.seen)}, expected {mma}")
+        log(f"speculative {label}: every w4a16 launch at M = {B * D} on the "
+            f"mma kernel ({sum(paths4.seen.values())} path decisions)")
     return dict(launches)
 
 
@@ -3129,6 +3406,120 @@ def run_train_cli_7b(launches):
     return dict(paths["train_cli"]), dict(paths["train_cli_8bit"])
 
 
+@contextlib.contextmanager
+def flash_bias_calls():
+    """Counts the flash forward kernel's calls in the block by whether a
+    bias operand was given: {"bias": n, "none": n}."""
+    from haff_tpu_torch.kernels import flash_attention as FA
+
+    calls = collections.Counter()
+    real = FA.flash_prefill_kernel
+
+    def recording(q, k, v, bias=None, *a, **kw):
+        calls["none" if bias is None else "bias"] += 1
+        return real(q, k, v, bias, *a, **kw)
+
+    FA.flash_prefill_kernel = recording
+    try:
+        yield calls
+    finally:
+        FA.flash_prefill_kernel = real
+
+
+# Launches per MPT train step at the 7b preset: the frozen SAM encoder's
+# forward and the decoder's flash forward once (no decoder parameter
+# trains, so nothing is recomputed and no flash backward runs).
+PER_TRAIN_MPT_STEP = {"sam_window_relpos_attn": 28,
+                      "sam_global_relpos_attn": 4, "flash_prefill_fwd": 32}
+
+
+def run_train_cli_mpt(launches):
+    """train_cli_mpt: the train CLI with --decoder mpt at the 7b preset
+    (MPT-7B's architecture at the preset's widths, 32 blocks, bf16, seeded
+    random weights), batch 2 on a 4-frame 720 x 1280 ReasonSeg folder, 2
+    steps, one validation (--val_batch_size 2), one checkpoint. Finite
+    losses; the trainable set is JAX's for MPT (mask decoders and text_fc,
+    counted from the names of a meta-device build); exact launches:
+    PER_TRAIN_MPT_STEP a step, every flash forward with the ALiBi bias, no
+    flash backward, the validation's decode all on the ALiBi variant, none
+    on a scalar path. Prints step, validation and checkpoint times and
+    peak memory. Returns the run's launch counts."""
+    import os
+    import shutil
+
+    from haff_tpu_torch.core.config import ModelConfig
+    from haff_tpu_torch.model.lisa import LisaModel
+    from haff_tpu_torch.train.trainer import trainable_mask_path
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "runs", TRAIN_CLI_WORK, "mpt7b")
+    shutil.rmtree(work, ignore_errors=True)
+    data, bench = write_train_data(work, 4, (720, 1280), seed=47)
+    argv = data_flags(data, bench) + [
+        "--model_preset", "7b", "--decoder", "mpt", "--precision", "bf16",
+        "--batch_size", "2", "--grad_accum", "1", "--warmup_steps", "0",
+        "--lr", "3e-4", "--val_batch_size", "2", "--workers", "2",
+        "--print_freq", "1", "--log_base_dir", os.path.join(work, "runs"),
+        "--exp_name", "mpt", "--epochs", "1", "--steps_per_epoch", "2"]
+    meta = LisaModel(ModelConfig.preset("7b").replace(decoder="mpt"),
+                     torch.bfloat16, device="meta")
+    want_trainable = sum(p.numel() for n, p in meta.named_parameters()
+                         if trainable_mask_path(tuple(n.split("."))))
+    del meta
+    launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with flash_bias_calls() as flash:
+        run = run_train_cli(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: n for k, n in launches.items() if n}
+    steps = len(run.steps)
+    if steps != 2 or not all(np.isfinite(s["loss"]) for s in run.steps):
+        raise AssertionError(f"train cli mpt: steps {run.steps}")
+    if type(run.model.llm).__name__ != "MptForCausalLM":
+        raise AssertionError("train cli mpt: not the MPT decoder")
+    trainable = {n: p for n, p in run.model.named_parameters()
+                 if p.requires_grad}
+    count = sum(p.numel() for p in trainable.values())
+    if count != want_trainable or any(n.startswith("llm.")
+                                      for n in trainable):
+        raise AssertionError(f"train cli mpt: {count} trainable parameters, "
+                             f"expected {want_trainable}")
+    (epoch, iou, iocm, frames, val_s), = run.validations
+    if not (0 <= iou <= 1 and 0 <= iocm <= 1 and len(frames) == 2):
+        raise AssertionError(f"train cli mpt: validation {run.validations}")
+    step, trained = saved_trainable(os.path.join(work, "runs", "mpt"))
+    if step != 2 or set(trained) != set(trainable):
+        raise AssertionError(f"train cli mpt: checkpoint at step {step}")
+    want = collections.Counter()
+    for name, per in PER_TRAIN_MPT_STEP.items():
+        want[name] += per * steps
+    for name, per in PER_VALIDATE.items():
+        want[name] += per
+    want["decode_attn/alibi"] = PER_VALIDATE["decode_attn"]
+    if got != dict(want):
+        raise AssertionError(f"train cli mpt: launches {got}, expected "
+                             f"{dict(want)}")
+    if dict(flash) != {"bias": want["flash_prefill_fwd"]}:
+        raise AssertionError(f"train cli mpt: flash forward calls {flash}")
+    ck = run.checkpoints[-1]
+    log(f"train cli mpt 7b: {count / 1e6:.3f} M trainable parameters (JAX's "
+        f"MPT set); step time {[round(s['secs'] * 1e3, 1) for s in run.steps]}"
+        f" ms, losses {[round(s['loss'], 5) for s in run.steps]}; validation "
+        f"{val_s * 1e3:.1f} ms (IoU {iou:.4f}, IoCM {iocm:.4f}, capture call);"
+        f" checkpoint step {step}: host copy {ck['copy_s'] * 1e3:.1f} ms, "
+        f"written after {ck['written_s'] * 1e3:.1f} ms; peak memory "
+        f"{run.peak_bytes / 2**30:.2f} GiB; wall {wall:.1f} s (build and "
+        f"data included); flash forward calls {dict(flash)} (all with the "
+        f"ALiBi bias), no flash backward; launches {got} | {CARD}")
+    del run, trained, trainable
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    return got
+
+
 def run_train_cli_moe_small(launches):
     """train_cli_moe_small: the train CLI at the small preset with MoE MLPs
     (`--moe_experts 4 --moe_top_k 2 --moe_every 2`: layers 1 and 3), bf16,
@@ -3669,6 +4060,70 @@ def run_tools_small(sam, cfg):
     return counts
 
 
+PARITY_WORK = "chip_smoke_parity"
+
+
+def run_parity_tool():
+    """parity_tool: haff_tpu_torch.tools.parity_check on the card (the card
+    machine has `transformers`): `--clip` / `--sam` on the tool's tiny HF
+    CLIP directory and original-layout SAM .pth (`write_tiny_checkpoints`;
+    the port's modules on the card in float32, the HF classes on the CPU):
+    exit 0, both stages PASS within 1e-4 max abs; then `--dry_run_7b`:
+    exit 0, 0 homeless, 0 shape-mismatched, 0 uncovered. Returns the SAM
+    kernels' launch counts of the --sam stage."""
+    import io
+    import os
+    import re
+    import shutil
+
+    from haff_tpu_torch.kernels import _build
+    from haff_tpu_torch.tools import parity_check
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "runs", PARITY_WORK)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    clip_dir, sam_pth = parity_check.write_tiny_checkpoints(work)
+    line = re.compile(r"^(PASS|FAIL) (\S+.*): max abs (\S+) rel (\S+)$")
+    outputs = {}
+    counts = collections.Counter()
+    for name, argv in (("stages", ["--clip", clip_dir, "--sam", sam_pth,
+                                   "--sam_heads", "1", "--device", "cuda"]),
+                       ("dry_run_7b", ["--dry_run_7b"])):
+        out = io.StringIO()
+        before = collections.Counter(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            try:
+                parity_check.main(argv)
+                code = 0
+            except SystemExit as e:
+                code = e.code
+        secs = time.perf_counter() - t0
+        ran = collections.Counter(_build.LAUNCHES)
+        ran.subtract(before)
+        counts.update(+ran)
+        text = out.getvalue()
+        outputs[name] = text
+        log(f"parity_tool {name} ({secs:.1f} s, exit {code}):\n"
+            + "\n".join("  " + ln for ln in text.splitlines()))
+        if code != 0:
+            raise AssertionError(f"parity_tool {name}: exit {code}")
+    stages = {m.group(2): m for m in map(line.match,
+                                         outputs["stages"].splitlines()) if m}
+    if set(stages) != {"clip_tower(select=-2, patches)", "sam_image_encoder"}:
+        raise AssertionError(f"parity_tool: stages {sorted(stages)}")
+    for m in stages.values():
+        if m.group(1) != "PASS" or float(m.group(3)) > 1e-4:
+            raise AssertionError(f"parity_tool: {m.group(0)}")
+    if not re.search(r"PASS dry_run_7b: \d+ converted leaves, 0 homeless, 0 "
+                     r"shape-mismatched, 0 init params uncovered",
+                     outputs["dry_run_7b"]):
+        raise AssertionError(f"parity_tool: {outputs['dry_run_7b']}")
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(counts)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -3682,6 +4137,13 @@ def main():
     log(f"device: {card} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
+
+    walls = [("", time.perf_counter())]
+
+    def lap(name):
+        """Logs the wall seconds since the previous lap as phase `name`."""
+        walls.append((name, time.perf_counter()))
+        log(f"{name}: {walls[-1][1] - walls[-2][1]:.1f} s wall")
 
     t0 = time.perf_counter()
     info = _build.build_all()
@@ -3714,6 +4176,7 @@ def main():
     log("SAM kernel ms at PR 4, for comparison (copied from PERF.md, "
         "events, not measured in this run): " + "; ".join(
             f"{name} {ms}" for name, ms in PR4_SAM_MS))
+    lap("build and kernel checks")
 
     check_sam_backward(gen)
     for mode in ("bf16", "w8a8", "w4a16"):
@@ -3730,6 +4193,7 @@ def main():
     torch.cuda.empty_cache()
     paths_cli_moe = run_train_cli_moe_small(_build.LAUNCHES)
     torch.cuda.empty_cache()
+    lap("tiny and small paths against the CPU")
 
     # Each path is driven with the counts set to 0 just before it and read
     # just after; each model is freed before the next is built.
@@ -3746,6 +4210,7 @@ def main():
     paths["audit"], paths["bench"] = run_tools(_build.LAUNCHES)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("encoder backward, small, predictors, tools")
     # The 2HANDS pipeline and the deployment tools over one SAM ViT-H.
     from haff_tpu_torch.tools.export_model import build_sam
 
@@ -3764,6 +4229,7 @@ def main():
     del sam_h
     gc.collect()
     torch.cuda.empty_cache()
+    lap("ViT-H phases")
     # LLaMA-7B in three modes (speculative on the bf16 and w8a8 models),
     # then MPT-7B in two, then the 7b MoE model in bf16 (greedy and
     # speculative); each model is freed before the next is built.
@@ -3771,21 +4237,34 @@ def main():
                                ("llama", "w8a8", False),
                                ("llama", "w4a16", False),
                                ("mpt", "bf16", False), ("mpt", "w8a8", False),
+                               ("mpt", "w4a16", False),
                                ("llama", "bf16", True)):
-        paths.update(run_slice(_build.LAUNCHES, mode, decoder, moe))
+        new = run_slice(_build.LAUNCHES, mode, decoder, moe)
+        paths.update(new)
         gc.collect()
         torch.cuda.empty_cache()
+        lap("slice " + ", ".join(new))
+    paths["random_w8a8_7b"] = run_random_w8a8(_build.LAUNCHES)
+    lap("random_w8a8_7b")
     paths["serve_bf16"], paths["stream"] = run_serve(_build.LAUNCHES)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("serve_bf16, stream")
     paths["train"] = run_train_slice(_build.LAUNCHES)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("train")
     paths["train_moe"] = run_train_moe(_build.LAUNCHES)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("train_moe")
     paths["train_cli"], paths["train_cli_8bit"] = run_train_cli_7b(
         _build.LAUNCHES)
+    lap("train_cli, train_cli_8bit")
+    paths["train_cli_mpt"] = run_train_cli_mpt(_build.LAUNCHES)
+    lap("train_cli_mpt")
+    paths["parity_tool"] = run_parity_tool()
+    lap("parity_tool")
     # The bf16 full-width paths run every SAM and flash launch, every w8a8
     # launch and every w4a16 launch on the tensor cores or (w8a8 decode)
     # the streamed skinny kernel: the first skinny kernels and the tile
@@ -3795,7 +4274,8 @@ def main():
               "evaluate_w8a8", "evaluate_w4a16", "evaluate_spec_bf16",
               "evaluate_spec_w8a8", "evaluate_mpt_bf16", "evaluate_mpt_w8a8",
               "serve_bf16", "stream", "train", "train_cli", "train_cli_8bit",
-              "evaluate_moe_bf16", "evaluate_spec_moe_bf16", "train_moe"):
+              "evaluate_moe_bf16", "evaluate_spec_moe_bf16", "train_moe",
+              *SLICE_16_PATHS):
         scalar = {k: n for k, n in paths[p].items() if k.endswith("/scalar") and n}
         if scalar:
             raise AssertionError(f"{p}: launches on the scalar path {scalar}")

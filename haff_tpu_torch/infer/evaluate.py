@@ -18,6 +18,10 @@ Speculative decode has a data-dependent trip count (JAX's `while_loop`):
 one verify step is captured per bucket (which adds the draft length and
 the corpus width to the key) and replayed from the host while a row is
 live, at most T times, reading a one-element flag after each replay.
+With JAX's `quant_scales=` (nn/quant.py `quantize_tree`, bound into the
+model by `bind_quantized_tree_`) the selected layers stay int8 / packed
+int4 at rest and are dequantized at use during the evaluator's calls
+(`DequantizeAtUse`), inside the graph on the card.
 `validate_on_benchmark` scores a benchmark folder with it (the train
 CLI's per-epoch validation).
 """
@@ -25,7 +29,7 @@ CLI's per-epoch validation).
 from __future__ import annotations
 
 import collections
-import functools
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -178,7 +182,8 @@ class GraphedEvaluate:
 
     def __init__(self, model: LisaModel, max_new_tokens: int, eos_id: int,
                  kv_cache_8bit: bool = False, draft_corpus=None,
-                 corpus_lengths=None, draft_len: int = 8):
+                 corpus_lengths=None, draft_len: int = 8,
+                 dequant=contextlib.nullcontext()):
         if draft_corpus is not None:
             if model.cfg.decoder == "mpt":
                 raise ValueError(_MPT_SPECULATIVE)
@@ -191,6 +196,7 @@ class GraphedEvaluate:
         self.draft_corpus = draft_corpus
         self.corpus_lengths = corpus_lengths
         self.draft_len = draft_len
+        self._dequant = dequant  # entered around every call
         # Speculative buckets also key on the draft length and corpus width.
         self._key = (() if draft_corpus is None else
                      (draft_len, *torch.as_tensor(draft_corpus).shape))
@@ -265,6 +271,11 @@ class GraphedEvaluate:
     @torch.inference_mode()
     def __call__(self, images_sam, images_clip, input_ids,
                  attention_mask) -> EvaluateResult:
+        with self._dequant:
+            return self._evaluate(images_sam, images_clip, input_ids,
+                                  attention_mask)
+
+    def _evaluate(self, images_sam, images_clip, input_ids, attention_mask):
         model = self.model
         images_sam, images_clip, input_ids, attention_mask = _inputs(
             model, images_sam, images_clip, input_ids, attention_mask)
@@ -292,26 +303,43 @@ class GraphedEvaluate:
 
 
 def make_jitted_evaluate(model: LisaModel, max_new_tokens: int, eos_id: int,
+                         quant_scales=None, quant_dtype=torch.bfloat16,
                          kv_cache_8bit: bool = False, draft_corpus=None,
                          corpus_lengths=None, draft_len: int = 8):
     """A callable (images_sam, images_clip, input_ids, attention_mask) ->
     EvaluateResult, with evaluate_fn's inputs and result: on a CUDA model
     a GraphedEvaluate (the greedy decode loop, or one speculative verify
     step, captured in a CUDA graph per bucket), on a CPU model evaluate_fn
-    itself bound to `model` and the decode settings. The JAX function's
-    external-scales quantization (`quant_scales`) is not ported; quantize
-    the model in place instead (nn/quant.quantize_model_)."""
+    itself bound to `model` and the decode settings.
+
+    With `quant_scales` (nn/quant.quantize_tree's scales over the model's
+    state, whose quantized tensors the model holds after
+    nn/quant.bind_quantized_tree_), the named layers stay int8 / packed
+    int4 at rest and, during this callable's calls only, are dequantized
+    to `quant_dtype` at use, each just before its product (inside the
+    graphs on the card); their products launch no quantized kernel."""
+    dequant = contextlib.nullcontext()
+    if quant_scales is not None:
+        from ..nn.quant import DequantizeAtUse
+
+        dequant = DequantizeAtUse(model, quant_scales, quant_dtype)
     if model.device.type == "cuda":
         return GraphedEvaluate(model, max_new_tokens, eos_id, kv_cache_8bit,
-                               draft_corpus, corpus_lengths, draft_len)
+                               draft_corpus, corpus_lengths, draft_len,
+                               dequant)
     if draft_corpus is not None and model.cfg.decoder == "mpt":
         raise ValueError(_MPT_SPECULATIVE)
-    return functools.partial(evaluate_fn, model,
-                             max_new_tokens=max_new_tokens, eos_id=eos_id,
-                             kv_cache_8bit=kv_cache_8bit,
-                             draft_corpus=draft_corpus,
-                             corpus_lengths=corpus_lengths,
-                             draft_len=draft_len)
+
+    def evaluate(images_sam, images_clip, input_ids, attention_mask):
+        with dequant:
+            return evaluate_fn(model, images_sam, images_clip, input_ids,
+                               attention_mask, max_new_tokens=max_new_tokens,
+                               eos_id=eos_id, kv_cache_8bit=kv_cache_8bit,
+                               draft_corpus=draft_corpus,
+                               corpus_lengths=corpus_lengths,
+                               draft_len=draft_len)
+
+    return evaluate
 
 
 def _resize_nearest(mask, gh: int, gw: int):

@@ -6,8 +6,11 @@ decoders and the taxonomy head.
 
 The model is built on the `meta` device, then materialised on `device`
 (default "cuda": the card, unless the caller asks for the CPU) in
-`dtype`, with weights drawn from a seeded `torch.Generator`. Real weights
-come through tools/bridge.py. The submodule methods are the ones
+`dtype`, with weights drawn from a seeded `torch.Generator`; with
+`device="meta"` it stays there, shapes and dtypes only (nn/quant.py
+`random_quantized_like` materializes such a model in serving precision,
+tools/parity_check.py checks a key map against it). Real weights come
+through tools/bridge.py. The submodule methods are the ones
 infer/evaluate.py calls; `forward(batch)` is the training/validation
 forward (JAX `LisaModel.__call__`): vision encoders over the unique images
 (the CLIP tower always without autograd, the SAM encoder without it unless
@@ -106,6 +109,8 @@ class LisaModel(nn.Module):
             self.text_fc2 = QDense(cfg.llama.hidden_size, cfg.out_dim)
         self.dtype = resolve(dtype)
         self.to(self.dtype)
+        if torch.device(device).type == "meta":
+            return  # shapes and dtypes only (JAX's eval_shape)
         self.to_empty(device=torch.device(device))
         set_reference_precision()
         if generator is None:

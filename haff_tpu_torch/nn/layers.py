@@ -32,9 +32,16 @@ class QDense(nn.Linear):
     `quant.int4_matmul`. The bias is added after, in the compute dtype
     (the float weight's dtype when the layer was quantized), and
     `out_split` slices weight, scale and bias by output row. `scale`
-    stays float32 through `.to(dtype)` and `.half()`-style casts."""
+    stays float32 through `.to(dtype)` and `.half()`-style casts.
+
+    With `dequant_dtype` set (inside `nn.quant.DequantizeAtUse`, the JAX
+    package's external-scales family), a quantized layer launches no
+    kernel: its weight rows are dequantized to `dequant_dtype` at use,
+    cast to the compute dtype, and multiplied by `F.linear`; the float
+    weight lives only for that product."""
 
     compute_dtype = None
+    dequant_dtype = None
 
     @property
     def quantized(self) -> bool:
@@ -83,6 +90,9 @@ class QDense(nn.Linear):
         if not self.quantized:
             return F.linear(x.to(dt), rows(self.weight).to(dt), bias)
         weight, scale = rows(self.weight), rows(self.scale)
+        if self.dequant_dtype is not None:
+            w = quant.dequantize_weight(weight, scale, self.dequant_dtype)
+            return F.linear(x.to(dt), w.to(dt), bias)
         if weight.dtype == torch.int8:
             y = quant.int8_matmul(x.to(dt), weight, scale, dtype=dt)
         else:

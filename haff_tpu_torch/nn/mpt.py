@@ -227,11 +227,15 @@ class MptForCausalLM(nn.Module):
         generate.py and model/lisa.py call either backend.
         `prefix_mask` (B, L) marks bidirectional prefix positions under
         cfg.prefix_lm; `remat` (with grad mode on) recomputes each block
-        in the backward."""
+        in the backward, where one is taken: with no trainable parameter
+        in the decoder and no gradient into its input (the JAX trainable
+        set: MPT has no LoRA, a tied `wte`, no `lm_head`), autograd
+        records nothing here and nothing is recomputed."""
         dtype = self.norm_f.weight.dtype
         x = inputs_embeds.to(dtype)
         slopes = self.slopes(x.device)
-        remat = remat and torch.is_grad_enabled()
+        remat = remat and torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters()))
         new_caches = []
         for i, block in enumerate(self.blocks):
             cache = kv_caches[i] if kv_caches is not None else None

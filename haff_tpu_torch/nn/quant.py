@@ -49,7 +49,8 @@ its large-M route is plain `F.linear`, differentiable as it stands.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, NamedTuple, Tuple
+import math
+from typing import Callable, Dict, Mapping, NamedTuple, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -153,6 +154,16 @@ def dequantize_kernel_int4(packed, scale, group: int = 64,
     q = torch.stack([lo, hi], dim=2).reshape(dout, 2 * din2)
     q = q.reshape(dout, scale.shape[1], group).float()
     return (q * scale[:, :, None]).reshape(dout, 2 * din2).to(dtype)
+
+
+def dequantize_weight(q, scale, dtype=torch.bfloat16):
+    """A quantized weight in `dtype` by its own form: int8 (out, in) with
+    scale (out,), or packed uint8 (out, in/2) with group scales
+    (out, in/group)."""
+    if q.dtype == torch.int8:
+        return dequantize_kernel(q, scale, dtype)
+    return dequantize_kernel_int4(q, scale, 2 * q.shape[1] // scale.shape[1],
+                                  dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -452,4 +463,233 @@ def quantize_model_(model: nn.Module,
         if (isinstance(mod, QDense) and not mod.quantized
                 and should_quantize(tuple(name.split(".")) + ("weight",))):
             mod.quantize_(bits, group)
+    return model
+
+
+# ---------------------------------------------------------------------------
+# The external-scales family (JAX quantize_tree / dequantize_tree /
+# make_quantized_apply) and random serving-precision weights
+# ---------------------------------------------------------------------------
+
+def quantize_tree(state: Union[Mapping[str, torch.Tensor], nn.Module],
+                  should_quantize: Callable[[Tuple[str, ...]], bool],
+                  bits: int = 8, group: int = 64
+                  ) -> Tuple[Dict[str, torch.Tensor], Dict]:
+    """Quantize the selected dense weights of a state dict (or a module's).
+
+    A 2-D float `weight` whose dotted name passes `should_quantize`
+    becomes int8 (bits=8, or bits=4 where in does not divide by `group`)
+    or packed int4. Returns (new_state, scales): new_state is `state` with
+    those entries replaced (the others are the same tensors), and scales
+    maps each replaced name to ("int8", scale (out,), None) or ("int4",
+    scale (out, in/group), group), the JAX package's entries transposed to
+    the port's layout. The float state is not changed."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits={bits}; 4 or 8")
+    out = dict(state.state_dict() if isinstance(state, nn.Module)
+               else state)
+    scales = {}
+    for name, w in list(out.items()):
+        if (name.rpartition(".")[2] == "weight" and w.dim() == 2
+                and w.is_floating_point()
+                and should_quantize(tuple(name.split(".")))):
+            if bits == 4 and w.shape[1] % group == 0:
+                out[name], s = quantize_kernel_int4(w, group)
+                scales[name] = ("int4", s, group)
+            else:
+                out[name], s = quantize_kernel(w)
+                scales[name] = ("int8", s, None)
+    return out, scales
+
+
+def _scale_entry(entry):
+    """A scales entry as (kind, scale, group); a bare tensor is the legacy
+    int8 form."""
+    return entry if isinstance(entry, tuple) else ("int8", entry, None)
+
+
+def dequantize_tree(state: Mapping[str, torch.Tensor], scales: Dict,
+                    dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """The float state back from quantize_tree's (state, scales): each
+    scaled entry dequantized to `dtype` (value * scale in float32, rounded
+    once), the rest as they are."""
+    out = dict(state)
+    for name, entry in scales.items():
+        kind, s, group = _scale_entry(entry)
+        out[name] = (dequantize_kernel_int4(out[name], s, group, dtype)
+                     if kind == "int4" else dequantize_kernel(out[name], s,
+                                                              dtype))
+    return out
+
+
+@torch.no_grad()
+def bind_quantized_tree_(model: nn.Module, state: Mapping[str, torch.Tensor],
+                         scales: Dict) -> nn.Module:
+    """Load quantize_tree's (state, scales) into `model`, in place: each
+    scaled `QDense` weight becomes its int8 / packed uint8 buffer with the
+    float32 scale beside it, its float weight freed; every other entry is
+    copied in, except a tensor the model already holds. Every name of the
+    model must be given. The bound layers run the W8A8 / W4A16 product,
+    as after quantize_model_; under DequantizeAtUse they are dequantized
+    at use instead."""
+    from .layers import QDense
+
+    modules = dict(model.named_modules())
+    for name, entry in scales.items():
+        kind, s, _ = _scale_entry(entry)
+        prefix, _, leaf = name.rpartition(".")
+        mod = modules.get(prefix)
+        if leaf != "weight" or not isinstance(mod, QDense):
+            raise TypeError(f"{name}: not the weight of a QDense layer")
+        q = state[name]
+        if q.dtype != (torch.uint8 if kind == "int4" else torch.int8):
+            raise TypeError(f"{name}: {q.dtype} values for {kind} scales")
+        dev = mod.weight.device
+        mod.set_quantized_(q.to(dev), s.to(dev))
+    own = model.state_dict()
+    rest = {n: t for n, t in state.items() if n not in scales
+            and not (n in own and t.data_ptr() == own[n].data_ptr())}
+    missing, unexpected = model.load_state_dict(rest, strict=False)
+    missing = [n for n in missing if n not in state and not (
+        n.endswith(".scale") and n[: -len("scale")] + "weight" in scales)]
+    if missing or unexpected:
+        raise KeyError(f"bind_quantized_tree_: missing {missing[:5]}, "
+                       f"unexpected {unexpected[:5]}")
+    return model
+
+
+class DequantizeAtUse:
+    """A reusable context in which the layers named in `scales` (each
+    holding the quantized weight of its entry: bind_quantized_tree_) are
+    dequantized to `dtype` at use, each just before its `F.linear`, and
+    launch no quantized kernel (`QDense.dequant_dtype`). On exit each
+    layer is as it was: the scales act only on the calls made inside,
+    as JAX's `quant_scales=` acts only on the call it is given to."""
+
+    def __init__(self, model: nn.Module, scales: Dict, dtype):
+        modules = dict(model.named_modules())
+        self.layers, self.dtype, self._saved = [], dtype, None
+        for name, entry in scales.items():
+            kind, s, _ = _scale_entry(entry)
+            mod = modules.get(name.rpartition(".")[0])
+            want = torch.uint8 if kind == "int4" else torch.int8
+            if (getattr(mod, "weight", None) is None
+                    or mod.weight.dtype != want
+                    or tuple(mod.scale.shape) != tuple(s.shape)):
+                raise ValueError(f"{name}: the model does not hold its "
+                                 f"{kind} weight; bind the quantized tree "
+                                 "first (nn.quant.bind_quantized_tree_)")
+            self.layers.append(mod)
+
+    def __enter__(self):
+        self._saved = [m.dequant_dtype for m in self.layers]
+        for m in self.layers:
+            m.dequant_dtype = self.dtype
+        return self
+
+    def __exit__(self, *exc):
+        for m, dt in zip(self.layers, self._saved):
+            m.dequant_dtype = dt
+        return False
+
+
+def make_quantized_apply(model: nn.Module,
+                         predicate: Callable = default_llm_predicate,
+                         dtype=torch.bfloat16):
+    """Returns (qparams, apply_fn): qparams the state of `model` with the
+    selected weights int8 at rest (quantize_tree with `predicate`), and
+    apply_fn(qparams, *args, method=None, **kwargs) the model's forward
+    (or the named method) run by torch.func.functional_call on qparams,
+    each selected layer's weight dequantized to `dtype` at use. The
+    products are `F.linear`; no quantized kernel is launched.
+
+    `model` is consumed: qparams are bound into it in place (its selected
+    float weights freed, so that no float copy stays beside the int8
+    one), and qparams alias its tensors. Called directly afterwards it is
+    the int8 model of quantize_model_, whose products run W8A8."""
+    qparams, scales = quantize_tree(model, predicate)
+    bind_quantized_tree_(model, qparams, scales)
+    at_use = DequantizeAtUse(model, scales, dtype)
+
+    def apply_fn(qp, *args, method=None, **kwargs):
+        with at_use:
+            return torch.func.functional_call(
+                _MethodCall(model, method),
+                {f"model.{k}": v for k, v in qp.items()}, args, kwargs)
+
+    return model.state_dict(), apply_fn
+
+
+class _MethodCall(nn.Module):
+    """`model`, or its method `name`, as a module's forward (what
+    torch.func.functional_call runs)."""
+
+    def __init__(self, model: nn.Module, name=None):
+        super().__init__()
+        self.model, self.name = model, name
+
+    def forward(self, *args, **kwargs):
+        fn = self.model if self.name is None else getattr(self.model,
+                                                          self.name)
+        return fn(*args, **kwargs)
+
+
+@torch.no_grad()
+def random_quantized_like(model, predicate: Callable[[Tuple[str, ...]], bool],
+                          seed: int = 0, big_bf16: int = 1_000_000,
+                          bits: int = 8, group: int = 64,
+                          dtype=torch.bfloat16, device="cuda") -> nn.Module:
+    """Random weights made directly in serving precision (JAX
+    `random_quantized_like`): `model` is a module on the meta device (a
+    `ModelConfig` builds `LisaModel(cfg, dtype, device="meta")`), and each
+    of its parameters is made on `device`, one at a time, from a
+    generator seeded `seed`. A `QDense` weight whose name passes
+    `predicate` becomes int8 values in [-127, 127] with a 1-D scale
+    (bits=8, or bits=4 where in does not divide by `group`), or packed
+    uint8 bytes with 2-D group scales, every scale 0.02 / sqrt(in); the
+    layer then runs the W8A8 / W4A16 product. Every other float parameter
+    is normal(0, 0.02), in bfloat16 when it has more than `big_bf16`
+    elements, else in its own dtype; any other is zero. The float model is
+    never made. Returns the model."""
+    from ..core.config import ModelConfig
+    from .layers import QDense
+
+    if bits not in (4, 8):
+        raise ValueError(f"bits={bits}; 4 or 8")
+    if isinstance(model, ModelConfig):
+        from ..model.lisa import LisaModel
+
+        model = LisaModel(model, dtype, device="meta")
+    device = torch.device(device)
+    gen = torch.Generator(device).manual_seed(seed)
+    for mod_name, mod in model.named_modules():
+        if any(b is not None for b in mod._buffers.values()):
+            raise ValueError(f"{mod_name}: buffers have no random form")
+        for leaf, p in list(mod._parameters.items()):
+            if p is None:
+                continue
+            name = f"{mod_name}.{leaf}" if mod_name else leaf
+            if (isinstance(mod, QDense) and leaf == "weight"
+                    and predicate(tuple(name.split(".")))):
+                dout, din = p.shape
+                s = 0.02 / math.sqrt(max(din, 1))
+                if bits == 4 and din % group == 0:
+                    q = torch.randint(0, 256, (dout, din // 2), generator=gen,
+                                      device=device, dtype=torch.uint8)
+                    scale = torch.full((dout, din // group), s,
+                                       device=device)
+                else:
+                    q = torch.randint(-127, 128, (dout, din), generator=gen,
+                                      device=device, dtype=torch.int8)
+                    scale = torch.full((dout,), s, device=device)
+                mod.set_quantized_(q, scale)
+                continue
+            if p.is_floating_point():
+                dt = torch.bfloat16 if p.numel() > big_bf16 else p.dtype
+                t = (torch.randn(p.shape, generator=gen, device=device)
+                     * 0.02).to(dt)
+            else:
+                t = torch.zeros(p.shape, dtype=p.dtype, device=device)
+            mod._parameters[leaf] = nn.Parameter(
+                t, requires_grad=p.requires_grad and t.is_floating_point())
     return model

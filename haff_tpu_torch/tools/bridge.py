@@ -88,6 +88,21 @@ def _torch_name(path, dense_scale: bool = False) -> str:
     return ".".join(names + [leaf])
 
 
+def _layout(path, ndim: int, leaves) -> tuple:
+    """(port name, axis permutation or None) of the leaf at `path` of a
+    tree whose leaf paths are `leaves`."""
+    dense_scale = path[-1] == "scale" and path[:-1] + ("kernel",) in leaves
+    perm = None
+    if path[-1] == "kernel" or (dense_scale and ndim == 2):
+        if ndim == 2:
+            perm = (1, 0)
+        elif ndim == 4:
+            perm = (3, 2, 0, 1)
+        else:
+            raise ValueError(f"kernel {'/'.join(path)} of rank {ndim}")
+    return _torch_name(path, dense_scale), perm
+
+
 def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     """JAX LisaModel parameter tree -> the port's LisaModel state_dict."""
     if set(params) == {"params"}:
@@ -98,18 +113,25 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
         arr = np.asarray(value)
         if np.issubdtype(arr.dtype, np.floating):
             arr = arr.astype(np.float32)
-        dense_scale = (path[-1] == "scale"
-                       and path[:-1] + ("kernel",) in leaves)
-        if path[-1] == "kernel" or (dense_scale and arr.ndim == 2):
-            if arr.ndim == 2:
-                arr = arr.T
-            elif arr.ndim == 4:
-                arr = arr.transpose(3, 2, 0, 1)
-            else:
-                raise ValueError(f"kernel {'/'.join(path)} of rank {arr.ndim}")
-        sd[_torch_name(path, dense_scale)] = torch.from_numpy(
-            np.ascontiguousarray(arr))
+        name, perm = _layout(path, arr.ndim, leaves)
+        if perm is not None:
+            arr = arr.transpose(perm)
+        sd[name] = torch.from_numpy(np.ascontiguousarray(arr))
     return sd
+
+
+def flax_to_state_shapes(params: Mapping) -> Dict[str, tuple]:
+    """flax_to_state_dict's names and shapes alone: no array is read or
+    copied (a checkpoint-sized tree of lazy zeros stays lazy)."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    leaves = dict(_flatten(params))
+    out = {}
+    for path, value in leaves.items():
+        shape = tuple(np.shape(value))
+        name, perm = _layout(path, len(shape), leaves)
+        out[name] = shape if perm is None else tuple(shape[i] for i in perm)
+    return out
 
 
 def load_jax_params(model: torch.nn.Module, params,

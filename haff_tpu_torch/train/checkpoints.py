@@ -226,7 +226,8 @@ def load_trained_model(ckpt: str, cfg, precision: str, device):
     initial weights; a seeded init draws on the device's generator, so
     rebuild on the device type the run trained on), then the newest
     step's trained tensors copied in. `cfg` is the caller's preset
-    config; its LLaMA LoRA and vocabulary fields are taken from the run."""
+    config; its decoder and its LLaMA LoRA and vocabulary fields are taken
+    from the run."""
     import dataclasses
 
     d = step_dir(ckpt)
@@ -241,7 +242,8 @@ def load_trained_model(ckpt: str, cfg, precision: str, device):
         raise ValueError(f"{d}: no {MODEL}; the checkpoint does not say how "
                          "its model was built")
     llama = dict(meta["llama"], lora_targets=tuple(meta["llama"]["lora_targets"]))
-    cfg = cfg.replace(llama=dataclasses.replace(cfg.llama, **llama))
+    cfg = cfg.replace(decoder=meta.get("decoder", cfg.decoder),
+                      llama=dataclasses.replace(cfg.llama, **llama))
     from .cli import build_model
 
     model = build_model(cfg, precision, device, meta["seed"],

@@ -206,10 +206,6 @@ def check_flags(args) -> None:
     for flag in ("pp", "sp", "fsdp", "tensor", "ep"):
         if getattr(args, flag) > 1:
             raise SystemExit(f"--{flag} {getattr(args, flag)}: {_NOT_PORTED}")
-    if args.decoder != "llama":
-        raise SystemExit("--decoder mpt: serving only; training the MPT "
-                         "decoder is not ported yet (ROADMAP Queue 1 item 8, "
-                         "open part)")
     if args.load_in_8bit and args.load_in_4bit:
         raise SystemExit("--load_in_8bit and --load_in_4bit exclude each "
                          "other")

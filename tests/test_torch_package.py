@@ -40,12 +40,32 @@ def test_no_jax_flax_or_reference_imports(path):
         assert top not in FORBIDDEN, f"{path.name} imports {name}"
 
 
+# transformers only where the port reads HF files: a local tokenizer and
+# the parity harness, each inside a function (the port imports without it).
+TRANSFORMERS_AT = ("haff_tpu_torch/data/tokenizer.py",
+                   "haff_tpu_torch/tools/parity_check.py")
+
+
+def test_transformers_only_inside_functions_where_allowed():
+    def hf(names):
+        return any(n.split(".")[0] == "transformers" for n in names)
+
+    for path in _sources():
+        tree = ast.parse(path.read_text(), str(path))
+        top = [n for n in tree.body if isinstance(n, (ast.Import,
+                                                      ast.ImportFrom))]
+        assert not hf(_imported(ast.Module(body=top, type_ignores=[]))), path
+        if str(path.relative_to(ROOT)) not in TRANSFORMERS_AT:
+            assert not hf(_imported(tree)), path
+
+
 def test_the_walk_covers_every_module_of_the_port():
     names = {str(p.relative_to(ROOT)) for p in _sources()}
     for rel in ("haff_tpu_torch/infer/sam_predictor.py",
                 "haff_tpu_torch/infer/amg.py",
                 "haff_tpu_torch/data/transforms.py",
                 "haff_tpu_torch/tools/bridge.py",
+                "haff_tpu_torch/tools/parity_check.py",
                 "haff_tpu_torch/tools/kernel_audit.py",
                 "haff_tpu_torch/tools/bench_kernels.py",
                 "haff_tpu_torch/data/tokenizer.py",

@@ -266,7 +266,7 @@ def test_train_cli_qlora_with_validation(synth_data, tmp_path, bits):
     (("--pp", "2", "--sp", "2"), "--pp cannot be combined with --sp"),
     (("--ep", "2"), "--ep > 1 requires --moe_experts > 0"),
     (("--moe_experts", "3", "--ep", "2"), "must be divisible by"),
-    (("--decoder", "mpt"), "Queue 1 item 8"),
+    (("--decoder", "mpt", "--ep", "2"), "--ep > 1 requires --moe_experts"),
 ])
 def test_train_cli_rejected_flags(tmp_path, flags, match):
     with pytest.raises(SystemExit, match=match):
