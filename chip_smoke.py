@@ -169,7 +169,7 @@ Phases (any failure raises and exits non-zero):
    pass) and tools/bench_kernels.py int8probe.
 11. pipeline_vit_h: the 2HANDS pipeline (video_records, the records
    run_pipeline_from_video packs; the card has no h5py) on a
-   seeded synthetic 32-frame clip at 480 x 854 (textured object and hands
+   seeded synthetic 16-frame clip at 480 x 854 (textured object and hands
    moving over a textured background, frame-0 seeds): propagation and
    inpainting on the card, object completion through a SamPredictor over
    the 7b preset's SAM ViT-H in bf16 (seeded weights), records filtered
@@ -206,12 +206,27 @@ Phases (any failure raises and exits non-zero):
    parity_tool (tools/parity_check.py: its tiny CLIP / SAM checkpoints
    with the port on the card, PASS within 1e-4, and --dry_run_7b 0 / 0 /
    0).
+15. mesh phases: 4 rank processes of this script (`--rank`) that share
+   cuda:0 over gloo (NCCL refuses two ranks on one card; CUDA tensors are
+   staged through host memory), after every kernel was built here:
+   ring_7b (the 7b attention, H 32, D 128, bf16, B 1, L 8192 causal with
+   two packed sequences and a padded tail, over sp = 4: forward and
+   backward against the one-process flash kernels and the plain versions
+   in the bf16 tolerance, 10 / 10 / 10 launches, rank r running r past
+   chunks, its diagonal and skipping 3 - r); train_cli_small_dp2_fsdp2
+   (the CLI at small, float32, batch 4 over data 2 x fsdp 2: losses equal
+   to the one-process run's within 1e-4); train_cli_7b_tp2_sp2 (the 7b
+   CLI, bf16, LoRA r8, remat, batch 2 over tensor 2 x sp 2, 2 steps, a
+   checkpoint, a resumed run of 2 more: loss and grad_norm of the 4 steps
+   within 1e-3 + 2^-7 |ref| of run_train_cli_7b's, exact launches, every
+   rank on cuda). Times are of ranks sharing one card.
 
 The bf16 full-width paths (evaluate in three modes, speculative in three,
 MPT in three, MoE greedy and speculative, serve_bf16, stream, train,
 train_moe, train_cli, train_cli_8bit, train_cli_mpt, random_w8a8_7b,
 evaluate_scales_int8, the ViT-B predictor, the encoder backward, the
-pipeline's SAM completion and the exported SAM programs) must run every
+pipeline's SAM completion, the exported SAM programs, ring_7b and
+train_cli_7b_tp2_sp2) must run every
 SAM,
 flash forward, dq and dk/dv launch on the tensor cores, and every w8a8
 launch on the tensor cores (M > 16) or the streamed skinny kernel
@@ -230,6 +245,7 @@ import json
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -273,6 +289,9 @@ VIT_H_TOOLS = ("pipeline_vit_h", "export_vit_h")
 # family, random serving-precision weights and the MPT train CLI.
 SLICE_16_PATHS = ("evaluate_spec_w4a16", "evaluate_mpt_w4a16",
                   "random_w8a8_7b", "evaluate_scales_int8", "train_cli_mpt")
+# The mesh phases (ranks sharing the card): the flash kernels in their ring
+# roles (run_mesh_phases).
+MESH_PATHS = ("ring_7b", "train_cli_small_dp2_fsdp2", "train_cli_7b_tp2_sp2")
 EXPECTED_ON = {
     "sam_window_relpos_attn": ("evaluate_bf16", "evaluate_w8a8",
                                "evaluate_w4a16", "train", "encoder_backward",
@@ -297,11 +316,11 @@ EXPECTED_ON = {
                           "train_cli_8bit", "spec_small", "mpt_tiny")
                          + SPEC_MPT_7B + MOE_7B_PATHS
                          + ("moe_small", "train_cli_moe_small")
-                         + SLICE_16_PATHS,
+                         + SLICE_16_PATHS + MESH_PATHS,
     "flash_bwd_dq": ("train", "train_cli", "train_cli_8bit", "train_moe",
-                     "train_cli_moe_small"),
+                     "train_cli_moe_small") + MESH_PATHS,
     "flash_bwd_dkv": ("train", "train_cli", "train_cli_8bit", "train_moe",
-                      "train_cli_moe_small"),
+                      "train_cli_moe_small") + MESH_PATHS,
     "decode_attn": ("evaluate_w8a8", "evaluate_bf16", "evaluate_w4a16",
                     "serve_bf16", "stream", "train_cli", "train_cli_8bit",
                     "evaluate_mpt_bf16", "evaluate_mpt_w8a8", "mpt_tiny",
@@ -328,6 +347,8 @@ MOE_7B = dict(moe_num_experts=8, moe_top_k=2, moe_every=2,
 
 # The card's nvidia-smi name and power limit, printed beside every time.
 CARD = "card not read yet"
+# The last phase of main() that finished (named on a failure).
+FINISHED = "none"
 
 
 def log(*a):
@@ -339,6 +360,19 @@ def card_line():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def memory_line():
+    """This process's allocated and reserved device memory and the card's
+    free memory (all processes), GiB; after a device fault, which makes
+    every later CUDA call fail, says so instead."""
+    try:
+        free, total = torch.cuda.mem_get_info()
+    except RuntimeError as e:  # torch.AcceleratorError is one
+        return f"memory not readable ({type(e).__name__})"
+    return (f"allocated {torch.cuda.memory_allocated() / 2**30:.2f}, "
+            f"reserved {torch.cuda.memory_reserved() / 2**30:.2f}, card free "
+            f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB")
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -447,6 +481,17 @@ def check_flash(gen):
                 or lse[1, :, l - 100:].abs().max() != 0):
             raise AssertionError(f"flash_prefill_fwd {what}: fully-masked "
                                  "rows not zero")
+        # The float32 output ring attention merges (out_dtype): unrounded.
+        out32, _ = fa.flash_prefill_kernel(q, k, v, bias, seg, seg, True,
+                                           out_dtype=torch.float32)
+        err32 = within_bf16(f"flash_prefill_fwd {what} float32 out", out32,
+                            ref)
+        if out32.dtype != torch.float32:
+            raise AssertionError("flash_prefill_fwd: out_dtype float32 not "
+                                 "honoured")
+        log(f"flash_prefill_fwd {what}: float32 output (the ring's "
+            f"partials) max abs err {err32:.3g} (bf16 output {err:.3g})")
+        del out32
         run = lambda: fa.flash_prefill_kernel(  # noqa: E731
             q, k, v, bias, seg, seg, True)
         kern, kern_graph = cuda_ms(run, 20), graph_ms(run, 20)
@@ -511,7 +556,17 @@ def check_flash_bwd(gen):
     err_dq = within_bf16("flash_bwd_dq", dq, ref[0])
     err_dkv = max(within_bf16("flash_bwd_dkv dk", dk, ref[1]),
                   within_bf16("flash_bwd_dkv dv", dv, ref[2]))
-    del ref
+    # The float32 outputs ring attention sums (out_dtype): the same
+    # accumulators, unrounded, in the same tolerance of the plain version.
+    f32 = fa.flash_bwd_kernel(*args, out_dtype=torch.float32)
+    err32 = [within_bf16(f"flash_bwd {n} float32 out", t, r)
+             for n, t, r in zip(("dq", "dk", "dv"), f32, ref)]
+    if any(t.dtype != torch.float32 for t in f32):
+        raise AssertionError("flash_bwd: out_dtype float32 not honoured")
+    log(f"flash_bwd float32 outputs (the ring's partials): max abs err dq "
+        f"{err32[0]:.3g}, dk {err32[1]:.3g}, dv {err32[2]:.3g} (bf16 "
+        f"outputs: dq {err_dq:.3g}, dk/dv {err_dkv:.3g})")
+    del ref, f32
     if dq[1, l - 100:].abs().max() != 0:
         raise AssertionError("flash_bwd_dq: padded query rows not zero")
     if dk[1, l - 100:].abs().max() != 0 or dv[1, l - 100:].abs().max() != 0:
@@ -2699,14 +2754,20 @@ def profile_call(what, fn):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    dev_us = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
-                               getattr(e, "self_cuda_time_total", 0))
-    # Device-side events only (kernels, copies): an operator's own row, or
-    # a user annotation's range on the device timeline (AdamW.step), would
-    # count its kernels' time a second time.
-    rows = sorted(((dev_us(e), e.count, e.key) for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA") and dev_us(e) > 0
-                   and not getattr(e, "is_user_annotation", False)),
+    # The profiler's raw events, summed by name: key_averages() first builds
+    # a Python object an event, tens of seconds of host time for an eager
+    # 7b evaluate's few hundred thousand. Device-side events only (kernels,
+    # copies): an operator's own row, or a user annotation's range on the
+    # device timeline (AdamW.step), would count its kernels' time a second
+    # time.
+    sums = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.profiler.kineto_results.events():
+        if (str(e.device_type()).endswith("CUDA") and e.duration_ns() > 0
+                and not getattr(e, "is_user_annotation", lambda: False)()):
+            row = sums[e.name()]
+            row[0] += e.duration_ns() / 1e3
+            row[1] += 1
+    rows = sorted(((us, n, key) for key, (us, n) in sums.items()),
                   reverse=True)
     busy = sum(r[0] for r in rows)
     log(f"profile: {what} wall {wall_us / 1e3:.1f} ms (profiled), device "
@@ -3370,6 +3431,8 @@ def run_train_cli_7b(launches):
                                  f"{scalar}")
         paths["train_cli" if kind == "train" else "train_cli_8bit"].update(got)
         losses += [s["loss"] for s in run.steps] if kind == "train" else []
+        if kind == "train":  # the reference of train_cli_7b_tp2_sp2
+            TRAIN_CLI_7B_STEPS.extend(dict(s) for s in run.steps)
         if kind == "train":
             peaks["train"].append(run.peak_bytes)
         else:
@@ -3629,7 +3692,7 @@ def run_train_cli_moe_small(launches):
 # ---------------------------------------------------------------------------
 
 PIPELINE_HW = (480, 854)      # VISOR's frame size
-PIPELINE_FRAMES = 32
+PIPELINE_FRAMES = 16  # depth of the clip: keeps the whole script near 1000 s
 # Frames of the clip the CPU re-runs propagation on (host time).
 PIPELINE_CPU_FRAMES = 8
 # Share of a frame's pixels on which card and CPU masks may differ
@@ -4124,6 +4187,457 @@ def run_parity_tool():
     return dict(counts)
 
 
+# ---------------------------------------------------------------- mesh phases
+# Ranks are processes of this script (`--rank PHASES RANK WORLD WORKDIR`)
+# that share cuda:0, joined in a gloo process group over a file:// store.
+# The parent builds every kernel before it starts them (each rank loads
+# the built libraries) and reads back each phase's results and
+# _build.LAUNCHES counts. Numbers from these phases are of ranks sharing
+# one card: no per-GPU speed.
+MESH_WORK = "chip_smoke_mesh"
+MESH_RANKS = 4
+MESH_TIMEOUT_S = 120          # every collective of the ranks' group
+MESH_DEADLINE_S = 420         # the ranks' whole run
+RING_7B = dict(b=1, l=8192, h=32, d=128, sp=4)  # LLaMA-7B attention heads
+# Causal ring of n ranks: n (n + 1) / 2 forward launches (the past and the
+# diagonal chunks), as many of each backward kernel.
+PER_RING_7B = {"flash_prefill_fwd": 10, "flash_bwd_dq": 10,
+               "flash_bwd_dkv": 10}
+TRAIN_CLI_7B_STEPS = []       # the one-process 7b CLI's steps (runs 1, 2)
+WALLS = {}                    # a rank's wall seconds by phase
+
+
+def ring_inputs(device="cuda"):
+    """ring_7b's global q, k, v, cotangent g (bf16, seeded) and segment
+    ids: two packed sequences (3000 and 4900 tokens) and a padded tail
+    (292 tokens of segment id 0)."""
+    c = RING_7B
+    gen = torch.Generator(device).manual_seed(17)
+    shape = (c["b"], c["l"], c["h"], c["d"])
+    q, k, v, g = (torch.randn(shape, generator=gen, device=device)
+                  .to(torch.bfloat16) for _ in range(4))
+    seg = torch.zeros((c["b"], c["l"]), dtype=torch.int32, device=device)
+    seg[:, :3000] = 1
+    seg[:, 3000:7900] = 2
+    return q, k, v, g, seg
+
+
+def rank_ring_7b(rank, world, work):
+    """One rank of the sp = 4 ring over the whole 7b geometry: the global
+    inputs, this rank's chunks, forward and backward of sum(out * g) over
+    the valid rows; rank 0 returns the gathered out and grads."""
+    from haff_tpu_torch.core.config import MeshConfig
+    from haff_tpu_torch.core.mesh import build_mesh
+    from haff_tpu_torch.parallel import ring_attention as R
+
+    mesh = build_mesh(MeshConfig(data=1, sp=RING_7B["sp"]))
+    q, k, v, g, seg = ring_inputs()
+    valid = (seg != 0)[:, :, None, None]
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    R.RELATIONS.clear()
+    t0 = time.perf_counter()
+    out = R.sequence_sharded_attention(mesh, "sp", q, k, v,
+                                       q_segment_ids=seg, causal=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    (out.float() * g.float() * valid).sum().backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    res = dict(fwd_s=t1 - t0, bwd_s=t2 - t1, relations=dict(R.RELATIONS),
+               devices=sorted({str(t.device) for t in (out, q.grad, k.grad,
+                                                       v.grad)}))
+    if rank == 0:
+        res.update(out=out.detach().cpu(), dq=q.grad.cpu(), dk=k.grad.cpu(),
+                   dv=v.grad.cpu())
+    return res
+
+
+def rank_train_cli(rank, world, work, argvs):
+    """haff_tpu_torch.train.cli.main on each argv in this rank: its steps,
+    start step, checkpoints, peak memory and its parameters' devices."""
+    from haff_tpu_torch.train import cli
+
+    out = []
+    for argv in argvs:
+        run = cli.main(argv)
+        out.append(dict(steps=run.steps, start_step=run.start_step,
+                        checkpoints=run.checkpoints, peak=run.peak_bytes,
+                        devices=sorted({str(p.device) for p in
+                                        run.model.parameters()})))
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_argvs(work, write=False):
+    """The CLI runs of the two train phases: (small one-process, small
+    data 2 x fsdp 2, [7b tensor 2 x sp 2 run 1, run 2]) argv lists, on
+    ReasonSeg folders under `work` (the 7b one as run_train_cli_7b's),
+    which `write` writes."""
+    import os
+
+    small_dir, big_dir = os.path.join(work, "small"), os.path.join(work, "7b")
+    if write:
+        write_train_data(small_dir, 4, (360, 640), seed=44)
+        write_train_data(big_dir, 4, (720, 1280), seed=43)
+    small_data = os.path.join(small_dir, "reason")
+    data7 = os.path.join(big_dir, "reason")
+    small = ["--dataset", "reason_seg", "--reason_seg_data", small_data,
+             "--dataset_dir", small_data, "--model_preset", "small",
+             "--precision", "fp32", "--batch_size", "4", "--grad_accum", "1",
+             "--warmup_steps", "0", "--lr", "3e-4", "--epochs", "1",
+             "--steps_per_epoch", "2", "--no_eval", "--workers", "1",
+             "--print_freq", "1", "--log_base_dir",
+             os.path.join(small_dir, "runs")]
+    big = ["--dataset", "reason_seg", "--reason_seg_data", data7,
+           "--dataset_dir", data7, "--model_preset", "7b", "--precision",
+           "bf16", "--batch_size", "2", "--grad_accum", "1",
+           "--warmup_steps", "0", "--lr", "3e-4", "--no_eval", "--workers",
+           "1", "--print_freq", "1", "--log_base_dir",
+           os.path.join(big_dir, "runs"), "--exp_name", "tp2sp2",
+           "--tensor", "2", "--sp", "2"]
+    return (small + ["--exp_name", "one"],
+            small + ["--exp_name", "dp2fsdp2", "--data", "2", "--fsdp", "2"],
+            [big + ["--epochs", "1", "--steps_per_epoch", "2"],
+             big + ["--epochs", "2", "--steps_per_epoch", "2"]])
+
+
+def rank_main(argv):
+    """A rank process: `--rank PHASES RANK WORLD WORKDIR`. Runs each phase
+    with _build.LAUNCHES set to 0 just before it and read just after, and
+    saves {phase: (result, launches)} to WORKDIR/out<RANK>.pt."""
+    import datetime
+    import os
+
+    from haff_tpu_torch.kernels import _build
+
+    phases, rank, world, work = argv[0].split(","), int(argv[1]), \
+        int(argv[2]), argv[3]
+    torch.cuda.set_device(0)
+    torch.set_num_threads(2)  # MESH_RANKS ranks share the host's cores
+    torch.distributed.init_process_group(
+        "gloo", init_method="file://" + os.path.join(work, "store"),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        _, small_mesh, big = mesh_argvs(work)
+        runs = {"ring_7b": lambda: rank_ring_7b(rank, world, work),
+                "train_cli_small_dp2_fsdp2": lambda: rank_train_cli(
+                    rank, world, work, [small_mesh]),
+                "train_cli_7b_tp2_sp2": lambda: rank_train_cli(
+                    rank, world, work, big)}
+        out, reserved = {}, {}
+        for phase in phases:
+            torch.distributed.barrier()
+            print(f"rank {rank}: {phase} starts; {memory_line()}", flush=True)
+            _build.LAUNCHES.clear()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            try:
+                res = runs[phase]()
+                torch.cuda.synchronize()
+            except Exception:
+                # The traceback, then the phase: the log's last line.
+                traceback.print_exc()
+                print(f"rank {rank}: failed in {phase}; {memory_line()}",
+                      flush=True)
+                return 1
+            out[phase] = (res, dict(_build.LAUNCHES))
+            WALLS[phase] = time.perf_counter() - t0
+            reserved[phase] = torch.cuda.max_memory_reserved()
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.save(dict(out, walls=WALLS, reserved=reserved),
+                   os.path.join(work, f"out{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_ranks(phases, work):
+    """Start MESH_RANKS rank processes on `phases`, wait for them (at most
+    MESH_DEADLINE_S), and return {phase: [(result, launches) per rank]}.
+    A rank that fails or overstays stops them all and raises with the
+    tails of their logs."""
+    import os
+
+    env = dict(os.environ)
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+              "LOCAL_RANK"):
+        env.pop(k, None)
+    log(f"mesh ranks: the parent before the spawn: {memory_line()}")
+    procs, logs = [], []
+    for r in range(MESH_RANKS):
+        logs.append(open(os.path.join(work, f"rank{r}.log"), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank",
+             ",".join(phases), str(r), str(MESH_RANKS), work],
+            stdout=logs[-1], stderr=subprocess.STDOUT, env=env))
+    deadline = time.monotonic() + MESH_DEADLINE_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(
+                    p.poll() not in (None, 0) for p in procs):
+                time.sleep(3)
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        tails = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(work, f"rank{r}.log")) as f:
+                tails.append(f"--- rank {r}\n" + f.read()[-4000:])
+        raise AssertionError(f"mesh ranks {phases}: exit codes {codes}\n"
+                             + "\n".join(tails))
+    outs = [torch.load(os.path.join(work, f"out{r}.pt"), weights_only=False)
+            for r in range(MESH_RANKS)]
+    log("mesh ranks' phases, wall s (slowest rank): " + ", ".join(
+        f"{ph} {max(o['walls'][ph] for o in outs):.1f}" for ph in phases))
+    log("mesh ranks' peak reserved memory by phase, GiB per rank: " + ", ".join(
+        f"{ph} {[round(o['reserved'][ph] / 2**30, 2) for o in outs]}"
+        for ph in phases))
+    return {ph: [o[ph] for o in outs] for ph in phases}
+
+
+def summed(launches):
+    total = collections.Counter()
+    for c in launches:
+        total.update(c)
+    return {k: n for k, n in total.items() if n}
+
+
+def check_ring_7b(results):
+    """ring_7b against the one-process flash_attention over the whole
+    sequence (the kernels) and against attention_plain /
+    attention_bwd_plain on the float32 values (per 8 heads; the backward
+    given the ring's out, as the kernels are), both in the standing bf16
+    tolerance over the valid rows; the exact launch counts and each rank's
+    chunk relations."""
+    from haff_tpu_torch.kernels import _build
+    from haff_tpu_torch.kernels.flash_attention import (attention_bwd_plain,
+                                                        attention_plain,
+                                                        flash_attention)
+
+    n = RING_7B["sp"]
+    launches = [lc for _, lc in results]
+    got = summed(launches)
+    if got != PER_RING_7B:
+        raise AssertionError(f"ring_7b: launches {got}, expected "
+                             f"{PER_RING_7B}")
+    for r, (res, lc) in enumerate(results):
+        want = {"fwd/past": r, "fwd/diagonal": 1, "fwd/future": n - 1 - r,
+                "bwd/past": r, "bwd/diagonal": 1, "bwd/future": n - 1 - r}
+        if res["relations"] != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"ring_7b rank {r}: relations "
+                                 f"{res['relations']}")
+        if lc.get("flash_prefill_fwd") != r + 1 or res["devices"] != ["cuda:0"]:
+            raise AssertionError(f"ring_7b rank {r}: launches {lc}, devices "
+                                 f"{res['devices']}")
+    ring = results[0][0]
+    q, k, v, g, seg = ring_inputs()
+    valid = (seg != 0)[:, :, None, None]
+    before = dict(_build.LAUNCHES)
+    qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = flash_attention(qs, ks, vs, q_segment_ids=seg, causal=True)
+    (out.float() * g.float() * valid).sum().backward()
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    _build.LAUNCHES.update(before)   # comparison launches do not count
+    errs = {}
+    for name, mine, ref in (("out", ring["out"], out.detach()),
+                            ("dq", ring["dq"], qs.grad),
+                            ("dk", ring["dk"], ks.grad),
+                            ("dv", ring["dv"], vs.grad)):
+        errs[f"{name} vs flash"] = within_bf16(
+            f"ring_7b {name} against one-process flash",
+            mine.cuda() * (valid if name == "out" else 1),
+            ref * (valid if name == "out" else 1))
+    del out, qs, ks, vs
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The plain backward takes the forward's out as an input, as the
+    # kernels do: the ring's (bf16) out, so that both see the same delta.
+    step = 8
+    for h0 in range(0, RING_7B["h"], step):
+        sl = (slice(None), slice(None), slice(h0, h0 + step))
+        qf, kf, vf, gf = (t[sl].float() for t in (q, k, v, g))
+        o_p, lse = attention_plain(qf, kf, vf, None, seg, seg, True)
+        dq_p, dk_p, dv_p = attention_bwd_plain(
+            qf, kf, vf, None, seg, seg, ring["out"][sl].cuda().float(), lse,
+            gf * valid, causal=True)
+        for name, mine, ref in (("out", ring["out"][sl].cuda() * valid,
+                                 o_p * valid),
+                                ("dq", ring["dq"][sl].cuda(), dq_p),
+                                ("dk", ring["dk"][sl].cuda(), dk_p),
+                                ("dv", ring["dv"][sl].cuda(), dv_p)):
+            err = within_bf16(f"ring_7b {name} heads {h0}+ against plain",
+                              mine, ref)
+            errs[f"{name} vs plain"] = max(errs.get(f"{name} vs plain", 0.0),
+                                           err)
+        del qf, kf, vf, gf, o_p, lse, dq_p, dk_p, dv_p
+        torch.cuda.empty_cache()
+    fwd = max(res["fwd_s"] for res, _ in results)
+    bwd = max(res["bwd_s"] for res, _ in results)
+    log(f"ring_7b: B 1, L {RING_7B['l']} causal (segments 3000 + 4900 + "
+        f"292 padding), H {RING_7B['h']}, D {RING_7B['d']} bf16 over sp = "
+        f"{n} ranks (gloo): max abs err " + ", ".join(
+            f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; launches {got} (rank r: r + 1 forward); forward "
+        f"{fwd * 1e3:.1f} ms, backward {bwd * 1e3:.1f} ms host clock, "
+        f"slowest rank, {n} ranks sharing one {CARD}")
+    return got
+
+
+def check_mesh_small(small_one, results):
+    """train_cli_small_dp2_fsdp2: each rank's losses equal the one-process
+    small run's within 1e-4 (float32, LoRA dropout on), on cuda; each
+    rank's flash launches are its own rows' (4 layers, remat)."""
+    layers = 4
+    one = small_one.steps
+    for r, (runs, lc) in enumerate(results):
+        (run,) = runs
+        if run["devices"] != ["cuda:0"] or len(run["steps"]) != len(one):
+            raise AssertionError(f"small dp2 fsdp2 rank {r}: devices "
+                                 f"{run['devices']}, steps {run['steps']}")
+        for have, want in zip(run["steps"], one):
+            if abs(have["loss"] - want["loss"]) > 1e-4:
+                raise AssertionError(
+                    f"small dp2 fsdp2 rank {r} step {have['step']}: loss "
+                    f"{have['loss']} against one process {want['loss']}")
+        per_rank = {"flash_prefill_fwd": 2 * 2 * layers,
+                    "flash_bwd_dq": 2 * layers, "flash_bwd_dkv": 2 * layers}
+        if any(lc.get(k) != n for k, n in per_rank.items()):
+            raise AssertionError(f"small dp2 fsdp2 rank {r}: launches {lc}, "
+                                 f"flash expected {per_rank}")
+    launches = summed(lc for _, lc in results)
+    log(f"train_cli_small_dp2_fsdp2: small preset, float32, batch 4 over "
+        f"data 2 x fsdp 2: losses per rank "
+        f"{[[round(s['loss'], 6) for s in rs[0]['steps']] for rs, _ in results]}"
+        f" against one process {[round(s['loss'], 6) for s in one]}; "
+        f"launches {launches} | {MESH_RANKS} ranks sharing one {CARD}")
+    return launches
+
+
+def check_mesh_7b(work, results):
+    """train_cli_7b_tp2_sp2: run 1 (2 steps, a checkpoint) and run 2
+    (auto-resume at step 2, 2 more steps) on every rank against the
+    one-process 7b CLI's runs 1 and 2 (run_train_cli_7b): loss and
+    grad_norm within 1e-3 + 2^-7 |ref|, on cuda, with the ring's exact
+    launches over the ranks and rank 0's checkpoint in the full layout."""
+    import os
+
+    if len(TRAIN_CLI_7B_STEPS) != 4:
+        raise AssertionError("train_cli_7b_tp2_sp2 needs run_train_cli_7b's "
+                             f"steps, has {TRAIN_CLI_7B_STEPS}")
+    errs = []
+    for r, (runs, lc) in enumerate(results):
+        first, second = runs
+        steps = first["steps"] + second["steps"]
+        if second["start_step"] != 2 or [s["step"] for s in steps] != [
+                1, 2, 3, 4]:
+            raise AssertionError(f"7b tp2 sp2 rank {r}: steps {steps}, "
+                                 f"resumed at {second['start_step']}")
+        for run in runs:
+            if run["devices"] != ["cuda:0"]:
+                raise AssertionError(f"7b tp2 sp2 rank {r}: devices "
+                                     f"{run['devices']}")
+        for have, want in zip(steps, TRAIN_CLI_7B_STEPS):
+            for k in ("loss", "grad_norm"):
+                errs.append(abs(have[k] - want[k]))
+                if errs[-1] > 1e-3 + 2.0 ** -7 * abs(want[k]):
+                    raise AssertionError(
+                        f"7b tp2 sp2 rank {r} step {have['step']}: {k} "
+                        f"{have[k]} against one process {want[k]}")
+    launches = summed(lc for _, lc in results)
+    layers, steps, rings = 32, 4, 2 * 3   # tensor groups x sp (sp + 1) / 2
+    want = {"flash_prefill_fwd": layers * 2 * steps * rings,
+            "flash_bwd_dq": layers * steps * rings,
+            "flash_bwd_dkv": layers * steps * rings,
+            "sam_window_relpos_attn": 28 * steps * MESH_RANKS,
+            "sam_global_relpos_attn": 4 * steps * MESH_RANKS}
+    if launches != want:
+        raise AssertionError(f"7b tp2 sp2: launches {launches}, expected "
+                             f"{want}")
+    step, trained = saved_trainable(os.path.join(work, "7b", "runs",
+                                                 "tp2sp2"))
+    if step != 4:
+        raise AssertionError(f"7b tp2 sp2: checkpoint at step {step}")
+    r0 = results[0][0]
+    steps0 = r0[0]["steps"] + r0[1]["steps"]
+    log(f"train_cli_7b_tp2_sp2: 7b, bf16, LoRA r8 q/v, remat, batch 2, "
+        f"tensor 2 x sp 2: losses {[round(s['loss'], 5) for s in steps0]} "
+        f"against one process "
+        f"{[round(s['loss'], 5) for s in TRAIN_CLI_7B_STEPS]} (max |diff| "
+        f"of loss and grad_norm {max(errs):.3g}); step time "
+        f"{[round(s['secs'] * 1e3, 1) for s in steps0]} ms (rank 0); "
+        f"checkpoint step {step}, "
+        f"{sum(t.numel() * 4 for t in trained.values()) / 2**30:.2f} GiB "
+        f"trainable f32 in the full layout, rank 0's save stall "
+        f"{r0[0]['checkpoints'][-1].get('copy_s', 0) * 1e3:.1f} ms; peak "
+        f"memory per rank "
+        f"{[round(max(run['peak'] for run in rs) / 2**30, 2) for rs, _ in results]}"
+        f" GiB; launches {launches} | {MESH_RANKS} ranks sharing one {CARD}")
+    return launches
+
+
+def run_mesh_phases():
+    """The three mesh phases in one set of MESH_RANKS rank processes (one
+    spawn: each process takes ~8 s to reach the card). The one-process
+    small CLI reference runs here first; the ring's references after."""
+    import os
+    import shutil
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "runs", MESH_WORK)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    small_one_argv, _, _ = mesh_argvs(work, write=True)
+    t0 = time.perf_counter()
+    small_one = run_train_cli(small_one_argv)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    log(f"mesh ranks: {MESH_RANKS} processes sharing cuda:0, backend gloo "
+        "(CUDA tensors staged through host memory)")
+    res = run_ranks(MESH_PATHS, work)
+    t2 = time.perf_counter()
+    paths, errors = {}, []
+    try:  # every phase is checked; then the run fails if any failed
+        paths["ring_7b"] = check_ring_7b(res["ring_7b"])
+    except AssertionError as e:
+        errors.append(str(e))
+    t3 = time.perf_counter()
+    for name, check in (
+            ("train_cli_small_dp2_fsdp2", lambda r: check_mesh_small(
+                small_one, r)),
+            ("train_cli_7b_tp2_sp2", lambda r: check_mesh_7b(work, r))):
+        try:
+            paths[name] = check(res[name])
+        except AssertionError as e:
+            errors.append(str(e))
+    if errors:
+        raise AssertionError("mesh phases failed:\n" + "\n".join(errors))
+    log(f"mesh phases, wall s: small one-process reference {t1 - t0:.1f}, "
+        f"ranks (spawn, ring_7b, small dp2 fsdp2, 7b tp2 sp2) {t2 - t1:.1f}, "
+        f"ring references {t3 - t2:.1f}")
+    del small_one
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -4142,6 +4656,8 @@ def main():
 
     def lap(name):
         """Logs the wall seconds since the previous lap as phase `name`."""
+        global FINISHED
+        FINISHED = name
         walls.append((name, time.perf_counter()))
         log(f"{name}: {walls[-1][1] - walls[-2][1]:.1f} s wall")
 
@@ -4261,6 +4777,8 @@ def main():
     paths["train_cli"], paths["train_cli_8bit"] = run_train_cli_7b(
         _build.LAUNCHES)
     lap("train_cli, train_cli_8bit")
+    paths.update(run_mesh_phases())
+    lap("mesh phases (" + ", ".join(MESH_PATHS) + ")")
     paths["train_cli_mpt"] = run_train_cli_mpt(_build.LAUNCHES)
     lap("train_cli_mpt")
     paths["parity_tool"] = run_parity_tool()
@@ -4275,7 +4793,7 @@ def main():
               "evaluate_spec_w8a8", "evaluate_mpt_bf16", "evaluate_mpt_w8a8",
               "serve_bf16", "stream", "train", "train_cli", "train_cli_8bit",
               "evaluate_moe_bf16", "evaluate_spec_moe_bf16", "train_moe",
-              *SLICE_16_PATHS):
+              "ring_7b", "train_cli_7b_tp2_sp2", *SLICE_16_PATHS):
         scalar = {k: n for k, n in paths[p].items() if k.endswith("/scalar") and n}
         if scalar:
             raise AssertionError(f"{p}: launches on the scalar path {scalar}")
@@ -4305,4 +4823,15 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--rank"]:  # a rank process of the mesh phases
+        sys.exit(rank_main(sys.argv[2:]))
+    try:
+        code = main()
+    except Exception:
+        # The traceback, then (the last line of the standard error) where
+        # the run was: the phase after the last one that finished.
+        traceback.print_exc()
+        print(f"chip_smoke: failed after the phase {FINISHED!r} finished",
+              file=sys.stderr, flush=True)
+        code = 1
+    sys.exit(code)

@@ -99,6 +99,11 @@
 //   read): one block per (64-key tile, head, batch row); it loops over
 //   the query tiles at or below the diagonal, keeping dk and dv in
 //   registers (64 f32 a thread), every product an f32 FMA.
+//
+// Both kernels write their outputs like q, k and v, or, with `f32_out`,
+// as float32 from the f32 accumulators: ring attention
+// (parallel/ring_attention.py) sums one such partial a K/V chunk, and
+// bf16 partials would round once a chunk before the sum.
 #include <limits.h>
 #include <stdint.h>
 
@@ -131,6 +136,7 @@ struct Params {
   int B, Lq, Lk, H, D;
   float scale;
   int causal;
+  int f32_out;            // write dq / dk / dv as float32
 };
 
 // Visibility of key ja to query ia (absolute indices), given their
@@ -248,7 +254,13 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
     if (o < BQ * D) {
       const int i = o / D, c = o - i * D;
       const int ia = i0 + i;
-      if (ia < Lq) dq[(((int64_t)b * Lq + ia) * H + h) * D + c] = haff::from_f<T>(acc[r]);
+      if (ia < Lq) {
+        const int64_t off = (((int64_t)b * Lq + ia) * H + h) * D + c;
+        if (p.f32_out)
+          static_cast<float*>(p.dq)[off] = acc[r];
+        else
+          dq[off] = haff::from_f<T>(acc[r]);
+      }
     }
   }
 }
@@ -355,8 +367,13 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
       const int ja = j0 + j;
       if (ja < Lk) {
         const int64_t off = (((int64_t)b * Lk + ja) * H + h) * D + c;
-        dk[off] = haff::from_f<T>(acc_k[r]);
-        dv[off] = haff::from_f<T>(acc_v[r]);
+        if (p.f32_out) {
+          static_cast<float*>(p.dk)[off] = acc_k[r];
+          static_cast<float*>(p.dv)[off] = acc_v[r];
+        } else {
+          dk[off] = haff::from_f<T>(acc_k[r]);
+          dv[off] = haff::from_f<T>(acc_v[r]);
+        }
       }
     }
   }
@@ -610,6 +627,13 @@ flash_bwd_dkv_wg_kernel(const __grid_constant__ CUtensorMap qmap,
 
   const float one[2] = {1.f, 1.f};
   const int64_t base = ((int64_t)b * Lk * H + h) * D;
+  if (p.f32_out) {
+    tc::store_acc_f32<NO>(dk, one, static_cast<float*>(p.dk) + base, (long long)H * D, jw,
+                          Lk, D / 8, lane);
+    tc::store_acc_f32<NO>(dv, one, static_cast<float*>(p.dv) + base, (long long)H * D, jw,
+                          Lk, D / 8, lane);
+    return;
+  }
   __nv_bfloat16* stage = stage_out + warp * 8 * SDS;
   tc::store_acc_staged<NO, SDS>(dk, one, static_cast<__nv_bfloat16*>(p.dk) + base,
                                 (long long)H * D, jw, Lk, D / 8, stage, lane);
@@ -848,6 +872,12 @@ flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 
   const float one[2] = {1.f, 1.f};
+  if (p.f32_out) {
+    tc::store_acc_f32<NO>(dq, one,
+                          static_cast<float*>(p.dq) + ((int64_t)b * Lq * H + h) * D,
+                          (long long)H * D, row0, Lq, D / 8, lane);
+    return;
+  }
   tc::store_acc_staged<NO, SDS>(
       dq, one, static_cast<__nv_bfloat16*>(p.dq) + ((int64_t)b * Lq * H + h) * D,
       (long long)H * D, row0, Lq, D / 8, stage_out + warp * 8 * SDS, lane);
@@ -906,6 +936,7 @@ Params make_params(const void* q, const void* k, const void* v, const void* bias
   p.D = D;
   p.scale = scale;
   p.causal = causal;
+  p.f32_out = 0;
   return p;
 }
 
@@ -914,7 +945,8 @@ Params make_params(const void* q, const void* k, const void* v, const void* bias
 // q/dout (B, Lq, H, D), k/v (B, Lk, H, D), one dtype (bf16 or f32); lse
 // and delta (B, H, Lq) f32; bias f32 addressed as
 // bias[b*sb + h*sh + i*si + j*sj] or null; qseg (B, Lq), kseg (B, Lk)
-// int32, both null or both given. D <= 128. Writes dq (like q).
+// int32, both null or both given. D <= 128. Writes dq (like q, or float32
+// with f32_out).
 // Paths (the wrapper's kernel_path): 0 scalar (bf16 or f32), 1 warpgroup
 // MMA (bf16, D % 16 == 0, 16-byte aligned q, k, v, dout and dq).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* bias,
@@ -922,10 +954,11 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
                             int64_t bias_sj, const void* qseg, const void* kseg,
                             const void* dout, const void* lse, const void* delta, void* dq,
                             int B, int Lq, int Lk, int H, int D, float scale, int causal,
-                            int is_bf16, int path, void* stream) {
+                            int is_bf16, int path, int f32_out, void* stream) {
   Params p = make_params(q, k, v, bias, bias_sb, bias_sh, bias_si, bias_sj, qseg, kseg, dout,
                          lse, delta, B, Lq, Lk, H, D, scale, causal);
   p.dq = dq;
+  p.f32_out = f32_out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (path == 1) return is_bf16 ? (int)launch_dq_wg(p, s) : (int)cudaErrorInvalidValue;
   if (path != 0) return (int)cudaErrorInvalidValue;
@@ -933,7 +966,8 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
   return (int)launch_dq<float>(p, s);
 }
 
-// Same operands as flash_bwd_dq; writes dk (like k) and dv (like v).
+// Same operands as flash_bwd_dq; writes dk (like k) and dv (like v), or
+// both as float32 with f32_out.
 // Paths (the wrapper's kernel_path): 0 scalar (bf16 or f32), 1 warpgroup
 // MMA (bf16, D % 16 == 0, 16-byte aligned q, k, v, dout, dk and dv).
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* bias,
@@ -941,11 +975,13 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                              int64_t bias_sj, const void* qseg, const void* kseg,
                              const void* dout, const void* lse, const void* delta, void* dk,
                              void* dv, int B, int Lq, int Lk, int H, int D, float scale,
-                             int causal, int is_bf16, int path, void* stream) {
+                             int causal, int is_bf16, int path, int f32_out,
+                             void* stream) {
   Params p = make_params(q, k, v, bias, bias_sb, bias_sh, bias_si, bias_sj, qseg, kseg, dout,
                          lse, delta, B, Lq, Lk, H, D, scale, causal);
   p.dk = dk;
   p.dv = dv;
+  p.f32_out = f32_out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (path == 1) return is_bf16 ? (int)launch_dkv_wg(p, s) : (int)cudaErrorInvalidValue;
   if (path != 0) return (int)cudaErrorInvalidValue;

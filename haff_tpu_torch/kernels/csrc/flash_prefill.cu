@@ -85,6 +85,7 @@ struct Params {
   int B, Lq, Lk, H, D;
   float scale;
   int causal;
+  int f32_out;            // write out as float32 (ring attention's partials)
 };
 
 template <typename T>
@@ -211,8 +212,12 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
       const int ia = i0 + i;
       if (ia < Lq) {
         const float l = l_s[i];
-        out[(((int64_t)b * Lq + ia) * H + h) * D + c] =
-            from_f<T>(l == 0.f ? 0.f : acc[r] / l);
+        const int64_t off = (((int64_t)b * Lq + ia) * H + h) * D + c;
+        const float val = l == 0.f ? 0.f : acc[r] / l;
+        if (p.f32_out)
+          static_cast<float*>(p.out)[off] = val;
+        else
+          out[off] = from_f<T>(val);
       }
     }
   }
@@ -464,6 +469,11 @@ flash_fwd_wg_kernel(const __grid_constant__ CUtensorMap kmap,
       p.lse[((int64_t)b * H + h) * Lq + i] =
           l[hf] > 0.f ? (m[hf] + __log2f(l[hf])) * 0.6931471805599453f : 0.f;
   }
+  if (p.f32_out) {
+    tc::store_acc_f32<NO>(o, inv, static_cast<float*>(p.out) + ((int64_t)b * Lq * H + h) * D,
+                          (long long)H * D, row0, Lq, D / 8, lane);
+    return;
+  }
   tc::store_acc_staged<NO, SDS>(
       o, inv, static_cast<__nv_bfloat16*>(p.out) + ((int64_t)b * Lq * H + h) * D,
       (long long)H * D, row0, Lq, D / 8, stage_out + warp * 8 * SDS, lane);
@@ -494,7 +504,8 @@ cudaError_t launch_wg(const Params& p, cudaStream_t stream) {
 
 // Paths (the wrapper's kernel_path): 0 scalar (bf16 or f32), 1 warpgroup
 // MMA (bf16, D % 16 == 0, 16-byte aligned q, k, v and out).
-// q (B, Lq, H, D), k/v (B, Lk, H, D), out like q, lse (B, H, Lq) f32;
+// q (B, Lq, H, D), k/v (B, Lk, H, D), out like q (float32 with f32_out),
+// lse (B, H, Lq) f32;
 // bias f32 addressed as bias[b*sb + h*sh + i*si + j*sj] or null; qseg
 // (B, Lq), kseg (B, Lk) int32, both null or both given. D <= 128.
 extern "C" int flash_prefill_fwd(const void* q, const void* k, const void* v,
@@ -502,7 +513,7 @@ extern "C" int flash_prefill_fwd(const void* q, const void* k, const void* v,
                                  int64_t bias_si, int64_t bias_sj, const void* qseg,
                                  const void* kseg, void* out, void* lse, int B, int Lq,
                                  int Lk, int H, int D, float scale, int causal,
-                                 int is_bf16, int path, void* stream) {
+                                 int is_bf16, int path, int f32_out, void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -523,6 +534,7 @@ extern "C" int flash_prefill_fwd(const void* q, const void* k, const void* v,
   p.D = D;
   p.scale = scale;
   p.causal = causal;
+  p.f32_out = f32_out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (path == 1) return is_bf16 ? (int)launch_wg(p, s) : (int)cudaErrorInvalidValue;
   if (path != 0) return (int)cudaErrorInvalidValue;

@@ -577,6 +577,29 @@ __device__ __forceinline__ void store_acc_staged(const float (&acc)[NO * 4], con
   }
 }
 
+// The fragment store_acc_staged takes (rows row0 + 8 hf + g, columns
+// 8 n + 2 t + {0, 1}), each row half hf times inv[hf], as float32 into
+// out[i * row + c] for rows i < L and the nchunk 8-column groups n <
+// nchunk (the head dim, which may be narrower than the padded NO * 8):
+// the unrounded values a caller sums (ring attention's partials). Needs
+// an 8-byte aligned `out` and an even row stride.
+template <int NO>
+__device__ __forceinline__ void store_acc_f32(const float (&acc)[NO * 4], const float (&inv)[2],
+                                              float* out, long long row, int row0, int L,
+                                              int nchunk, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int i = row0 + hf * 8 + g;
+    if (i >= L) continue;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      if (n < nchunk)
+        *reinterpret_cast<float2*>(out + i * row + n * 8 + 2 * t) =
+            make_float2(acc[4 * n + 2 * hf] * inv[hf], acc[4 * n + 2 * hf + 1] * inv[hf]);
+  }
+}
+
 // store_rows through a warp's staging area (8 rows, row stride DS): each
 // store instruction writes whole 16-byte chunks of rows (needs a 16-byte
 // aligned base and row stride).

@@ -56,9 +56,11 @@ def _mask(b, lq, lk, causal, q_seg, kv_seg, device):
 
 
 def attention_plain(q, k, v, bias=None, q_segment_ids=None,
-                    kv_segment_ids=None, causal=False, sm_scale=None):
+                    kv_segment_ids=None, causal=False, sm_scale=None,
+                    out_dtype=None):
     """Plain version (JAX `mha_reference` semantics) returning
-    (out (B, Lq, H, D) in v's dtype, lse (B, H, Lq) float32).
+    (out (B, Lq, H, D) in v's dtype, lse (B, H, Lq) float32); with
+    `out_dtype=torch.float32` the product with v is taken in float32.
 
     Logits and softmax in float32; fully-masked rows give out 0 and
     lse 0, as the kernel does."""
@@ -80,7 +82,8 @@ def attention_plain(q, k, v, bias=None, q_segment_ids=None,
         row_any = mask.expand(logits.shape).any(-1)
         probs = probs * row_any[..., None]
         lse = torch.where(row_any, lse, torch.zeros_like(lse))
-    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+    vt = v if out_dtype is None else v.to(out_dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(vt.dtype), vt)
     return out, lse
 
 
@@ -119,9 +122,9 @@ def _bwd_scores(q, k, v, bias, q_segment_ids, kv_segment_ids, out, lse,
 
 
 def attention_bwd_plain(q, k, v, bias, q_segment_ids, kv_segment_ids, out,
-                        lse, do, causal=False, sm_scale=None):
+                        lse, do, causal=False, sm_scale=None, out_dtype=None):
     """Plain backward (JAX `_bwd_impl` equations, float32) returning
-    (dq, dk, dv) in the dtypes of q, k, v:
+    (dq, dk, dv) in the dtypes of q, k, v (or all in `out_dtype`):
 
     delta = rowsum(dO * O); p = where(mask, exp(s - lse), 0);
     ds = p * (dO V^T - delta) * sm_scale; dq = ds K, dk = ds^T Q (Q
@@ -132,7 +135,8 @@ def attention_bwd_plain(q, k, v, bias, q_segment_ids, kv_segment_ids, out,
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return (dq.to(out_dtype or q.dtype), dk.to(out_dtype or k.dtype),
+            dv.to(out_dtype or v.dtype))
 
 
 def attention_bwd_dq_plain(q, k, v, bias, q_segment_ids, kv_segment_ids,
@@ -162,13 +166,13 @@ def _lib(name):
     if name == "flash_prefill" and lib.flash_prefill_fwd.argtypes is None:
         lib.flash_prefill_fwd.argtypes = [
             vp, vp, vp, vp, i64, i64, i64, i64, vp, vp, vp, vp,
-            i32, i32, i32, i32, i32, f32, i32, i32, i32, vp]
+            i32, i32, i32, i32, i32, f32, i32, i32, i32, i32, vp]
         lib.flash_prefill_fwd.restype = i32
         lib.flash_prefill_fwd_smem.argtypes = [i32, i32]
         lib.flash_prefill_fwd_smem.restype = ctypes.c_size_t
     if name == "flash_bwd" and lib.flash_bwd_dq.argtypes is None:
         head = [vp, vp, vp, vp, i64, i64, i64, i64, vp, vp, vp, vp, vp]
-        tail = [i32, i32, i32, i32, i32, f32, i32, i32, i32, vp]
+        tail = [i32, i32, i32, i32, i32, f32, i32, i32, i32, i32, vp]
         lib.flash_bwd_dq.argtypes = head + [vp] + tail
         lib.flash_bwd_dkv.argtypes = head + [vp, vp] + tail
         for fn in (lib.flash_bwd_dq, lib.flash_bwd_dkv):
@@ -243,12 +247,15 @@ def _operands(name, q, k, v, bias, q_segment_ids, kv_segment_ids):
 
 
 def flash_prefill_kernel(q, k, v, bias=None, q_segment_ids=None,
-                         kv_segment_ids=None, causal=False, sm_scale=None):
+                         kv_segment_ids=None, causal=False, sm_scale=None,
+                         out_dtype=None):
     """Launch csrc/flash_prefill.cu on CUDA tensors; returns (out, lse).
 
     q (B, Lq, H, D) and k/v (B, Lk, H, D) contiguous, one dtype
     (bfloat16 or float32), D <= 128. Segment ids int32
-    (B, L); when only one side is given the other is all ones."""
+    (B, L); when only one side is given the other is all ones. out is like
+    q, or float32 with `out_dtype=torch.float32` (unrounded: the partials
+    ring attention merges)."""
     b, lq, h, d = q.shape
     lk = k.shape[1]
     bias, strides, q_segment_ids, kv_segment_ids = _operands(
@@ -259,14 +266,15 @@ def flash_prefill_kernel(q, k, v, bias=None, q_segment_ids=None,
     path = kernel_path(q, k, v)
     if lib.flash_prefill_fwd_smem(d, path) > _SMEM_LIMIT:
         raise ValueError(f"flash_prefill_kernel: head dim {d} too large")
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=_out_dtype(q, out_dtype))
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     ptr = _build.ptr
     err = lib.flash_prefill_fwd(
         ptr(q), ptr(k), ptr(v), ptr(bias), *strides, ptr(q_segment_ids),
         ptr(kv_segment_ids), ptr(out), ptr(lse), b, lq, lk, h, d,
         float(sm_scale), int(bool(causal)), int(q.dtype == torch.bfloat16),
-        path, _build.stream_handle(q.device))
+        path, int(out.dtype == torch.float32),
+        _build.stream_handle(q.device))
     _build.count(_KERNEL, q, path)
     _build.check(err, _KERNEL)
     return out, lse
@@ -298,9 +306,18 @@ def _bwd_operands(q, k, v, bias, q_segment_ids, kv_segment_ids, out, lse,
             float(sm_scale))
 
 
+def _out_dtype(like, out_dtype):
+    """The kernels' output dtype: like the operands, or float32."""
+    if out_dtype in (None, like.dtype, torch.float32):
+        return like.dtype if out_dtype is None else out_dtype
+    raise TypeError(f"flash attention: out_dtype {out_dtype}; the kernels "
+                    f"write {like.dtype} or torch.float32")
+
+
 def _bwd_launch(name, operands, causal, outputs):
     """Launch kernel `name` of csrc/flash_bwd.cu on `_bwd_operands`'s
-    result, writing `outputs`, on `kernel_path(q, k, v, dO)`."""
+    result, writing `outputs` (in q's dtype, or float32), on
+    `kernel_path(q, k, v, dO)`."""
     q, k, v, bias, strides, qs, ks, do, lse, delta, sm_scale = operands
     b, lq, h, d = q.shape
     lib = _lib("flash_bwd")
@@ -312,40 +329,44 @@ def _bwd_launch(name, operands, causal, outputs):
         ptr(q), ptr(k), ptr(v), ptr(bias), *strides, ptr(qs), ptr(ks),
         ptr(do), ptr(lse), ptr(delta), *(ptr(t) for t in outputs), b, lq,
         k.shape[1], h, d, sm_scale, int(bool(causal)),
-        int(q.dtype == torch.bfloat16), path, _build.stream_handle(q.device))
+        int(q.dtype == torch.bfloat16), path,
+        int(outputs[0].dtype == torch.float32), _build.stream_handle(q.device))
     _build.count(name, q, path)
     _build.check(err, name)
 
 
 def flash_bwd_dq_kernel(q, k, v, bias, q_segment_ids, kv_segment_ids, out,
-                        lse, do, causal=False, sm_scale=None):
+                        lse, do, causal=False, sm_scale=None, out_dtype=None):
     """Launch `flash_bwd_dq` of csrc/flash_bwd.cu on CUDA tensors: dq like
-    q, from the forward's operands, its out and lse, and dO (like q)."""
+    q (or in `out_dtype`, torch.float32: the unrounded accumulators), from
+    the forward's operands, its out and lse, and dO (like q)."""
     ops = _bwd_operands(q, k, v, bias, q_segment_ids, kv_segment_ids, out,
                         lse, do, sm_scale)
-    dq = torch.empty_like(q)
+    dq = torch.empty_like(q, dtype=_out_dtype(q, out_dtype))
     _bwd_launch(_DQ, ops, causal, (dq,))
     return dq
 
 
 def flash_bwd_dkv_kernel(q, k, v, bias, q_segment_ids, kv_segment_ids, out,
-                         lse, do, causal=False, sm_scale=None):
+                         lse, do, causal=False, sm_scale=None, out_dtype=None):
     """Launch `flash_bwd_dkv` of csrc/flash_bwd.cu on CUDA tensors:
-    (dk like k, dv like v)."""
+    (dk like k, dv like v), or both in `out_dtype` (torch.float32)."""
     ops = _bwd_operands(q, k, v, bias, q_segment_ids, kv_segment_ids, out,
                         lse, do, sm_scale)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dt = _out_dtype(k, out_dtype)
+    dk, dv = torch.empty_like(k, dtype=dt), torch.empty_like(v, dtype=dt)
     _bwd_launch(_DKV, ops, causal, (dk, dv))
     return dk, dv
 
 
 def flash_bwd_kernel(q, k, v, bias, q_segment_ids, kv_segment_ids, out, lse,
-                     do, causal=False, sm_scale=None):
+                     do, causal=False, sm_scale=None, out_dtype=None):
     """Both backward kernels on one check of the operands and one delta:
-    (dq, dk, dv), as `attention_bwd_plain`."""
+    (dq, dk, dv), as `attention_bwd_plain` (`out_dtype` as there)."""
     ops = _bwd_operands(q, k, v, bias, q_segment_ids, kv_segment_ids, out,
                         lse, do, sm_scale)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dt = _out_dtype(q, out_dtype)
+    dq, dk, dv = (torch.empty_like(t, dtype=dt) for t in (q, k, v))
     _bwd_launch(_DQ, ops, causal, (dq,))
     _bwd_launch(_DKV, ops, causal, (dk, dv))
     return dq, dk, dv

@@ -29,6 +29,7 @@ from torch import nn
 
 from ..core.config import ModelConfig
 from ..core.dtypes import resolve, set_reference_precision
+from ..core.mesh import batch_total
 from ..nn.clip_vit import ClipVisionTower
 from ..nn.layers import LayerNorm, QDense
 from ..nn.llama import LlamaForCausalLM, RMSNorm
@@ -188,7 +189,8 @@ class LisaModel(nn.Module):
     def finish_outputs(self, batch: TrainBatch, sam_emb, sp: SplicedBatch,
                        logits, hidden) -> LisaOutputs:
         """[SEG] gather and projection, dual mask decode and canvas
-        upsample, the loss stack."""
+        upsample, the loss stack (under a sharded batch, this rank's shares
+        of the global losses: `core.mesh.batch_total`)."""
         cfg = self.cfg
         proj = self.project_seg(hidden)
         seg_emb, seg_valid = gather_seg_embeddings(
@@ -202,14 +204,20 @@ class LisaModel(nn.Module):
         weight = sample_weight * seg_valid[:, 0].float()
         lm_labels = torch.where(sample_weight[:, None] > 0, sp.labels,
                                 torch.full_like(sp.labels, -100))
-        ce = L.language_model_loss(logits, lm_labels) * cfg.ce_loss_weight
+        # Under a sharded batch each denominator is the global one, so the
+        # losses are this rank's shares of the global losses.
+        total = batch_total
+        ce = L.language_model_loss(logits, lm_labels,
+                                   total=total) * cfg.ce_loss_weight
         bce, dice = L.bimanual_mask_losses(
             pred_l, pred_r, batch.masks_left, batch.masks_right,
             batch.taxonomies, valid=batch.valid_region, sample_weight=weight,
-            bce_weight=cfg.bce_loss_weight, dice_weight=cfg.dice_loss_weight)
+            bce_weight=cfg.bce_loss_weight, dice_weight=cfg.dice_loss_weight,
+            total=total)
         tax_ce = L.taxonomy_ce_loss(taxonomy, batch.taxonomies,
                                     sample_weight=weight,
-                                    logit_ce=cfg.taxonomy_logit_ce)
+                                    logit_ce=cfg.taxonomy_logit_ce,
+                                    total=total)
         return LisaOutputs(
             loss=ce + bce + dice + tax_ce, ce_loss=ce, mask_bce_loss=bce,
             mask_dice_loss=dice, taxonomy_ce_loss=tax_ce,

@@ -4,6 +4,11 @@ LISA.py:16-59 dice / sigmoid-CE, 346-430 gating and normalisation).
 Every loss takes an optional per-pixel validity mask, so padded-canvas
 training matches the reference's original-resolution loss: padding
 pixels are masked out of every mean and sum. All arithmetic in float32.
+
+The JAX losses normalise over the global batch (GSPMD sums across the
+batch shards). Here `total`, where given, completes a local denominator
+to the global one (`core.mesh.batch_total` under a sharded batch), so a
+rank's loss is its share of the global loss and the shares sum to it.
 """
 
 from __future__ import annotations
@@ -50,9 +55,15 @@ def sigmoid_ce_loss(inputs, targets, num_masks,
     return torch.sum(per_mask) / (num_masks + 1e-8)
 
 
-def language_model_loss(logits, labels, ignore_index: int = -100):
+def _identity(x):
+    return x
+
+
+def language_model_loss(logits, labels, ignore_index: int = -100,
+                        total=_identity):
     """Shifted next-token CE, mean over the non-ignored targets (reference
-    llava_llama.py:103-118)."""
+    llava_llama.py:103-118): sum(nll) / sum(valid), the count completed
+    by `total`."""
     shift_logits = logits[:, :-1, :].float()
     shift_labels = labels[:, 1:].long()
     valid = shift_labels != ignore_index
@@ -60,11 +71,11 @@ def language_model_loss(logits, labels, ignore_index: int = -100):
     logp = F.log_softmax(shift_logits, dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     nll = torch.where(valid, nll, torch.zeros_like(nll))
-    return nll.sum() / valid.sum().clamp(min=1)
+    return nll.sum() / total(valid.sum()).clamp(min=1)
 
 
 def taxonomy_ce_loss(pred_taxonomy_probs, gt_taxonomy, sample_weight=None,
-                     logit_ce: bool = False):
+                     logit_ce: bool = False, total=_identity):
     """Soft-target CE on the taxonomy head's probabilities. Default: the
     reference's double softmax (log_softmax over probabilities,
     LISA.py taxonomy_ce_loss). logit_ce: -sum(t * log(probs)), the CE on
@@ -79,12 +90,13 @@ def taxonomy_ce_loss(pred_taxonomy_probs, gt_taxonomy, sample_weight=None,
     if sample_weight is None:
         return per_sample.mean()
     w = sample_weight.float()
-    return torch.sum(per_sample * w) / w.sum().clamp(min=1.0)
+    return torch.sum(per_sample * w) / total(w.sum()).clamp(min=1.0)
 
 
 def bimanual_mask_losses(pred_left, pred_right, gt_left, gt_right,
                          gt_taxonomy, valid=None, sample_weight=None,
-                         bce_weight: float = 2.0, dice_weight: float = 0.5):
+                         bce_weight: float = 2.0, dice_weight: float = 0.5,
+                         total=_identity):
     """Taxonomy-gated mask losses (reference LISA.py:359-422): the left
     prediction is scaled by tax[0] + tax[2] + tax[3], the right by
     tax[1] + tax[2] + tax[3]. pred_* (B, H, W) logits; gt_* (B, H, W);
@@ -97,7 +109,7 @@ def bimanual_mask_losses(pred_left, pred_right, gt_left, gt_right,
     if sample_weight is None:
         sample_weight = torch.ones(pred_left.shape[0], dtype=torch.float32,
                                    device=pred_left.device)
-    num_masks = sample_weight.sum()
+    num_masks = total(sample_weight.sum())
     if valid is not None:
         valid = valid * sample_weight[:, None, None]
     else:

@@ -13,6 +13,14 @@ so a recomputed block redraws the same masks), and `remat` recomputes
 each decoder block in the backward (torch.utils.checkpoint, the
 counterpart of `nn.remat(..., nothing_saveable)`).
 
+Meshes (parallel/sharding.py `param_shardings`): under a `tensor` axis
+the q/k/v and gate/up projections are column-parallel, o/down
+row-parallel and the embedding and lm_head vocab-parallel, entered and
+left through parallel/collectives.py's `copy_to_tp` / `reduce_from_tp`;
+with `cfg.sequence_parallel` the attention runs as ring attention over the
+ambient mesh's `sp` axis (parallel/ring_attention.py), the rest of the
+block on the whole sequence.
+
 MoE: with `moe_num_experts` > 0, every `moe_every`-th block holds an MoE
 MLP (nn/moe.py) named `moe` in place of `mlp`, so a dense checkpoint
 never half-loads into an MoE model. It routes per row (`no_drop`) exactly
@@ -30,6 +38,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.config import LlamaConfig
+from ..core.mesh import SP_AXIS, ambient_mesh
 from ..kernels.decode_attention import (chunk_decode_attention,
                                         flash_decode_attention)
 from ..kernels.flash_attention import flash_attention
@@ -37,6 +46,17 @@ from .layers import QDense
 from .lora import LoraDense, fold_in
 from .moe import MoEMLP, moe_layers
 from .quant import QuantArray, quantize_activation
+from ..parallel.collectives import (copy_to_tp, gather_from_shard,
+                                    reduce_from_tp)
+
+# Logical axis names of the LLaMA parameters (JAX nn/llama.py); mapped to
+# mesh axes by parallel/sharding.py.
+EMBED = "embed"
+MLP = "mlp"
+HEADS = "heads"
+KV_HEADS = "kv_heads"
+HEAD_DIM = "head_dim"
+VOCAB = "vocab"
 
 _PROJ_IDS = {"q_proj": 0, "k_proj": 1, "v_proj": 2, "o_proj": 3}
 
@@ -116,14 +136,23 @@ class LlamaAttention(nn.Module):
         self.k_proj = proj("k_proj", e, nkv * hd)
         self.v_proj = proj("v_proj", e, nkv * hd)
         self.o_proj = proj("o_proj", nh * hd, e)
+        # This rank's heads (all of them unless a `tensor` axis shards them)
+        # and the tensor group (parallel/sharding.py sets both).
+        self.num_heads, self.num_kv_heads = nh, nkv
+        self.tp_group = None
 
-    def _proj(self, name, x, dropout_seed):
+    def _proj(self, name, x, dropout_seed, base_input=None):
+        """Projection `name` of x. Under tensor parallelism q/k/v take
+        `base_input` (x entered into the tensor-parallel region) for their
+        base product and x for their LoRA A, and o_proj sums its partial
+        products over the tensor group."""
         layer = getattr(self, name)
         if not isinstance(layer, LoraDense):
-            return layer(x)
+            y = layer(x if base_input is None else base_input)
+            return reduce_from_tp(y, self.tp_group) if name == "o_proj" else y
         seed = (None if dropout_seed is None
                 else fold_in(dropout_seed, _PROJ_IDS[name]))
-        return layer(x, seed)
+        return layer(x, seed, base_input)
 
     def forward(self, x, positions, table, segment_ids=None, kv_cache=None,
                 cache_index=None, cache_kv_segment_ids=None,
@@ -140,8 +169,9 @@ class LlamaAttention(nn.Module):
         (training) turns LoRA dropout on. Returns (out, kv_cache)."""
         cfg = self.cfg
         b, l, _ = x.shape
-        nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        proj = lambda name, t: self._proj(name, t, dropout_seed)  # noqa: E731
+        nh, nkv, hd = self.num_heads, self.num_kv_heads, cfg.head_dim
+        xt = copy_to_tp(x, self.tp_group)
+        proj = lambda name, t: self._proj(name, t, dropout_seed, xt)  # noqa: E731
         q = apply_rope(proj("q_proj", x).reshape(b, l, nh, hd), positions,
                        table)
         k = apply_rope(proj("k_proj", x).reshape(b, l, nkv, hd), positions,
@@ -163,11 +193,52 @@ class LlamaAttention(nn.Module):
             if nkv != nh:
                 k = k.repeat_interleave(nh // nkv, dim=2)
                 v = v.repeat_interleave(nh // nkv, dim=2)
-            out = flash_attention(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), q_segment_ids=segment_ids,
-                                  kv_segment_ids=segment_ids, causal=True)
-        out = proj("o_proj", out.reshape(b, l, nh * hd))
+            # The ring covers training (no cache) and long-context prefill
+            # (cache given, L > 1): the cache write above is local either
+            # way, only the attention is distributed.
+            out = None
+            if cfg.sequence_parallel:
+                out = self._ring_attention(q, k, v, segment_ids)
+            if out is None:
+                out = flash_attention(q.contiguous(), k.contiguous(),
+                                      v.contiguous(),
+                                      q_segment_ids=segment_ids,
+                                      kv_segment_ids=segment_ids, causal=True)
+        out = self._proj("o_proj", out.reshape(b, l, nh * hd), dropout_seed)
         return out, kv_cache
+
+    def _ring_attention(self, q, k, v, segment_ids):
+        """Sequence-parallel path (cfg.sequence_parallel): ring attention
+        over the ambient mesh's "sp" axis. Returns None when no sp > 1 mesh
+        is ambient (the caller then runs single-device flash, as JAX does).
+        Pads the sequence to an 8-aligned per-chunk multiple; padded
+        positions carry segment id 0. The batch rows and heads here are
+        already this rank's (the model runs on its (data, fsdp) rows, and
+        the column-parallel projections give its tensor heads), which is
+        the composition JAX's `batch_axes` / `heads_axis` express."""
+        from ..parallel.ring_attention import sequence_sharded_attention
+
+        mesh = ambient_mesh()
+        if mesh is None or mesh.shape.get(SP_AXIS, 1) <= 1:
+            import warnings
+
+            warnings.warn(
+                "sequence_parallel is set but no ambient mesh with an "
+                "'sp' axis > 1 was found; falling back to single-device "
+                "flash attention", stacklevel=2)
+            return None
+        sp = mesh.shape[SP_AXIS]
+        b, l = q.shape[:2]
+        seg = (segment_ids.to(torch.int32) if segment_ids is not None else
+               torch.ones((b, l), dtype=torch.int32, device=q.device))
+        lp = -(-l // (sp * 8)) * (sp * 8)
+        if lp != l:
+            pad = (0, 0, 0, 0, 0, lp - l)
+            q, k, v = (F.pad(t, pad) for t in (q, k, v))
+            seg = F.pad(seg, (0, lp - l))
+        out = sequence_sharded_attention(mesh, SP_AXIS, q, k, v,
+                                         q_segment_ids=seg, causal=True)
+        return out[:, :l]
 
 
 class LlamaMLP(nn.Module):
@@ -176,9 +247,12 @@ class LlamaMLP(nn.Module):
         self.gate_proj = QDense(cfg.hidden_size, cfg.intermediate_size, bias=False)
         self.up_proj = QDense(cfg.hidden_size, cfg.intermediate_size, bias=False)
         self.down_proj = QDense(cfg.intermediate_size, cfg.hidden_size, bias=False)
+        self.tp_group = None  # gate/up column-, down row-parallel over it
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        xt = copy_to_tp(x, self.tp_group)
+        y = self.down_proj(F.silu(self.gate_proj(xt)) * self.up_proj(xt))
+        return reduce_from_tp(y, self.tp_group)
 
 
 class LlamaBlock(nn.Module):
@@ -216,9 +290,6 @@ class LlamaModel(nn.Module):
 
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
-        if cfg.sequence_parallel:
-            raise NotImplementedError(
-                "sequence-parallel LLaMA is not ported yet")
         self.cfg = cfg
         moe = moe_layers(cfg)
         self.layers = nn.ModuleList(LlamaBlock(cfg, i in moe)
@@ -270,9 +341,21 @@ class Embed(nn.Embedding):
     is set (see nn/layers.py)."""
 
     compute_dtype = None
+    # Vocab-parallel (parallel/sharding.py): this rank holds the rows from
+    # `vocab_start`; a token outside them reads zeros, and the rows are
+    # summed over the tensor group.
+    tp_group = None
+    vocab_start = 0
 
     def forward(self, ids):
-        out = super().forward(ids)
+        if self.tp_group is None:
+            out = super().forward(ids)
+        else:
+            local = ids - self.vocab_start
+            inside = (local >= 0) & (local < self.weight.shape[0])
+            out = F.embedding(torch.where(inside, local, 0), self.weight)
+            out = reduce_from_tp(out * inside[..., None].to(out.dtype),
+                                 self.tp_group)
         return out if self.compute_dtype is None else out.to(self.compute_dtype)
 
 
@@ -283,9 +366,20 @@ class LlamaForCausalLM(nn.Module):
         self.embed_tokens = Embed(cfg.vocab_size, cfg.hidden_size)
         self.model = LlamaModel(cfg)
         self.lm_head = QDense(cfg.hidden_size, cfg.vocab_size, bias=False)
+        self.tp_group = None  # vocab-parallel lm_head over it
 
     def embed(self, input_ids):
         return self.embed_tokens(input_ids.long())
+
+    def logits(self, hidden):
+        """lm_head(hidden); vocab-parallel under a tensor group: each rank's
+        vocabulary rows, all-gathered to the full (padding-trimmed)
+        vocabulary."""
+        if self.tp_group is None:
+            return self.lm_head(hidden)
+        local = self.lm_head(copy_to_tp(hidden, self.tp_group))
+        full = gather_from_shard(local, self.tp_group, -1)
+        return full[..., :self.cfg.vocab_size]
 
     def forward(self, inputs_embeds, positions, segment_ids=None,
                 kv_caches=None, cache_index=None, cache_kv_segment_ids=None,
@@ -297,5 +391,5 @@ class LlamaForCausalLM(nn.Module):
                                          segment_ids, kv_caches, cache_index,
                                          cache_kv_segment_ids, dropout_seed,
                                          remat)
-        out = (self.lm_head(hidden), hidden, caches)
+        out = (self.logits(hidden), hidden, caches)
         return out + (aux,) if with_aux else out

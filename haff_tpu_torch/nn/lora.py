@@ -15,11 +15,13 @@ states, never an explicit generator's).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
+from ..core.mesh import current_batch_rows
+from ..parallel.collectives import copy_to_tp, reduce_from_tp
 from .layers import QDense
 
 _MASK64 = (1 << 64) - 1
@@ -37,11 +39,25 @@ def fold_in(seed: int, *data: int) -> int:
     return x >> 1
 
 
-def dropout(x, rate: float, seed: int):
+def dropout(x, rate: float, seed: int, cols: Optional[Tuple[int, int]] = None):
     """flax `nn.Dropout`: keep with probability 1 - rate, scale kept values
-    by 1 / (1 - rate); the mask is drawn from a generator seeded `seed`."""
+    by 1 / (1 - rate); the mask is drawn from a generator seeded `seed`.
+
+    The mask does not depend on the mesh, as JAX's threefry draws do not:
+    it is drawn over the GLOBAL shape of x (B, ..., in) and this rank keeps
+    its block: its rows of a batch sharded over (data, fsdp) (the ambient
+    `core.mesh.BatchRows`), and, for a row-parallel input holding columns
+    [c0, c0 + in_local) of `in_full`, `cols = (c0, in_full)`."""
+    shape, b0, c0 = list(x.shape), 0, 0
+    rows = current_batch_rows()
+    if rows is not None and rows.sharded:
+        shape[0], b0 = rows.total, rows.offset
+    if cols is not None:
+        c0, shape[-1] = cols
     g = torch.Generator(device=x.device).manual_seed(seed)
-    keep = torch.rand(x.shape, generator=g, device=x.device) >= rate
+    keep = torch.rand(shape, generator=g, device=x.device) >= rate
+    if shape != list(x.shape):
+        keep = keep[b0:b0 + x.shape[0]].narrow(-1, c0, x.shape[-1])
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -49,6 +65,14 @@ class LoraDense(nn.Module):
     # Set for float32-held trainable adapters: the dtype they are cast to at
     # use (flax `dtype`); None computes in the parameters' own dtype.
     compute_dtype: Optional[torch.dtype] = None
+    # Tensor parallelism (parallel/sharding.py): "column" (base rows and
+    # lora_b columns are this rank's outputs; x @ lora_a is replicated and
+    # enters the region through copy_to_tp) or "row" (base columns and
+    # lora_a rows are this rank's inputs, `in_cols` = (first column, full
+    # width) for the dropout mask; both products are summed over the group).
+    tp_mode: Optional[str] = None
+    tp_group = None
+    in_cols: Optional[Tuple[int, int]] = None
 
     def __init__(self, in_features: int, features: int, rank: int = 0,
                  alpha: float = 16.0, dropout: float = 0.0,
@@ -70,13 +94,22 @@ class LoraDense(nn.Module):
                           * (2 * bound) - bound)
         self.lora_b.zero_()
 
-    def forward(self, x, dropout_seed: Optional[int] = None):
-        y = self.base(x)
+    def forward(self, x, dropout_seed: Optional[int] = None, base_input=None):
+        """`base_input` (default x) feeds the base product: a column-parallel
+        caller passes x already entered into the tensor-parallel region."""
+        y = self.base(x if base_input is None else base_input)
+        if self.tp_mode == "row":
+            y = reduce_from_tp(y, self.tp_group)
         if not self.rank:
             return y
         dt = self.compute_dtype or self.lora_a.dtype
         h = x
         if self.dropout > 0.0 and dropout_seed is not None:
-            h = dropout(h, self.dropout, dropout_seed)
-        delta = (h.to(dt) @ self.lora_a.to(dt)) @ self.lora_b.to(dt)
+            h = dropout(h, self.dropout, dropout_seed, self.in_cols)
+        h = h.to(dt) @ self.lora_a.to(dt)
+        if self.tp_mode == "row":
+            h = reduce_from_tp(h, self.tp_group)
+        elif self.tp_mode == "column":
+            h = copy_to_tp(h, self.tp_group)
+        delta = h @ self.lora_b.to(dt)
         return y + delta * (self.alpha / self.rank)

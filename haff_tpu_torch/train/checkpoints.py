@@ -18,6 +18,14 @@ A step is written into a temporary directory beside it and renamed into
 place, so a reader never sees half a checkpoint; after each save only the
 newest `max_to_keep` steps remain. `restore_checkpoint` loads in place:
 the parameters keep their storage, which a captured CUDA graph reads.
+
+Under a mesh (parameters sharded by parallel/sharding.py) the files hold
+the full layout: every rank takes part in gathering the trainable tensors
+and the optimizer state, rank 0 writes them, with a barrier before (no
+rank still reads a step that rotation would delete) and after (the step is
+on disk for every rank). Loading cuts each tensor to the rank's block of
+whatever mesh the run has, so a checkpoint saved under one mesh resumes
+under another.
 """
 
 from __future__ import annotations
@@ -46,16 +54,54 @@ def _host(obj):
     return obj
 
 
+def _dist():
+    import torch.distributed as dist
+
+    return dist if dist.is_available() and dist.is_initialized() else None
+
+
+def _is_writer() -> bool:
+    d = _dist()
+    return d is None or d.get_rank() == 0
+
+
+def _barrier() -> None:
+    d = _dist()
+    if d is not None and d.get_world_size() > 1:
+        d.barrier()
+
+
+def _moments(adamw_state: dict, params, convert) -> dict:
+    """AdamW's state_dict with every moment tensor of parameter i passed
+    through convert(tensor, placement of params[i])."""
+    from ..parallel.sharding import placement
+
+    out = dict(adamw_state)
+    out["state"] = {
+        i: {k: convert(v, placement(params[i])) if torch.is_tensor(v)
+            and v.ndim else v for k, v in st.items()}
+        for i, st in adamw_state["state"].items()}
+    return out
+
+
 def snapshot(state) -> Dict[str, Any]:
-    """A `TrainState` as a dict of host tensors: the step, the trainable
-    tensors by name and the optimizer's state (AdamW's moments, the
-    schedule's count and the gradient-accumulation buffer)."""
+    """A `TrainState` as a dict of host tensors in the full layout: the
+    step, the trainable tensors by name and the optimizer's state (AdamW's
+    moments, the schedule's count and the gradient-accumulation buffer).
+    Under a mesh every rank must call it (it gathers the shards)."""
+    from ..parallel.sharding import full_tensor, placement
+
     opt = state.optimizer
+    acc = (None if opt.acc is None else
+           [full_tensor(a, placement(p)) for a, p in zip(opt.acc, opt.params)])
     return _host({
         "step": int(state.step),
-        "trainable": dict(state.trainable),
-        "optimizer": {"adamw": opt.adamw.state_dict(), "count": opt.count,
-                      "mini_step": opt.mini_step, "acc": opt.acc},
+        "trainable": {n: full_tensor(p.detach(), placement(p))
+                      for n, p in state.trainable.items()},
+        "optimizer": {"adamw": _moments(opt.adamw.state_dict(), opt.params,
+                                        full_tensor),
+                      "count": opt.count, "mini_step": opt.mini_step,
+                      "acc": acc},
     })
 
 
@@ -92,8 +138,13 @@ def save_checkpoint(ckpt_dir: str, step: int, state: Any,
                     metrics: Optional[dict] = None, max_to_keep: int = 1,
                     model_meta: Optional[dict] = None) -> None:
     """Write `state` as step `step` of `ckpt_dir` and return when it is on
-    disk; keep the newest `max_to_keep` steps."""
-    _write(ckpt_dir, step, snapshot(state), metrics, max_to_keep, model_meta)
+    disk; keep the newest `max_to_keep` steps. Under a mesh every rank
+    calls it and rank 0 writes."""
+    _barrier()
+    snap = snapshot(state)
+    if _is_writer():
+        _write(ckpt_dir, step, snap, metrics, max_to_keep, model_meta)
+    _barrier()
 
 
 class CheckpointWriter:
@@ -102,7 +153,8 @@ class CheckpointWriter:
     training goes on (one write at a time, in order). `finish` waits for
     the writes and raises the first error one of them hit. Call it before
     exiting or before handing the directory to a synchronous writer (the
-    preemption path)."""
+    preemption path). Under a mesh every rank calls `save` and `finish`;
+    rank 0 writes."""
 
     def __init__(self, ckpt_dir: str, max_to_keep: int = 1,
                  model_meta: Optional[dict] = None):
@@ -120,8 +172,11 @@ class CheckpointWriter:
 
     def save(self, step: int, state: Any,
              metrics: Optional[dict] = None) -> None:
+        _barrier()
         snap = snapshot(state)
         self._join()
+        if not _is_writer():
+            return
         self._thread = threading.Thread(
             target=self._run, args=(self.ckpt_dir, step, snap, metrics,
                                     self.max_to_keep, self.model_meta),
@@ -135,6 +190,7 @@ class CheckpointWriter:
 
     def finish(self) -> None:
         self._join()
+        _barrier()
         if self._err is not None:
             err, self._err = self._err, None
             raise err
@@ -189,19 +245,26 @@ def load_trainable_(trainable: Dict[str, torch.Tensor],
 def restore_checkpoint(ckpt_dir: str, state: Any) -> Tuple[Any, Optional[int]]:
     """Auto-resume: load the newest step of `ckpt_dir` (or the step
     directory `ckpt_dir`) into `state` in place: the trainable tensors are
-    copied into their parameters and the optimizer's state is loaded.
-    Returns (state, step), or (state, None) when there is no checkpoint."""
+    copied into their parameters and the optimizer's state is loaded, each
+    cut to this rank's block under a mesh. Returns (state, step), or
+    (state, None) when there is no checkpoint."""
+    from ..parallel.sharding import local_tensor, placement
+
     d = step_dir(ckpt_dir) if os.path.isdir(ckpt_dir) else None
     if d is None:
         return state, None
     snap = torch.load(os.path.join(d, STATE), map_location="cpu",
                       weights_only=True)
-    load_trainable_(state.trainable, snap["trainable"])
+    load_trainable_(state.trainable, {
+        n: local_tensor(t, placement(state.trainable[n]))
+        if n in state.trainable else t for n, t in snap["trainable"].items()})
     opt, saved = state.optimizer, snap["optimizer"]
-    opt.adamw.load_state_dict(saved["adamw"])
+    opt.adamw.load_state_dict(_moments(saved["adamw"], opt.params,
+                                       local_tensor))
     opt.count, opt.mini_step = saved["count"], saved["mini_step"]
     opt.acc = (None if saved["acc"] is None else
-               [a.to(p.device) for a, p in zip(saved["acc"], opt.params)])
+               [local_tensor(a, placement(p)).to(p.device)
+                for a, p in zip(saved["acc"], opt.params)])
     state.step = snap["step"]
     return state, state.step
 

@@ -6,8 +6,14 @@ selection (local shards or HF hub) and mixing, per-epoch validation
 against the benchmark dir with IoU/IoCM, best-IoU checkpointing with
 auto-resume, meters + TensorBoard scalars, SIGTERM preemption.
 
-One card (`--device`, default cuda; `--device cpu` runs the plain
-versions): the train step of train/trainer.py (AdamW + WarmupDecayLR,
+On a device (`--device`, default cuda; `--device cpu` runs the plain
+versions), or on a mesh of ranks: under a launcher (torchrun, or a caller
+that initialised a process group) `--data/--fsdp/--tensor/--sp` lay the
+ranks out (core/mesh.py `build_mesh`, `--data -1` takes the leftover
+ranks), the LLaMA decoder is sharded over them (parallel/sharding.py) and
+every rank builds the same global batch, of which the step runs its
+(data, fsdp) rows. Only rank 0 prints, logs and writes checkpoints. The
+train step is train/trainer.py's (AdamW + WarmupDecayLR,
 gradient accumulation, remat), batches built ahead by a thread pool
 (data/loader.py), checkpoints written by a background thread
 (train/checkpoints.py), validation through the decode graph
@@ -22,7 +28,8 @@ reseeded from (seed, e, i), so a run's batches do not depend on the
 number of workers, and a resumed run trains on the batches the
 uninterrupted run would have.
 
-Usage: python -m haff_tpu_torch.train.cli --dataset_dir D
+Usage: [torchrun --nproc_per_node N] python -m haff_tpu_torch.train.cli
+       --dataset_dir D [--data -1] [--fsdp 1] [--tensor 1] [--sp 1]
        [--val_benchmark_dir B] [--model_preset tiny|1b|7b|13b]
        [--lora_r 8] [--epochs 10] [--steps_per_epoch 500] [--batch_size 2]
        [--grad_accum 10] [--lr 3e-4] [--log_base_dir runs] [--exp_name E]
@@ -39,10 +46,11 @@ import time
 
 import numpy as np
 
-# The mesh, pipeline and expert-parallel flags parse as in the JAX CLI and
-# raise here until the multi-GPU modules are ported.
-_NOT_PORTED = ("not ported yet: one card only (ROADMAP Queue 1 item 10, "
-               "multi-GPU)")
+# What parses as in the JAX CLI but exits here until slice 18 ports it:
+# the pipeline and expert axes, MoE and quantized bases under a mesh, and
+# validation under a mesh.
+_NOT_PORTED = ("not ported yet (slice 18: pipeline and expert parallelism, "
+               "MoE, quantized bases and validation under a mesh)")
 
 
 def parse_args(argv=None):
@@ -118,11 +126,13 @@ def parse_args(argv=None):
                         "backward)")
     p.add_argument("--load_in_4bit", action="store_true",
                    help="QLoRA-style packed-int4 frozen LLM projections")
-    # mesh (one card here; see _NOT_PORTED)
+    # mesh (over the launcher's ranks; see _NOT_PORTED for --pp / --ep)
+    p.add_argument("--data", type=int, default=-1,
+                   help="data-parallel axis size (-1: the ranks left over)")
     p.add_argument("--fsdp", type=int, default=1)
     p.add_argument("--tensor", type=int, default=1)
     p.add_argument("--sp", type=int, default=1,
-                   help="sequence-parallel axis size (not ported)")
+                   help="sequence-parallel axis size (ring attention)")
     p.add_argument("--pp", type=int, default=1,
                    help="pipeline-parallel axis size (not ported)")
     p.add_argument("--pp_microbatches", type=int, default=0,
@@ -203,12 +213,29 @@ def check_flags(args) -> None:
             f"--moe_experts {args.moe_experts} must be divisible by "
             f"--ep {args.ep} (stacked expert weights shard over the "
             "expert axis)")
-    for flag in ("pp", "sp", "fsdp", "tensor", "ep"):
+    for flag in ("pp", "ep"):
         if getattr(args, flag) > 1:
             raise SystemExit(f"--{flag} {getattr(args, flag)}: {_NOT_PORTED}")
+    if (args.load_in_8bit or args.load_in_4bit) and (
+            args.fsdp > 1 or args.tensor > 1):
+        raise SystemExit(f"--load_in_8bit/--load_in_4bit under --fsdp/"
+                         f"--tensor: {_NOT_PORTED}")
     if args.load_in_8bit and args.load_in_4bit:
         raise SystemExit("--load_in_8bit and --load_in_4bit exclude each "
                          "other")
+
+
+def check_mesh(args, mesh) -> None:
+    """What the port does not run on a mesh of more than one rank yet."""
+    if mesh is None:
+        return
+    if args.moe_experts > 0:
+        raise SystemExit(f"--moe_experts on a mesh of {mesh.size} ranks: "
+                         f"{_NOT_PORTED}")
+    if args.eval_only or (args.val_benchmark_dir and not args.no_eval):
+        raise SystemExit(f"validation on a mesh of {mesh.size} ranks "
+                         f"(--val_benchmark_dir without --no_eval, "
+                         f"--eval_only): {_NOT_PORTED}")
 
 
 def model_config(args, tok):
@@ -230,6 +257,7 @@ def model_config(args, tok):
             lora_targets=tuple(
                 m for m in args.lora_target_modules.split(",") if m),
             vocab_size=max(base.llama.vocab_size, len(tok) + 4),
+            sequence_parallel=args.sp > 1,
             moe_num_experts=args.moe_experts, moe_top_k=args.moe_top_k,
             moe_every=args.moe_every))
 
@@ -358,7 +386,6 @@ def build_dataset(args, seed: int):
         ds = HybridDataset(corpora, rates,
                            samples_per_epoch=args.samples_per_epoch,
                            seed=seed)
-    print(f"datasets: {names}; samples/epoch {args.samples_per_epoch}")
     return ds
 
 
@@ -407,7 +434,25 @@ def main(argv=None) -> TrainRun:
     from .trainer import (count_params, init_train_state, make_train_step,
                           partition_params)
 
+    from ..core.config import MeshConfig
+    from ..core.mesh import (build_mesh, maybe_initialize_distributed,
+                             node_index)
+    from ..parallel.collectives import all_reduce
+    from ..parallel.sharding import param_shardings
+
     device = _require_device(args.device)
+    maybe_initialize_distributed(device)
+    try:
+        mesh = build_mesh(MeshConfig(data=args.data, pp=args.pp,
+                                     fsdp=args.fsdp, ep=args.ep, sp=args.sp,
+                                     tensor=args.tensor))
+    except ValueError as e:  # the flags ask for more ranks than there are
+        raise SystemExit(f"{e}: launch one process per rank (torchrun "
+                         f"--nproc_per_node N)") from None
+    mesh = mesh if mesh.size > 1 else None
+    check_mesh(args, mesh)
+    rank = 0 if mesh is None else mesh.rank
+    say = print if rank == 0 else (lambda *a, **k: None)
     run = TrainRun()
     log_dir = os.path.join(args.log_base_dir, args.exp_name)
     ckpt_dir = os.path.join(log_dir, "ckpt_model")
@@ -427,14 +472,14 @@ def main(argv=None) -> TrainRun:
         pp_microbatches=args.pp_microbatches, seed=args.seed,
         remat=not args.no_remat)
 
-    # Per-rank seed offset shards the random sampling across processes
-    # (the DistributedSampler analog, reference train_ds.py:418-420).
-    import torch.distributed as dist
-
-    rank = dist.get_rank() if dist.is_available() and dist.is_initialized() \
-        else 0
-    seed = args.seed + 1000 * rank
+    # Per-host seed offset shards the random sampling across hosts (the
+    # DistributedSampler analog, reference train_ds.py:418-420; JAX's
+    # process_index counts hosts): the ranks of one host build the same
+    # global batch, and the step takes each rank's rows of it.
+    seed = args.seed + 1000 * node_index()
     ds = build_dataset(args, seed)
+    say(f"datasets: {[n for n in args.dataset.split('||') if n]}; "
+        f"samples/epoch {args.samples_per_epoch}")
     batch_lock = threading.Lock()
 
     def batch_maker(epoch):
@@ -452,31 +497,51 @@ def main(argv=None) -> TrainRun:
                 use_mm_start_end=args.use_mm_start_end)
         return make_batch
 
-    model = build_model(cfg, args.precision, device, args.seed,
-                        args.pretrained_params, args.vision_pretrained,
-                        args.reset_mask_decoder)
-    exclude = () if args.train_mask_decoder else (
-        "mask_decoder_left", "mask_decoder_right")
-    extra = ("moe",) if args.moe_experts > 0 else ()
-    if args.train_vision_encoder:
-        extra = extra + ("image_encoder",)
-    trainable, frozen = partition_params(model, exclude, extra)
-    print(f"trainable params: {count_params(trainable):,} / "
-          f"{count_params(trainable) + count_params(frozen):,}")
-    # Names only from here: a reference to a frozen float weight would keep
-    # it on the device beside its quantized copy after --load_in_*bit.
-    frozen = set(frozen)
-    if args.load_in_8bit or args.load_in_4bit:
-        # QLoRA analog (reference train_ds.py:57-58 bitsandbytes load): the
-        # frozen LLM projections become int8 / packed int4 in place, one
-        # layer at a time, each float weight freed as it goes; the
-        # quantized products pass a straight-through gradient to x.
-        from ..nn.quant import default_llm_predicate, quantize_model_
+    def make_model():
+        model = build_model(cfg, args.precision, device, args.seed,
+                            args.pretrained_params, args.vision_pretrained,
+                            args.reset_mask_decoder)
+        exclude = () if args.train_mask_decoder else (
+            "mask_decoder_left", "mask_decoder_right")
+        extra = ("moe",) if args.moe_experts > 0 else ()
+        if args.train_vision_encoder:
+            extra = extra + ("image_encoder",)
+        trainable, frozen = partition_params(model, exclude, extra)
+        say(f"trainable params: {count_params(trainable):,} / "
+            f"{count_params(trainable) + count_params(frozen):,}")
+        # Names only from here: a reference to a frozen float weight would
+        # keep it on the device beside its quantized copy after
+        # --load_in_*bit.
+        frozen = set(frozen)
+        if args.load_in_8bit or args.load_in_4bit:
+            # QLoRA analog (reference train_ds.py:57-58 bitsandbytes load):
+            # the frozen LLM projections become int8 / packed int4 in place,
+            # one layer at a time, each float weight freed as it goes; the
+            # quantized products pass a straight-through gradient to x.
+            from ..nn.quant import default_llm_predicate, quantize_model_
 
-        quantize_model_(model, frozen_predicate(frozen, default_llm_predicate),
-                        bits=4 if args.load_in_4bit else 8)
-        print(f"frozen base quantized in place "
-              f"({'int4' if args.load_in_4bit else 'int8'})")
+            quantize_model_(model,
+                            frozen_predicate(frozen, default_llm_predicate),
+                            bits=4 if args.load_in_4bit else 8)
+            say(f"frozen base quantized in place "
+                f"({'int4' if args.load_in_4bit else 'int8'})")
+        if mesh is not None:
+            param_shardings(model, mesh)
+            if device.type == "cuda":  # the unsharded halves, to the card
+                torch.cuda.empty_cache()
+        return model, trainable
+
+    if mesh is None:
+        model, trainable = make_model()
+    else:
+        # One rank at a time: ranks sharing a card hold the whole model
+        # only while they shard it.
+        for r in range(mesh.size):
+            if r == rank:
+                model, trainable = make_model()
+            torch.distributed.barrier()
+        say(f"mesh {mesh.shape}: the LLaMA decoder sharded over "
+            f"{mesh.size} ranks")
 
     state = init_train_state(tcfg, trainable)
     start_epoch = 0
@@ -487,24 +552,26 @@ def main(argv=None) -> TrainRun:
             raise SystemExit(
                 f"--resume {args.resume}: no checkpoint found")
         start_epoch = int(step) // micro_per_epoch
-        print(f"resumed from {args.resume} step {step} "
-              f"(epoch {start_epoch})")
+        say(f"resumed from {args.resume} step {step} "
+            f"(epoch {start_epoch})")
     elif args.auto_resume:
         state, step = restore_checkpoint(ckpt_dir, state)
         if step is not None:
             start_epoch = int(step) // micro_per_epoch
-            print(f"auto-resumed from step {step} (epoch {start_epoch})")
+            say(f"auto-resumed from step {step} (epoch {start_epoch})")
     if args.start_epoch is not None:
         start_epoch = args.start_epoch
     run.start_step = int(state.step)
 
-    step_fn = make_train_step(model, tcfg)
-    logger = MetricsLogger(log_dir, use_wandb=args.use_wandb,
-                           exp_name=args.exp_name)
+    step_fn = make_train_step(model, tcfg, mesh)
+    logger = (MetricsLogger(log_dir, use_wandb=args.use_wandb,
+                            exp_name=args.exp_name) if rank == 0
+              else MetricsLogger(None))
     val_ds = AffDatasetVal(args.val_benchmark_dir) \
-        if args.val_benchmark_dir else None
-    ev = make_jitted_evaluate(model, max_new_tokens=32,
-                              eos_id=tok.eos_token_id)
+        if args.val_benchmark_dir and mesh is None else None
+    ev = (make_jitted_evaluate(model, max_new_tokens=32,
+                               eos_id=tok.eos_token_id)
+          if mesh is None else None)
     run.model, run.tok, run.val_ds, run.evaluate = model, tok, val_ds, ev
     meta = model_meta(args, cfg)
     cuda = device.type == "cuda"
@@ -556,6 +623,13 @@ def main(argv=None) -> TrainRun:
         print("SIGTERM: checkpointing after the current step ...",
               flush=True)
 
+    def any_preempted() -> bool:
+        """The flag on any rank: every rank checkpoints at the same step."""
+        flag = torch.tensor(float(preempted["flag"]), device=device)
+        if mesh is not None:
+            flag = all_reduce(flag, mesh.group(mesh.axis_names))
+        return bool(flag > 0)
+
     prev_term = signal.signal(signal.SIGTERM, _on_term)
     # Epoch and best-IoU checkpoints are written by a background thread;
     # only the preemption path flushes and saves synchronously.
@@ -598,7 +672,7 @@ def main(argv=None) -> TrainRun:
                 run.steps.append(rec)
                 if os.environ.get("HAFF_TEST_PREEMPT_STEP") == str(i):
                     os.kill(os.getpid(), signal.SIGTERM)  # test hook
-                if preempted["flag"]:
+                if any_preempted():
                     # keep 2: this mid-training state AND the best-IoU
                     # checkpoint
                     drain()
@@ -608,8 +682,8 @@ def main(argv=None) -> TrainRun:
                     run.checkpoints.append(dict(
                         step=int(state.step),
                         written_s=time.perf_counter() - t1))
-                    print(f"preemption checkpoint at step "
-                          f"{int(state.step)}; exiting", flush=True)
+                    say(f"preemption checkpoint at step "
+                        f"{int(state.step)}; exiting", flush=True)
                     run.preempted = True
                     return finish()
                 # Reference meter semantics (train_ds.py:556-620): every
@@ -621,10 +695,11 @@ def main(argv=None) -> TrainRun:
                     time_meter.update((time.time() - t0)
                                       / args.print_freq)
                     t0 = time.time()
-                    ProgressMeter(
-                        micro_per_epoch,
-                        list(meters.values()) + [time_meter],
-                        prefix=f"Epoch {epoch} ").display(i + 1)
+                    if rank == 0:
+                        ProgressMeter(
+                            micro_per_epoch,
+                            list(meters.values()) + [time_meter],
+                            prefix=f"Epoch {epoch} ").display(i + 1)
                     logger.log({k: m.avg for k, m in meters.items()},
                                int(state.step))
                     for m in meters.values():

@@ -16,10 +16,20 @@ accumulation, one train step.
 * The optimizer is optax's `chain(clip_by_global_norm, adamw(schedule))`,
   wrapped in `MultiSteps` for gradient accumulation, written out over
   `torch.optim.AdamW`; parameters are updated in place.
+* Under a mesh (core/mesh.py; the model sharded by parallel/sharding.py
+  `param_shardings`) a step takes the GLOBAL batch, runs its (data, fsdp)
+  rows, and computes its share of the globally normalised loss. Each
+  gradient is summed over the ranks that hold the same parameter block
+  and divided by the number of them that computed the same rows (a sum
+  over the batch shards, an average over replicas), so every replica
+  holds the same gradient and takes the same optimizer step; `grad_norm`
+  is the norm of the whole, unsharded gradient. A `pipe` axis > 1 is not
+  ported yet (slice 18).
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterable, Tuple
 
@@ -27,6 +37,8 @@ import torch
 from torch import nn
 
 from ..core.config import TrainConfig
+from ..core.mesh import (AXES, FSDP_AXIS, PIPE_AXIS, TENSOR_AXIS,
+                         use_batch_rows, use_mesh)
 from ..model.lisa import LisaModel, LisaOutputs, TrainBatch
 from ..nn.lora import fold_in
 
@@ -113,6 +125,9 @@ class Optimizer:
 
     def __init__(self, cfg: TrainConfig, params: Iterable[torch.Tensor]):
         self.params = list(params)
+        # The global norm of a list of gradients (of self.params); a mesh
+        # step sets the sharded one.
+        self.norm_fn = global_norm
         self.schedule = make_schedule(cfg)
         self.max_norm = cfg.grad_clip_norm
         self.k = cfg.grad_accumulation_steps
@@ -140,7 +155,7 @@ class Optimizer:
             grads, self.acc, self.mini_step = self.acc, None, 0
             norm = None
         if norm is None:
-            norm = global_norm(grads)
+            norm = self.norm_fn(grads)
         clip = norm >= self.max_norm
         div = torch.where(clip, norm, torch.ones_like(norm))
         mul = torch.where(clip, torch.full_like(norm, self.max_norm),
@@ -175,9 +190,108 @@ def init_train_state(cfg: TrainConfig,
 
 
 def _check_supported(model: LisaModel, mesh) -> None:
-    if mesh is not None:
+    if mesh is not None and mesh.shape.get(PIPE_AXIS, 1) > 1:
         raise NotImplementedError(
-            "mesh-parallel (pipeline) training is not ported yet")
+            "pipeline-parallel training (a 'pipe' mesh axis > 1) is not "
+            "ported yet (slice 18)")
+
+
+class MeshSync:
+    """The collectives a step runs under `mesh` for parameters `params`:
+    `grads` completes each gradient (see the module docstring), `norm` is
+    the global norm of completed gradients, `metrics` completes per-rank
+    loss shares. One rank (mesh None or of size 1): all identities, and
+    `norm` is `global_norm`."""
+
+    def __init__(self, mesh, params, rows=None):
+        from ..parallel.sharding import placement
+
+        self.mesh, self.rows = mesh, rows
+        self.params = list(params)
+        self.places = [placement(p) for p in self.params]
+
+    @property
+    def active(self) -> bool:
+        return self.mesh is not None and self.mesh.size > 1
+
+    def _distinct_rows(self) -> int:
+        from ..parallel.sharding import n_batch_shards
+
+        return n_batch_shards(self.mesh, self.rows)
+
+    def grads(self, grads):
+        """Sum each gradient over the ranks holding the same block (for an
+        fsdp-sharded one the sum over fsdp already ran in its gather's
+        backward), then divide by how many of the summed ranks computed the
+        same batch rows. One flat buffer per group."""
+        from ..parallel.collectives import all_reduce
+
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(self.params, grads)]
+        if not self.active:
+            return grads
+        buckets = {}
+        for i, pl in enumerate(self.places):
+            tp = pl is not None and pl.tp_group is not None
+            fsdp = pl is not None and pl.fsdp_group is not None
+            summed = tuple(a for a in AXES if not (tp and a == TENSOR_AXIS))
+            group = tuple(a for a in summed if not (fsdp and a == FSDP_AXIS))
+            buckets.setdefault((summed, group), []).append(i)
+        out = list(grads)
+        for (summed, group), idx in buckets.items():
+            reps = self.mesh.axis_size(summed) // self._distinct_rows()
+            flat = torch.cat([grads[i].float().reshape(-1) for i in idx])
+            flat = all_reduce(flat, self.mesh.group(group)) / reps
+            off = 0
+            for i in idx:
+                n = grads[i].numel()
+                out[i] = flat[off:off + n].view_as(grads[i]).to(grads[i].dtype)
+                off += n
+        return out
+
+    def norm(self, grads):
+        """optax.global_norm of the whole gradient: each rank's sum of
+        squares weighted by 1 / (ranks holding the same block), summed over
+        the mesh."""
+        from ..parallel.collectives import all_reduce
+        from ..parallel.sharding import replicas
+
+        if not self.active:
+            return global_norm([g for g in grads if g is not None])
+        sq = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+        for p, g in zip(self.params, grads):
+            if g is not None:
+                sq = sq + g.float().square().sum() / replicas(p, self.mesh)
+        return all_reduce(sq, self.mesh.group(AXES)).sqrt()
+
+    def metrics(self, values: torch.Tensor) -> torch.Tensor:
+        """Global losses from this rank's shares: summed over the mesh,
+        divided by the ranks that computed the same rows."""
+        from ..parallel.collectives import all_reduce
+
+        if not self.active:
+            return values
+        reps = self.mesh.size // self._distinct_rows()
+        return all_reduce(values.float(), self.mesh.group(AXES)) / reps
+
+
+def _mesh_context(mesh, batch):
+    """(local batch, its BatchRows or None, context manager) for a step
+    under `mesh`: the rank's rows of the global batch, with the mesh and
+    the rows ambient (the remat recompute in the backward reads them too)."""
+    if mesh is None or mesh.size == 1:
+        return batch, None, contextlib.nullcontext()
+    from ..parallel.sharding import local_train_batch
+
+    local, rows = local_train_batch(mesh, batch)
+    stack = contextlib.ExitStack()
+    stack.enter_context(use_mesh(mesh))
+    stack.enter_context(use_batch_rows(rows))
+    return local, rows, stack
+
+
+_LOSS_NAMES = ("loss", "ce_loss", "mask_bce_loss", "mask_dice_loss",
+               "taxonomy_ce_loss")
 
 
 def with_moe_aux(model: LisaModel, out: LisaOutputs) -> LisaOutputs:
@@ -199,26 +313,35 @@ def make_train_step(model: LisaModel, cfg: TrainConfig, mesh=None
     set; one optimizer micro-step. `state` is updated in place. The
     metrics (device tensors) are the JAX step's: loss, ce_loss,
     mask_bce_loss, mask_dice_loss, taxonomy_ce_loss and grad_norm (of this
-    micro-step's gradients)."""
+    micro-step's gradients).
+
+    `mesh` (core/mesh.py, the model sharded over it): `batch` is the global
+    batch; the metrics are the global ones, equal on every rank."""
     _check_supported(model, mesh)
 
     def step(state: TrainState, batch: TrainBatch, seed: int):
         params = list(state.trainable.values())
         for p in params:
             p.grad = None
-        out = with_moe_aux(model, model(
-            batch, dropout_seed=fold_in(seed, state.step), remat=cfg.remat))
-        out.loss.backward()
-        grads = [p.grad for p in params]
-        grad_norm = global_norm([g for g in grads if g is not None])
+        local, rows, ctx = _mesh_context(mesh, batch)
+        sync = MeshSync(mesh, params, rows)
+        with ctx:
+            out = with_moe_aux(model, model(
+                local, dropout_seed=fold_in(seed, state.step),
+                remat=cfg.remat))
+            out.loss.backward()
+        if sync.active:
+            grads = sync.grads([p.grad for p in params])
+            state.optimizer.norm_fn = sync.norm
+        else:
+            grads = [p.grad for p in params]
+        grad_norm = sync.norm(grads)
         state.optimizer.update(grads, grad_norm)
         state.step += 1
-        metrics = dict(
-            loss=out.loss.detach(), ce_loss=out.ce_loss.detach(),
-            mask_bce_loss=out.mask_bce_loss.detach(),
-            mask_dice_loss=out.mask_dice_loss.detach(),
-            taxonomy_ce_loss=out.taxonomy_ce_loss.detach(),
-            grad_norm=grad_norm)
+        losses = sync.metrics(torch.stack(
+            [getattr(out, k).detach().float() for k in _LOSS_NAMES]))
+        metrics = dict(zip(_LOSS_NAMES, losses.unbind()))
+        metrics["grad_norm"] = grad_norm
         return state, metrics
 
     return step
@@ -227,11 +350,27 @@ def make_train_step(model: LisaModel, cfg: TrainConfig, mesh=None
 def make_eval_step(model: LisaModel, cfg: TrainConfig = None,
                    mesh=None) -> Callable:
     """Validation forward without gradients and without dropout: returns
-    the batch's LisaOutputs (masks, taxonomy, losses)."""
+    the batch's LisaOutputs (masks, taxonomy, losses). Under `mesh` the
+    batch is the global one, and so are the outputs: the global losses,
+    and the predictions of every row gathered from the batch shards."""
     _check_supported(model, mesh)
 
     @torch.no_grad()
     def step(batch: TrainBatch) -> LisaOutputs:
-        return with_moe_aux(model, model(batch))
+        local, rows, ctx = _mesh_context(mesh, batch)
+        with ctx:
+            out = with_moe_aux(model, model(local))
+        if rows is None or not rows.sharded:
+            return out
+        from ..parallel.collectives import all_gather
+
+        sync = MeshSync(mesh, (), rows)
+        losses = sync.metrics(torch.stack(
+            [getattr(out, k).float() for k in _LOSS_NAMES]))
+        gathered = {k: all_gather(getattr(out, k).contiguous(), rows.group, 0)
+                    for k in ("pred_masks_left", "pred_masks_right",
+                              "pred_taxonomies")}
+        return out._replace(**dict(zip(_LOSS_NAMES, losses.unbind())),
+                            **gathered)
 
     return step

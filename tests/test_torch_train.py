@@ -31,6 +31,7 @@ from haff_tpu.core.config import TrainConfig as JaxTrainConfig
 from haff_tpu.model.lisa import LisaModel as JaxLisaModel
 from haff_tpu.train import trainer as jtrainer
 from haff_tpu_torch.core.config import ModelConfig, TrainConfig
+from haff_tpu_torch.core.mesh import Mesh
 from haff_tpu_torch.model.lisa import TrainBatch
 from haff_tpu_torch.tools.bridge import flax_to_state_dict
 from haff_tpu_torch.train import trainer as ttrainer
@@ -275,4 +276,5 @@ def test_unported_training_modes_raise(jax_grads):
     cfg, params, _, _, _ = jax_grads
     port = _port(params, cfg)
     with pytest.raises(NotImplementedError, match="pipeline"):
-        ttrainer.make_train_step(port, TrainConfig(), mesh=object())
+        ttrainer.make_train_step(port, TrainConfig(),
+                                 mesh=Mesh((1, 2, 1, 1, 1, 1)))
