@@ -24,6 +24,7 @@ GSPMD derives the collectives from shardings; the port calls them itself
 
 from __future__ import annotations
 
+import itertools
 import math
 import os
 from contextlib import contextmanager
@@ -43,16 +44,10 @@ TENSOR_AXIS = "tensor"
 AXES = (DATA_AXIS, PIPE_AXIS, FSDP_AXIS, EXPERT_AXIS, SP_AXIS, TENSOR_AXIS)
 BATCH_AXES = (DATA_AXIS, FSDP_AXIS)
 
-# Axis sets whose groups build_mesh creates besides the single axes: the
-# batch axes (loss denominators), and the sets a gradient is summed over
-# (every axis but the ones its parameter is sharded over, trainer.py).
-_GROUP_SETS = (
-    BATCH_AXES,
-    AXES,
-    tuple(a for a in AXES if a != TENSOR_AXIS),
-    tuple(a for a in AXES if a != FSDP_AXIS),
-    tuple(a for a in AXES if a not in (FSDP_AXIS, TENSOR_AXIS)),
-)
+# build_mesh creates a process group for every set of the axes whose size
+# is > 1 (a collective over a set of axes runs over the ranks that share
+# every other coordinate); `Mesh.group` reads a set by those axes alone.
+# A mesh of n ranks has at most log2(n) such axes.
 
 
 def _axes(axes) -> Tuple[str, ...]:
@@ -110,8 +105,8 @@ class Mesh:
 
     def group(self, axes):
         """The process group along `axes`, or None where it has one rank."""
-        axes = _axes(axes)
-        if self.axis_size(axes) == 1:
+        axes = tuple(a for a in _axes(axes) if self.shape[a] > 1)
+        if not axes:
             return None
         try:
             return self._groups[axes]
@@ -171,16 +166,13 @@ def build_mesh(cfg: MeshConfig = MeshConfig(),
     shape = dict(zip(AXES, sizes))
     groups = {(a,): device_mesh.get_group(a) for a in AXES if shape[a] > 1}
     rank = dist.get_rank()
-    for axes in map(_axes, _GROUP_SETS):
-        big = [a for a in axes if shape[a] > 1]
-        if len(big) <= 1:  # no group, or the ranks of one axis's group
-            if big:
-                groups[axes] = groups[(big[0],)]
-            continue
-        for ranks in _partitions(sizes, axes):
-            g = dist.new_group(ranks)  # every rank creates every group
-            if rank in ranks:
-                groups[axes] = g
+    big = [a for a in AXES if shape[a] > 1]
+    for n in range(2, len(big) + 1):
+        for axes in itertools.combinations(big, n):
+            for ranks in _partitions(sizes, axes):
+                g = dist.new_group(ranks)  # every rank creates every group
+                if rank in ranks:
+                    groups[axes] = g
     return Mesh(sizes, rank, device_mesh, groups)
 
 

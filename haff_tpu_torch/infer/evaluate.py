@@ -24,6 +24,18 @@ int4 at rest and are dequantized at use during the evaluator's calls
 (`DequantizeAtUse`), inside the graph on the card.
 `validate_on_benchmark` scores a benchmark folder with it (the train
 CLI's per-epoch validation).
+
+On a mesh of ranks (core/mesh.py; the model sharded by
+parallel/sharding.py) `make_mesh_evaluate` is the evaluate: eager, with
+the mesh's collectives inside (a CUDA graph cannot capture gloo's
+host-staged transfers, so none is attempted), every rank on the whole
+batch and ending with the same tokens and masks. Under a pipe axis each
+stage keeps the KV caches of its own layers and the hidden state passes
+stage to stage at the prefill and at every decode step
+(parallel/pipeline.py `pipelined_decode`); tensor-parallel ranks keep
+their heads' caches; expert ranks sum their per-row MoE combine over the
+expert group; under sp the prefill rings and the decode steps run on the
+whole cache, as JAX's decoder does with a cache.
 """
 
 from __future__ import annotations
@@ -338,6 +350,62 @@ def make_jitted_evaluate(model: LisaModel, max_new_tokens: int, eos_id: int,
                                draft_corpus=draft_corpus,
                                corpus_lengths=corpus_lengths,
                                draft_len=draft_len)
+
+    return evaluate
+
+
+@torch.inference_mode()
+def mesh_evaluate_fn(model: LisaModel, mesh, images_sam, images_clip,
+                     input_ids, attention_mask, max_new_tokens: int,
+                     eos_id: int, kv_cache_8bit: bool = False
+                     ) -> EvaluateResult:
+    """evaluate_fn's greedy path on a model sharded over `mesh`, every
+    rank on the whole batch (see the module docstring)."""
+    import dataclasses
+
+    from ..core.mesh import use_mesh
+    from .generate import DecodeState
+
+    images_sam, images_clip, input_ids, attention_mask = _inputs(
+        model, images_sam, images_clip, input_ids, attention_mask)
+    llm = model.llm
+    pipe = getattr(llm, "pipe", None)
+    with use_mesh(mesh):
+        sp = _prompt(model, images_clip, input_ids, attention_mask)
+        cfg = llm.cfg
+        if hasattr(llm, "model"):  # LLaMA: this rank's kv heads
+            first = llm.model.layers[pipe.lo if pipe is not None else 0]
+            cfg = dataclasses.replace(
+                cfg, num_kv_heads=first.self_attn.num_kv_heads)
+        b, l, _ = sp.embeds.shape
+        state = DecodeState(cfg, b, l, max_new_tokens, sp.embeds.device,
+                            kv_cache_8bit=kv_cache_8bit)
+        llm_fn = model.llm_forward
+        if pipe is not None:
+            from ..parallel.pipeline import pipelined_decode
+
+            for i in range(len(state.caches)):
+                if not pipe.lo <= i < pipe.hi:
+                    state.caches[i] = None
+            llm_fn = lambda *a: pipelined_decode(llm, *a)  # noqa: E731
+        prefill(state, llm_fn, sp.embeds, sp.positions, sp.segment_ids,
+                sp.segment_ids.sum(dim=1))
+        decode_loop(state, model.embed_tokens, llm_fn, max_new_tokens,
+                    eos_id)
+        return _finish(model, state.result(), images_sam, max_new_tokens)
+
+
+def make_mesh_evaluate(model: LisaModel, mesh, max_new_tokens: int,
+                       eos_id: int, kv_cache_8bit: bool = False):
+    """The evaluate of a model sharded over `mesh` (the train CLI's
+    validation on a mesh): `mesh_evaluate_fn` bound to the model and the
+    decode settings, with make_jitted_evaluate's call signature. Every
+    rank of the mesh calls it on the same inputs."""
+
+    def evaluate(images_sam, images_clip, input_ids, attention_mask):
+        return mesh_evaluate_fn(model, mesh, images_sam, images_clip,
+                                input_ids, attention_mask, max_new_tokens,
+                                eos_id, kv_cache_8bit)
 
     return evaluate
 

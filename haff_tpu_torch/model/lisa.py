@@ -84,7 +84,12 @@ class LisaOutputs(NamedTuple):
 
 class LisaModel(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16,
-                 device="cuda", generator: Optional[torch.Generator] = None):
+                 device="cuda", generator: Optional[torch.Generator] = None,
+                 mesh=None):
+        """`mesh` (core/mesh.py): build only what this rank keeps of the
+        decoder under its pipe and expert axes (parallel/sharding.py
+        `cut_before_init_`); the kept weights are those of the whole
+        model's seeded init."""
         super().__init__()
         self.cfg = cfg
         # The LLaMA decoder's MoE layers (the MPT decoder has none).
@@ -110,6 +115,10 @@ class LisaModel(nn.Module):
             self.text_fc2 = QDense(cfg.llama.hidden_size, cfg.out_dim)
         self.dtype = resolve(dtype)
         self.to(self.dtype)
+        if mesh is not None:
+            from ..parallel.sharding import cut_before_init_
+
+            cut_before_init_(self, mesh)
         if torch.device(device).type == "meta":
             return  # shapes and dtypes only (JAX's eval_shape)
         self.to_empty(device=torch.device(device))
@@ -225,19 +234,41 @@ class LisaModel(nn.Module):
             pred_taxonomies=taxonomy)
 
 
+def _init_order(module, seen=None):
+    """`module.modules()`, with each `OtherStage` place replaced by the
+    layer it stands for (its `shadow`)."""
+    seen = set() if seen is None else seen
+    module = getattr(module, "shadow", module)
+    if id(module) in seen:
+        return
+    seen.add(id(module))
+    yield module
+    for child in module.children():
+        yield from _init_order(child, seen)
+
+
 @torch.no_grad()
 def init_random_(model: nn.Module, generator: torch.Generator) -> None:
     """Fill every parameter from `generator`: normal(0, fan_in^-1/2) for
     dense and convolution weights and the stacked MoE experts (fan-in: d
     for gate/up, f for down), zero biases, unit norms, normal(0, 0.02)
     for embeddings and position tables, normal(0, 1) for the SAM decoder's
-    tokens and prompt embeddings; LoRA a he-uniform, b zero."""
+    tokens and prompt embeddings; LoRA a he-uniform, b zero.
 
-    def normal_(p, std):
-        p.copy_(torch.randn(p.shape, generator=generator, device=p.device,
-                            dtype=torch.float32) * std)
+    Values are drawn on the generator's device in the module order of the
+    whole model: for a layer another pipeline stage holds (an `OtherStage`
+    with its meta `shadow`) they are drawn and dropped, and an MoE MLP
+    holding experts [expert_start, +n) takes those rows of the whole
+    draw, so a rank's part equals the whole model's."""
 
-    for mod in model.modules():
+    def normal_(p, std, rows=None):
+        shape = p.shape if rows is None else (rows[1],) + p.shape[1:]
+        t = torch.randn(shape, generator=generator, device=generator.device,
+                        dtype=torch.float32) * std
+        if not p.is_meta:
+            p.copy_(t if rows is None else t.narrow(0, rows[0], p.shape[0]))
+
+    for mod in _init_order(model):
         if isinstance(mod, LoraDense):
             if mod.rank:
                 mod.reset_lora_(generator)
@@ -252,8 +283,9 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(mod, nn.Embedding):
             normal_(mod.weight, 0.02)
         elif isinstance(mod, MoEMLP):
+            rows = (mod.expert_start, mod.cfg.moe_num_experts)
             for p in (mod.gate_proj, mod.up_proj, mod.down_proj):
-                normal_(p, 1.0 / math.sqrt(p.shape[1]))
+                normal_(p, 1.0 / math.sqrt(p.shape[1]), rows)
         else:
             for name, p in mod.named_parameters(recurse=False):
                 normal_(p, 1.0 if name in _UNIT_SCALE else 0.02)

@@ -42,6 +42,9 @@ class QDense(nn.Linear):
 
     compute_dtype = None
     dequant_dtype = None
+    # A row-parallel int8 layer's tensor group (parallel/sharding.py): its
+    # activations are quantized with their amax over the whole input.
+    amax_group = None
 
     @property
     def quantized(self) -> bool:
@@ -94,7 +97,8 @@ class QDense(nn.Linear):
             w = quant.dequantize_weight(weight, scale, self.dequant_dtype)
             return F.linear(x.to(dt), w.to(dt), bias)
         if weight.dtype == torch.int8:
-            y = quant.int8_matmul(x.to(dt), weight, scale, dtype=dt)
+            y = quant.int8_matmul(x.to(dt), weight, scale, dtype=dt,
+                                  amax_group=self.amax_group)
         else:
             y = quant.int4_matmul(x.to(dt), weight, scale,
                                   group=self.in_features // scale.shape[-1],

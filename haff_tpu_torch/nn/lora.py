@@ -89,9 +89,11 @@ class LoraDense(nn.Module):
     def reset_lora_(self, generator: Optional[torch.Generator] = None):
         """flax he_uniform over fan-in `in` for a, zeros for b."""
         bound = math.sqrt(6.0 / self.lora_a.shape[0])
-        self.lora_a.copy_(torch.rand(self.lora_a.shape, generator=generator,
-                                     device=self.lora_a.device)
-                          * (2 * bound) - bound)
+        a = torch.rand(self.lora_a.shape, generator=generator,
+                       device=(self.lora_a.device if generator is None
+                               else generator.device)) * (2 * bound) - bound
+        if not self.lora_a.is_meta:  # a meta shadow's draw is dropped
+            self.lora_a.copy_(a)
         self.lora_b.zero_()
 
     def forward(self, x, dropout_seed: Optional[int] = None, base_input=None):

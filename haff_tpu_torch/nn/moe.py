@@ -14,9 +14,25 @@ outside any Pallas kernel; here they are `torch.einsum` (batched GEMMs).
 The stacked expert weights keep JAX's layout, (E, d, f) for gate/up and
 (E, f, d) for down, so a flax tree loads unchanged through tools/bridge.py.
 
-On one card there is no expert axis to shard over: JAX's
-`_expert_constraint` (a no-op without an `expert` mesh axis) has no
-counterpart until the port runs on several cards.
+On a mesh (parallel/sharding.py), where JAX's `_expert_constraint` lets
+GSPMD place the experts:
+
+  * expert parallelism: a rank holds E / ep experts (`expert_start` on);
+    the expert ranks hold the same batch rows, route them alike, run their
+    own experts' slots, and the combine is summed over the expert group.
+    The router's probabilities and the tokens enter that region through
+    `copy_to_tp` (their gradients summed over the group); the aux term is
+    taken from the probabilities before it, so its gradient is counted
+    once;
+  * tensor parallelism splits each expert's `mlp` width (gate/up columns,
+    down rows), summed over the tensor group;
+  * a batch sharded over (data, fsdp) keeps JAX's one capacity pool over
+    the global batch: the capacity counts the global tokens, each shard
+    offsets its k-major slot positions by the earlier shards' per-(k, e)
+    counts (after every k' < k choice of every shard), and the Switch
+    term uses the global f_e and this shard's share of P_e, so the shares
+    summed over the shards are JAX's aux. Per-row (`no_drop`) routing
+    needs nothing from other shards.
 """
 
 from __future__ import annotations
@@ -29,6 +45,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.config import LlamaConfig
+from ..core.mesh import current_batch_rows
+from ..parallel.collectives import (all_gather, all_reduce, copy_to_tp,
+                                    group_rank, reduce_from_tp)
 from .layers import QDense
 
 
@@ -72,6 +91,11 @@ class MoEMLP(nn.Module):
     dtype the stacked weights are cast to at use."""
 
     compute_dtype = None
+    # Meshes (parallel/sharding.py): the expert group and this rank's first
+    # expert; the tensor group over each expert's mlp width.
+    ep_group = None
+    expert_start = 0
+    tp_group = None
 
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
@@ -89,8 +113,11 @@ class MoEMLP(nn.Module):
         E = cfg.moe_num_experts
         K = min(cfg.moe_top_k, E)
         probs = torch.softmax(self.router(xt).float(), dim=-1)
+        # Into the expert-parallel region: each expert rank's combine
+        # reaches the router through its own experts only.
+        routed = copy_to_tp(probs, self.ep_group)
         gates, onehots = [], []
-        masked = probs
+        masked = routed
         for _ in range(K):
             # amax: the gradient spreads over ties as jnp.max's does;
             # argmax takes the first index on ties, as JAX's.
@@ -114,10 +141,25 @@ class MoEMLP(nn.Module):
         dt = self.compute_dtype or xin.dtype
         wg, wu, wd = (w.to(dt) for w in (self.gate_proj, self.up_proj,
                                          self.down_proj))
+        xin = copy_to_tp(xin, self.tp_group)
         out = spec[:-1] + "f"
         h = (F.silu(torch.einsum(f"{spec},edf->{out}", xin, wg))
              * torch.einsum(f"{spec},edf->{out}", xin, wu))
-        return torch.einsum(f"{out},efd->{spec}", h, wd)
+        return reduce_from_tp(torch.einsum(f"{out},efd->{spec}", h, wd),
+                              self.tp_group)
+
+    def _global_offsets(self, onehot, group):
+        """(K, E) offsets that turn this batch shard's k-major exclusive
+        slot positions into the global batch's: the global counts of every
+        k' < k choice, less this shard's, plus the earlier shards' k-th
+        choices."""
+        counts = onehot.sum(dim=1)                          # (K, E)
+        shards = all_gather(counts[None], group, 0)         # (S, K, E)
+        total = shards.sum(dim=0)
+        me = group_rank(group)
+        before_k = torch.cumsum(total, 0) - total
+        mine_before_k = torch.cumsum(counts, 0) - counts
+        return before_k - mine_before_k + shards[:me].sum(dim=0)
 
     def forward(self, x, token_mask=None, no_drop: bool = False):
         cfg = self.cfg
@@ -127,6 +169,13 @@ class MoEMLP(nn.Module):
         n = b * l
         xt = x.reshape(n, d)
         probs, gates, onehot, live = self._route(xt, token_mask)
+        # This rank's experts [e0, e1) (all of them off an expert axis).
+        e0 = self.expert_start
+        e1 = e0 + self.gate_proj.shape[0]
+        xe = copy_to_tp(x, self.ep_group)
+        rows = current_batch_rows()
+        group = (rows.group if rows is not None and rows.sharded and
+                 not no_drop else None)
         if no_drop:
             if l <= 64:
                 capacity = l
@@ -140,33 +189,50 @@ class MoEMLP(nn.Module):
             kept = ((pos < capacity) * oh_b).sum(dim=-1)
             slot_oh = _one_hot(slot, capacity) * kept[..., None]
             gates_b = gates.reshape(K, b, l).transpose(0, 1)
+            oh_b = oh_b[..., e0:e1]
             dispatch = torch.einsum("bkle,bklc->blec", oh_b, slot_oh)
             combine = torch.einsum("bkle,bklc,bkl->blec", oh_b, slot_oh,
                                    gates_b)
-            xin = torch.einsum("blec,bld->becd", dispatch.to(x.dtype), x)
+            xin = torch.einsum("blec,bld->becd", dispatch.to(x.dtype), xe)
             ye = self._experts(xin, "becd")
             y = torch.einsum("blec,becd->bld", combine.to(x.dtype), ye)
         else:
-            capacity = max(1, math.ceil(K * n / E * cfg.moe_capacity_factor))
+            total = n if group is None else rows.total * l
+            capacity = max(1, math.ceil(K * total / E
+                                        * cfg.moe_capacity_factor))
             flat = onehot.reshape(K * n, E)
             pos = (torch.cumsum(flat, dim=0) - flat).reshape(K, n, E)
+            if group is not None:
+                pos = pos + self._global_offsets(onehot, group)[:, None, :]
             slot = (pos * onehot).sum(dim=-1).long()
             kept = ((pos < capacity) * onehot).sum(dim=-1)
             slot_oh = _one_hot(slot, capacity) * kept[..., None]
-            dispatch = torch.einsum("kne,knc->nec", onehot, slot_oh)
-            combine = torch.einsum("kne,knc,kn->nec", onehot, slot_oh, gates)
-            xin = torch.einsum("nec,nd->ecd", dispatch.to(x.dtype), xt)
+            mine = onehot[..., e0:e1]
+            dispatch = torch.einsum("kne,knc->nec", mine, slot_oh)
+            combine = torch.einsum("kne,knc,kn->nec", mine, slot_oh, gates)
+            xin = torch.einsum("nec,nd->ecd", dispatch.to(x.dtype),
+                               xe.reshape(n, d))
             ye = self._experts(xin, "ecd")
             y = torch.einsum("nec,ecd->nd", combine.to(x.dtype), ye)
+        y = reduce_from_tp(y, self.ep_group)
 
         # Switch load balance: f_e the top-1 assignment share, P_e the mean
-        # router probability, over live tokens when there is a mask.
-        if live is not None:
-            denom = live.sum().clamp(min=1.0)
-            f_e = onehot[0].sum(dim=0) / denom
-            p_e = (probs * live[:, None]).sum(dim=0) / denom
+        # router probability, over live tokens when there is a mask; over
+        # a sharded batch, the global f_e and this shard's share of P_e.
+        if group is None:
+            if live is not None:
+                denom = live.sum().clamp(min=1.0)
+                f_e = onehot[0].sum(dim=0) / denom
+                p_e = (probs * live[:, None]).sum(dim=0) / denom
+            else:
+                f_e = onehot[0].mean(dim=0)
+                p_e = probs.mean(dim=0)
         else:
-            f_e = onehot[0].mean(dim=0)
-            p_e = probs.mean(dim=0)
+            live = torch.ones(n, device=x.device) if live is None else live
+            stats = all_reduce(torch.cat([onehot[0].sum(dim=0),
+                                          live.sum()[None]]).detach(), group)
+            denom = stats[E].clamp(min=1.0)
+            f_e = stats[:E] / denom
+            p_e = (probs * live[:, None]).sum(dim=0) / denom
         aux = E * (f_e * p_e).sum()
         return y.reshape(b, l, d).to(x.dtype), aux

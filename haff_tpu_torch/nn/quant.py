@@ -329,28 +329,55 @@ def int4_matmul_kernel(x, packed, scale, group: int, dtype):
 # Products: public entry points
 # ---------------------------------------------------------------------------
 
+# Row-parallel W8A8 products whose activation amax was all-reduced over
+# the tensor group (`int8_matmul(..., amax_group=)`), on any device.
+GLOBAL_AMAX = {"all_reduces": 0}
+
+
+def quantize_activation_rows(x2, amax_group=None) -> QuantArray:
+    """`quantize_activation` of (M, K) rows; with `amax_group` (a
+    row-parallel product: x holds a K slice) each row's amax is the
+    maximum over the group's slices, so the int8 values and scales are
+    those of the whole row."""
+    if amax_group is None:
+        return quantize_activation(x2)
+    from ..parallel.collectives import all_reduce
+
+    xf = x2.float()
+    amax = all_reduce(xf.abs().amax(dim=-1, keepdim=True), amax_group,
+                      op="max")
+    GLOBAL_AMAX["all_reduces"] += 1
+    q, scale = _symmetric(xf, amax, 127.0, -127, 127)
+    return QuantArray(values=q.to(torch.int8), scales=scale)
+
+
 class _Int8MatmulSTE(torch.autograd.Function):
     """W8A8 forward (activation quantization and the product, undifferentiated)
     with the straight-through backward dx = dy @ dequantize_kernel(q, scale)."""
 
     @staticmethod
-    def forward(ctx, x, q, scale, dtype):
+    def forward(ctx, x, q, scale, dtype, amax_group):
         ctx.save_for_backward(q, scale)
         ctx.x_dtype = x.dtype
         lead, k = x.shape[:-1], x.shape[-1]
-        xq, s_x = quantize_activation(x.reshape(-1, k))
-        run = int8_matmul_kernel if x.is_cuda else int8_matmul_plain
-        y = run(xq, q, s_x[:, 0].contiguous(), scale, dtype)
+        xq, s_x = quantize_activation_rows(x.reshape(-1, k), amax_group)
+        if x.is_cuda:
+            y = int8_matmul_kernel(xq, q, s_x[:, 0].contiguous(), scale,
+                                   dtype)
+            if amax_group is not None:
+                _build.LAUNCHES[_W8A8 + "/row_parallel"] += 1
+        else:
+            y = int8_matmul_plain(xq, q, s_x[:, 0].contiguous(), scale, dtype)
         return y.reshape(*lead, q.shape[0])
 
     @staticmethod
     def backward(ctx, dy):
         q, scale = ctx.saved_tensors
         dx = dy @ dequantize_kernel(q, scale, dy.dtype)
-        return dx.to(ctx.x_dtype), None, None, None
+        return dx.to(ctx.x_dtype), None, None, None, None
 
 
-def int8_matmul(x, q, scale, dtype=None):
+def int8_matmul(x, q, scale, dtype=None, amax_group=None):
     """W8A8 product: dynamic per-token symmetric activation quantization,
     int8 x int8 -> int32, rescaled by the token's and the channel's scales.
 
@@ -358,9 +385,15 @@ def int8_matmul(x, q, scale, dtype=None):
     quantize_kernel). Returns (..., out) in `dtype` (default x's). The
     activation quantization is PyTorch ops on both devices; the product
     and the rescale are the w8a8 kernel on the card. Differentiable in x
-    by the straight-through rule (module docstring)."""
+    by the straight-through rule (module docstring).
+
+    `amax_group`: a row-parallel product (x and q hold a K slice each
+    rank of the group): the rows are quantized with their amax over the
+    whole K (an all-reduce max), and the result is this slice's partial
+    product, which the caller sums over the group (a kernel launch in
+    this role also counts under `w8a8_matmul/row_parallel`)."""
     return _Int8MatmulSTE.apply(x, q.contiguous(), scale.float().contiguous(),
-                                dtype or x.dtype)
+                                dtype or x.dtype, amax_group)
 
 
 class _Int4MatmulSTE(torch.autograd.Function):

@@ -1,6 +1,6 @@
 """Mesh parallelism (port of haff_tpu/parallel): sharding rules, ring
-attention and the autograd-aware collectives they run on. The GPipe
-pipeline (`pipeline_blocks`, `pipelined_*_forward`) is not ported yet.
+attention, the GPipe pipeline and the autograd-aware collectives they run
+on.
 
 The names resolve at first use, so that nn/llama.py can import
 parallel/collectives.py while parallel/sharding.py imports nn/llama.py.
@@ -13,6 +13,13 @@ _NAMES = {
     "batch_sharding": "sharding",
     "param_shardings": "sharding",
     "shard_batch_tree": "sharding",
+    "auto_microbatches": "pipeline",
+    "pipeline_blocks": "pipeline",
+    "pipelined_llm_forward": "pipeline",
+    "pipelined_mpt_forward": "pipeline",
+    "pipelined_lisa_forward": "pipeline",
+    "stack_layer_params": "pipeline",
+    "unstack_layer_params": "pipeline",
     "ring_attention": "ring_attention",
     "sequence_sharded_attention": "ring_attention",
 }

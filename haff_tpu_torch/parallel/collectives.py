@@ -58,20 +58,37 @@ def _staged(t, group):
     return t.detach()
 
 
-def all_reduce(t, group):
-    """The sum of `t` over the group, as a new tensor on t's device in t's
-    dtype. A bf16 / fp16 tensor moves in its own dtype and is summed in
-    float32 on its device, in group-rank order (one rounding, the same
-    bits on every rank); other dtypes use the backend's all-reduce."""
+def all_reduce(t, group, op: str = "sum"):
+    """The sum (or, with op "max", the maximum) of `t` over the group, as a
+    new tensor on t's device in t's dtype. A bf16 / fp16 tensor moves in
+    its own dtype and is reduced in float32 on its device, in group-rank
+    order (one rounding, the same bits on every rank); other dtypes use
+    the backend's all-reduce."""
     if group is None:
         return t
     if t.dtype in _LOW:
-        parts = all_gather(t.contiguous()[None], group, 0)
-        return parts.float().sum(0).to(t.dtype)
+        parts = all_gather(t.contiguous()[None], group, 0).float()
+        red = parts.sum(0) if op == "sum" else parts.amax(0)
+        return red.to(t.dtype)
     x = _staged(t, group).contiguous()
     if x.data_ptr() == t.data_ptr():
         x = x.clone()
-    dist.all_reduce(x, group=group)
+    dist.all_reduce(x, group=group, op=(dist.ReduceOp.SUM if op == "sum"
+                                        else dist.ReduceOp.MAX))
+    return x.to(t.device)
+
+
+def broadcast_from(t, group, src: int):
+    """`t` of global rank `src` on every rank of the group (exact: its
+    bytes are sent, as uint8, which every backend takes in any dtype).
+    Every rank passes a tensor of the same shape and dtype; the others'
+    values are not read."""
+    if group is None:
+        return t
+    x = _staged(t, group).contiguous()
+    if x.data_ptr() == t.data_ptr():
+        x = x.clone()
+    dist.broadcast(x.reshape(-1).view(torch.uint8), src=src, group=group)
     return x.to(t.device)
 
 

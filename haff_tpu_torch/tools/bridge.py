@@ -149,7 +149,10 @@ def load_jax_params(model: torch.nn.Module, params,
         params = params["params"]
     if scope is not None:
         params = params[scope]
-    sd = flax_to_state_dict(params)
+    from ..parallel.sharding import rank_state_dict
+
+    # a model cut for a mesh before its init takes its own part
+    sd = rank_state_dict(model, flax_to_state_dict(params))
     modules = dict(model.named_modules())
     for name, scale in sd.items():
         prefix, _, leaf = name.rpartition(".")

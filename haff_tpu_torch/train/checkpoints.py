@@ -23,9 +23,11 @@ Under a mesh (parameters sharded by parallel/sharding.py) the files hold
 the full layout: every rank takes part in gathering the trainable tensors
 and the optimizer state, rank 0 writes them, with a barrier before (no
 rank still reads a step that rotation would delete) and after (the step is
-on disk for every rank). Loading cuts each tensor to the rank's block of
-whatever mesh the run has, so a checkpoint saved under one mesh resumes
-under another.
+on disk for every rank). Under a pipe axis the stages' layers are
+gathered too, into the one-process order of the trainable set (AdamW's
+moments follow it). Loading cuts each tensor to the rank's block of
+whatever mesh the run has (a pipeline stage takes its own layers), so a
+checkpoint saved under one mesh resumes under another.
 """
 
 from __future__ import annotations
@@ -71,38 +73,68 @@ def _barrier() -> None:
         d.barrier()
 
 
-def _moments(adamw_state: dict, params, convert) -> dict:
-    """AdamW's state_dict with every moment tensor of parameter i passed
-    through convert(tensor, placement of params[i])."""
+def _pipe_stage(state):
+    """The pipeline stage (`PipeStage`) of the state's stage-local
+    parameters, from their placement, or None."""
     from ..parallel.sharding import placement
 
-    out = dict(adamw_state)
-    out["state"] = {
-        i: {k: convert(v, placement(params[i])) if torch.is_tensor(v)
-            and v.ndim else v for k, v in st.items()}
-        for i, st in adamw_state["state"].items()}
-    return out
+    for p in state.trainable.values():
+        pl = placement(p)
+        if pl is not None and pl.stage is not None:
+            return pl.stage
+    return None
 
 
 def snapshot(state) -> Dict[str, Any]:
     """A `TrainState` as a dict of host tensors in the full layout: the
     step, the trainable tensors by name and the optimizer's state (AdamW's
     moments, the schedule's count and the gradient-accumulation buffer).
-    Under a mesh every rank must call it (it gathers the shards)."""
+    Under a mesh every rank must call it (it gathers the shards, and the
+    pipeline stages' layers)."""
     from ..parallel.sharding import full_tensor, placement
 
     opt = state.optimizer
-    acc = (None if opt.acc is None else
-           [full_tensor(a, placement(p)) for a, p in zip(opt.acc, opt.params)])
-    return _host({
+    adamw = opt.adamw.state_dict()
+    entries = {}
+    for i, (n, p) in enumerate(state.trainable.items()):
+        pl = placement(p)
+        moments = adamw["state"].get(i)
+        entries[n] = _host({
+            "stage_local": pl is not None and pl.pipe_group is not None,
+            "t": full_tensor(p.detach(), pl),
+            "m": None if moments is None else {
+                k: full_tensor(v, pl) if torch.is_tensor(v) and v.ndim else v
+                for k, v in moments.items()},
+            "acc": None if opt.acc is None else full_tensor(opt.acc[i], pl)})
+    order = list(entries)
+    stage = _pipe_stage(state)
+    if stage is not None:
+        # Only the stage-local layers move: the rest is the same on every
+        # pipe rank.
+        import torch.distributed as dist
+
+        mine = [n for n in order if entries[n]["stage_local"]]
+        stages = [None] * dist.get_world_size(stage.group)
+        dist.all_gather_object(stages, {n: entries[n] for n in mine},
+                               group=stage.group)
+        at = order.index(mine[0]) if mine else len(order)
+        order = [n for n in order if not entries[n]["stage_local"]]
+        order[at:at] = [n for st in stages for n in st]
+        for st in stages:
+            entries.update(st)
+    return {
         "step": int(state.step),
-        "trainable": {n: full_tensor(p.detach(), placement(p))
-                      for n, p in state.trainable.items()},
-        "optimizer": {"adamw": _moments(opt.adamw.state_dict(), opt.params,
-                                        full_tensor),
-                      "count": opt.count, "mini_step": opt.mini_step,
-                      "acc": acc},
-    })
+        "trainable": {n: entries[n]["t"] for n in order},
+        "optimizer": {
+            "adamw": {"state": {i: entries[n]["m"]
+                                for i, n in enumerate(order)
+                                if entries[n]["m"] is not None},
+                      "param_groups": [dict(g, params=list(range(len(order))))
+                                       for g in adamw["param_groups"]]},
+            "count": opt.count, "mini_step": opt.mini_step,
+            "acc": (None if opt.acc is None else
+                    [entries[n]["acc"] for n in order])},
+    }
 
 
 def _steps(ckpt_dir: str):
@@ -255,16 +287,32 @@ def restore_checkpoint(ckpt_dir: str, state: Any) -> Tuple[Any, Optional[int]]:
         return state, None
     snap = torch.load(os.path.join(d, STATE), map_location="cpu",
                       weights_only=True)
+    order = list(snap["trainable"])
+    # A pipeline stage takes its own layers; the other stages' stay.
+    stage = _pipe_stage(state)
+    elsewhere = frozenset() if stage is None else stage.elsewhere
     load_trainable_(state.trainable, {
         n: local_tensor(t, placement(state.trainable[n]))
-        if n in state.trainable else t for n, t in snap["trainable"].items()})
+        if n in state.trainable else t for n, t in snap["trainable"].items()
+        if n not in elsewhere})
     opt, saved = state.optimizer, snap["optimizer"]
-    opt.adamw.load_state_dict(_moments(saved["adamw"], opt.params,
-                                       local_tensor))
+    params = list(state.trainable.items())
+    at = {n: i for i, n in enumerate(order)}
+    moments = {}
+    for j, (n, p) in enumerate(params):
+        m = saved["adamw"]["state"].get(at[n])
+        if m is not None:
+            moments[j] = {k: local_tensor(v, placement(p))
+                          if torch.is_tensor(v) and v.ndim else v
+                          for k, v in m.items()}
+    opt.adamw.load_state_dict({
+        "state": moments,
+        "param_groups": [dict(g, params=list(range(len(params))))
+                         for g in saved["adamw"]["param_groups"]]})
     opt.count, opt.mini_step = saved["count"], saved["mini_step"]
     opt.acc = (None if saved["acc"] is None else
-               [local_tensor(a, placement(p)).to(p.device)
-                for a, p in zip(saved["acc"], opt.params)])
+               [local_tensor(saved["acc"][at[n]], placement(p)).to(p.device)
+                for n, p in params])
     state.step = snap["step"]
     return state, state.step
 

@@ -8,20 +8,26 @@ auto-resume, meters + TensorBoard scalars, SIGTERM preemption.
 
 On a device (`--device`, default cuda; `--device cpu` runs the plain
 versions), or on a mesh of ranks: under a launcher (torchrun, or a caller
-that initialised a process group) `--data/--fsdp/--tensor/--sp` lay the
-ranks out (core/mesh.py `build_mesh`, `--data -1` takes the leftover
-ranks), the LLaMA decoder is sharded over them (parallel/sharding.py) and
-every rank builds the same global batch, of which the step runs its
-(data, fsdp) rows. Only rank 0 prints, logs and writes checkpoints. The
-train step is train/trainer.py's (AdamW + WarmupDecayLR,
-gradient accumulation, remat), batches built ahead by a thread pool
-(data/loader.py), checkpoints written by a background thread
-(train/checkpoints.py), validation through the decode graph
-(infer/evaluate.py `validate_on_benchmark`, one `make_jitted_evaluate`
-kept for the run, so later epochs replay the first epoch's graph against
-the updated weights). `--load_in_8bit` / `--load_in_4bit` quantize the
-frozen set in place (QLoRA): the products' straight-through backward
-carries the gradient to the adapters.
+that initialised a process group) `--data/--pp/--fsdp/--ep/--sp/--tensor`
+lay the ranks out (core/mesh.py `build_mesh`, `--data -1` takes the
+leftover ranks), the decoder is sharded over them (parallel/sharding.py:
+pipeline stages, tensor slices, experts, fsdp shards; MPT stays whole
+but for its stages) and every rank builds the same global batch, of which
+the step runs its (data, fsdp) rows; a pipe axis runs the decoder as a
+GPipe pipeline of `--pp_microbatches` microbatches (parallel/pipeline.py).
+Only rank 0 prints, logs and writes checkpoints. The train step is
+train/trainer.py's (AdamW + WarmupDecayLR, gradient accumulation, remat),
+batches built ahead by a thread pool (data/loader.py), checkpoints
+written by a background thread (train/checkpoints.py), validation through
+the decode graph (infer/evaluate.py `validate_on_benchmark`, one
+`make_jitted_evaluate` kept for the run, so later epochs replay the first
+epoch's graph against the updated weights); on a mesh of more than one
+rank every rank validates through the eager mesh evaluate
+(`make_mesh_evaluate`: the graph cannot capture gloo's host-staged
+collectives), with the same result on every rank. `--load_in_8bit` /
+`--load_in_4bit` quantize the frozen set in place (QLoRA), before the
+sharding splits the quantized weights: the products' straight-through
+backward carries the gradient to the adapters.
 
 Batch i of epoch e draws its samples from the datasets' generators
 reseeded from (seed, e, i), so a run's batches do not depend on the
@@ -29,7 +35,8 @@ number of workers, and a resumed run trains on the batches the
 uninterrupted run would have.
 
 Usage: [torchrun --nproc_per_node N] python -m haff_tpu_torch.train.cli
-       --dataset_dir D [--data -1] [--fsdp 1] [--tensor 1] [--sp 1]
+       --dataset_dir D [--data -1] [--pp 1] [--pp_microbatches 0]
+       [--fsdp 1] [--ep 1] [--tensor 1] [--sp 1]
        [--val_benchmark_dir B] [--model_preset tiny|1b|7b|13b]
        [--lora_r 8] [--epochs 10] [--steps_per_epoch 500] [--batch_size 2]
        [--grad_accum 10] [--lr 3e-4] [--log_base_dir runs] [--exp_name E]
@@ -45,13 +52,6 @@ import threading
 import time
 
 import numpy as np
-
-# What parses as in the JAX CLI but exits here until slice 18 ports it:
-# the pipeline and expert axes, MoE and quantized bases under a mesh, and
-# validation under a mesh.
-_NOT_PORTED = ("not ported yet (slice 18: pipeline and expert parallelism, "
-               "MoE, quantized bases and validation under a mesh)")
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
@@ -126,7 +126,7 @@ def parse_args(argv=None):
                         "backward)")
     p.add_argument("--load_in_4bit", action="store_true",
                    help="QLoRA-style packed-int4 frozen LLM projections")
-    # mesh (over the launcher's ranks; see _NOT_PORTED for --pp / --ep)
+    # mesh (over the launcher's ranks)
     p.add_argument("--data", type=int, default=-1,
                    help="data-parallel axis size (-1: the ranks left over)")
     p.add_argument("--fsdp", type=int, default=1)
@@ -134,12 +134,15 @@ def parse_args(argv=None):
     p.add_argument("--sp", type=int, default=1,
                    help="sequence-parallel axis size (ring attention)")
     p.add_argument("--pp", type=int, default=1,
-                   help="pipeline-parallel axis size (not ported)")
+                   help="pipeline-parallel axis size; > 1 runs the decoder "
+                        "layers as a GPipe pipeline of that many stages "
+                        "(parallel/pipeline.py)")
     p.add_argument("--pp_microbatches", type=int, default=0,
                    help="GPipe microbatches per step (0 = auto, the "
                         "largest batch divisor <= 2*pp)")
     p.add_argument("--ep", type=int, default=1,
-                   help="expert-parallel axis size (not ported)")
+                   help="expert-parallel axis size; shards the MoE "
+                        "experts (nn/moe.py); only with --moe_experts > 0")
     p.add_argument("--moe_experts", type=int, default=0,
                    help="Mixture-of-Experts decoder MLPs (nn/moe.py; 0 = "
                         "dense, the reference architecture); their experts "
@@ -193,8 +196,7 @@ def parse_args(argv=None):
 
 
 def check_flags(args) -> None:
-    """The JAX CLI's combination errors (same wording), then the flags
-    the port does not run yet."""
+    """The JAX CLI's combination errors (same wording)."""
     if args.pp > 1 and args.sp > 1:
         raise SystemExit(
             "--pp cannot be combined with --sp (ring attention); "
@@ -213,29 +215,9 @@ def check_flags(args) -> None:
             f"--moe_experts {args.moe_experts} must be divisible by "
             f"--ep {args.ep} (stacked expert weights shard over the "
             "expert axis)")
-    for flag in ("pp", "ep"):
-        if getattr(args, flag) > 1:
-            raise SystemExit(f"--{flag} {getattr(args, flag)}: {_NOT_PORTED}")
-    if (args.load_in_8bit or args.load_in_4bit) and (
-            args.fsdp > 1 or args.tensor > 1):
-        raise SystemExit(f"--load_in_8bit/--load_in_4bit under --fsdp/"
-                         f"--tensor: {_NOT_PORTED}")
     if args.load_in_8bit and args.load_in_4bit:
         raise SystemExit("--load_in_8bit and --load_in_4bit exclude each "
                          "other")
-
-
-def check_mesh(args, mesh) -> None:
-    """What the port does not run on a mesh of more than one rank yet."""
-    if mesh is None:
-        return
-    if args.moe_experts > 0:
-        raise SystemExit(f"--moe_experts on a mesh of {mesh.size} ranks: "
-                         f"{_NOT_PORTED}")
-    if args.eval_only or (args.val_benchmark_dir and not args.no_eval):
-        raise SystemExit(f"validation on a mesh of {mesh.size} ranks "
-                         f"(--val_benchmark_dir without --no_eval, "
-                         f"--eval_only): {_NOT_PORTED}")
 
 
 def model_config(args, tok):
@@ -264,13 +246,14 @@ def model_config(args, tok):
 
 def build_model(cfg, precision: str, device, seed: int,
                 pretrained_params=None, vision_pretrained=None,
-                reset_mask_decoder: bool = False):
+                reset_mask_decoder: bool = False, mesh=None):
     """The LisaModel a run starts from, on `device`: weights drawn from a
     generator seeded `seed` on that device, then `pretrained_params` (an
     export .npz), then `vision_pretrained` (a raw SAM checkpoint, both
     mask decoders from its one), then, with `reset_mask_decoder`, both
     mask decoders drawn afresh from a generator seeded `seed + 7`
-    (reference train_ds.py:245-256)."""
+    (reference train_ds.py:245-256). Under `mesh` only this rank's
+    pipeline stage and experts are built and loaded."""
     import torch
 
     from ..model.lisa import LisaModel, init_random_
@@ -278,7 +261,8 @@ def build_model(cfg, precision: str, device, seed: int,
     dtype = torch.bfloat16 if precision == "bf16" else torch.float32
     device = torch.device(device)
     model = LisaModel(cfg, dtype, device=device,
-                      generator=torch.Generator(device).manual_seed(seed))
+                      generator=torch.Generator(device).manual_seed(seed),
+                      mesh=mesh)
     if pretrained_params:
         from .checkpoints import restore_params
 
@@ -396,8 +380,9 @@ class TrainRun:
     validation as (epoch, IoU, IoCM, frames, secs), each checkpoint as a
     dict (step; copy_s, the seconds `save` took to copy the state to the
     host; written_s, the seconds until it was on disk), the peak device
-    memory in bytes (CUDA only), and the model, tokenizer, validation set
-    and kept evaluate callable for a caller to examine."""
+    memory in bytes of the model's build and of the run after it (CUDA
+    only), and the model, tokenizer, validation set and kept evaluate
+    callable for a caller to examine."""
 
     steps: list = dataclasses.field(default_factory=list)
     validations: list = dataclasses.field(default_factory=list)
@@ -405,6 +390,7 @@ class TrainRun:
     start_step: int = 0
     preempted: bool = False
     peak_bytes: int = 0
+    build_peak_bytes: int = 0
     model: object = None
     tok: object = None
     val_ds: object = None
@@ -424,7 +410,8 @@ def main(argv=None) -> TrainRun:
     from ..data.collate import collate_affordance
     from ..data.loader import PrefetchLoader
     from ..data.tokenizer import load_tokenizer
-    from ..infer.evaluate import make_jitted_evaluate, validate_on_benchmark
+    from ..infer.evaluate import (make_jitted_evaluate, make_mesh_evaluate,
+                                  validate_on_benchmark)
     from ..infer.predictor import _require_device
     from ..model.lisa import TrainBatch
     from ..nn.lora import fold_in
@@ -435,8 +422,8 @@ def main(argv=None) -> TrainRun:
                           partition_params)
 
     from ..core.config import MeshConfig
-    from ..core.mesh import (build_mesh, maybe_initialize_distributed,
-                             node_index)
+    from ..core.mesh import (FSDP_AXIS, TENSOR_AXIS, build_mesh,
+                             maybe_initialize_distributed, node_index)
     from ..parallel.collectives import all_reduce
     from ..parallel.sharding import param_shardings
 
@@ -450,7 +437,6 @@ def main(argv=None) -> TrainRun:
         raise SystemExit(f"{e}: launch one process per rank (torchrun "
                          f"--nproc_per_node N)") from None
     mesh = mesh if mesh.size > 1 else None
-    check_mesh(args, mesh)
     rank = 0 if mesh is None else mesh.rank
     say = print if rank == 0 else (lambda *a, **k: None)
     run = TrainRun()
@@ -500,7 +486,7 @@ def main(argv=None) -> TrainRun:
     def make_model():
         model = build_model(cfg, args.precision, device, args.seed,
                             args.pretrained_params, args.vision_pretrained,
-                            args.reset_mask_decoder)
+                            args.reset_mask_decoder, mesh)
         exclude = () if args.train_mask_decoder else (
             "mask_decoder_left", "mask_decoder_right")
         extra = ("moe",) if args.moe_experts > 0 else ()
@@ -531,16 +517,19 @@ def main(argv=None) -> TrainRun:
                 torch.cuda.empty_cache()
         return model, trainable
 
-    if mesh is None:
+    if mesh is None or not (mesh.shape[TENSOR_AXIS] > 1
+                            or mesh.shape[FSDP_AXIS] > 1):
+        # The pipe and expert axes cut the model before its weights exist.
         model, trainable = make_model()
     else:
-        # One rank at a time: ranks sharing a card hold the whole model
-        # only while they shard it.
+        # One rank at a time: under tensor or fsdp, ranks sharing a card
+        # hold their whole stage only while they shard it.
         for r in range(mesh.size):
             if r == rank:
                 model, trainable = make_model()
             torch.distributed.barrier()
-        say(f"mesh {mesh.shape}: the LLaMA decoder sharded over "
+    if mesh is not None:
+        say(f"mesh {mesh.shape}: the decoder sharded over "
             f"{mesh.size} ranks")
 
     state = init_train_state(tcfg, trainable)
@@ -568,14 +557,18 @@ def main(argv=None) -> TrainRun:
                             exp_name=args.exp_name) if rank == 0
               else MetricsLogger(None))
     val_ds = AffDatasetVal(args.val_benchmark_dir) \
-        if args.val_benchmark_dir and mesh is None else None
-    ev = (make_jitted_evaluate(model, max_new_tokens=32,
-                               eos_id=tok.eos_token_id)
-          if mesh is None else None)
+        if args.val_benchmark_dir else None
+    if mesh is None:
+        ev = make_jitted_evaluate(model, max_new_tokens=32,
+                                  eos_id=tok.eos_token_id)
+    else:
+        ev = make_mesh_evaluate(model, mesh, max_new_tokens=32,
+                                eos_id=tok.eos_token_id)
     run.model, run.tok, run.val_ds, run.evaluate = model, tok, val_ds, ev
     meta = model_meta(args, cfg)
     cuda = device.type == "cuda"
     if cuda:
+        run.build_peak_bytes = torch.cuda.max_memory_allocated(device)
         torch.cuda.reset_peak_memory_stats(device)
     best_iou = -1.0
 
@@ -609,7 +602,7 @@ def main(argv=None) -> TrainRun:
         if val_ds is None or not len(val_ds):
             raise SystemExit("--eval_only needs --val_benchmark_dir")
         val_iou, val_iocm = run_validation(start_epoch)
-        print(f"eval_only: val IoU {val_iou:.4f} IoCM {val_iocm:.4f}")
+        say(f"eval_only: val IoU {val_iou:.4f} IoCM {val_iocm:.4f}")
         return finish()
 
     # Preemption: the first SIGTERM finishes the in-flight micro-step,
@@ -708,14 +701,14 @@ def main(argv=None) -> TrainRun:
             # --- validation (reference validate(), train_ds.py:625-758) ---
             if val_ds is not None and len(val_ds) and not args.no_eval:
                 val_iou, val_iocm = run_validation(epoch)
-                print(f"Epoch {epoch}: val IoU {val_iou:.4f} "
-                      f"IoCM {val_iocm:.4f}")
+                say(f"Epoch {epoch}: val IoU {val_iou:.4f} "
+                    f"IoCM {val_iocm:.4f}")
                 logger.log(dict(val_iou=val_iou, val_precision=val_iocm),
                            int(state.step))
                 if val_iou > best_iou:
                     best_iou = val_iou
                     save(dict(iou=val_iou))
-                    print(f"saved best checkpoint (IoU {val_iou:.4f})")
+                    say(f"saved best checkpoint (IoU {val_iou:.4f})")
             else:
                 save()
         drain()

@@ -23,8 +23,11 @@ accumulation, one train step.
   and divided by the number of them that computed the same rows (a sum
   over the batch shards, an average over replicas), so every replica
   holds the same gradient and takes the same optimizer step; `grad_norm`
-  is the norm of the whole, unsharded gradient. A `pipe` axis > 1 is not
-  ported yet (slice 18).
+  is the norm of the whole, unsharded gradient. With a `pipe` axis > 1
+  the decoder runs as a GPipe pipeline (parallel/pipeline.py, JAX's
+  `_forward` routing): its stage-local layers keep their gradients to
+  their stage, and every pipe rank computes the same rows, so the pipe
+  axis is a replica axis for every other parameter.
 """
 
 from __future__ import annotations
@@ -37,8 +40,8 @@ import torch
 from torch import nn
 
 from ..core.config import TrainConfig
-from ..core.mesh import (AXES, FSDP_AXIS, PIPE_AXIS, TENSOR_AXIS,
-                         use_batch_rows, use_mesh)
+from ..core.mesh import (AXES, BATCH_AXES, EXPERT_AXIS, FSDP_AXIS,
+                         PIPE_AXIS, TENSOR_AXIS, use_batch_rows, use_mesh)
 from ..model.lisa import LisaModel, LisaOutputs, TrainBatch
 from ..nn.lora import fold_in
 
@@ -185,15 +188,53 @@ class TrainState:
 
 def init_train_state(cfg: TrainConfig,
                      trainable: Dict[str, nn.Parameter]) -> TrainState:
+    """The state of `trainable` (name -> parameter; the parameters of
+    layers another pipeline stage holds are left out)."""
+    trainable = {n: p for n, p in trainable.items()
+                 if not getattr(p, "_haff_other_stage", False)}
     return TrainState(step=0, trainable=trainable,
                       optimizer=make_optimizer(cfg, trainable.values()))
 
 
 def _check_supported(model: LisaModel, mesh) -> None:
-    if mesh is not None and mesh.shape.get(PIPE_AXIS, 1) > 1:
-        raise NotImplementedError(
-            "pipeline-parallel training (a 'pipe' mesh axis > 1) is not "
-            "ported yet (slice 18)")
+    """A pipe mesh over a decoder that `param_shardings` did not cut into
+    its stages (which is where JAX's composition limits are checked)."""
+    if mesh is None or mesh.shape.get(PIPE_AXIS, 1) <= 1:
+        return
+    if getattr(model.llm, "pipe", None) is None:
+        raise ValueError(
+            "pipeline-parallel training (a 'pipe' mesh axis > 1) needs the "
+            "decoder cut into its stages: parallel.sharding."
+            "param_shardings(model, mesh)")
+
+
+def microbatches(cfg, mesh, batch: int) -> int:
+    """The step's GPipe microbatches: `cfg.pp_microbatches`, or JAX's
+    `auto_microbatches` of the global batch; each batch shard's rows must
+    divide into them."""
+    from ..parallel.pipeline import auto_microbatches
+
+    shards = mesh.axis_size(BATCH_AXES)
+    nm = getattr(cfg, "pp_microbatches", 0) or auto_microbatches(
+        batch, mesh.shape[PIPE_AXIS], shards)
+    if (batch // shards) % nm:
+        raise ValueError(
+            f"a batch shard's {batch // shards} rows do not divide into "
+            f"{nm} microbatches (batch {batch} over {shards} data x fsdp "
+            "shards); pick --pp_microbatches dividing it")
+    return nm
+
+
+def _forward(model: LisaModel, cfg, mesh, batch, local, seed, remat):
+    """model(local), routed through the pipeline engine when the mesh has
+    a `pipe` axis > 1 (JAX `_forward`)."""
+    if mesh is None or mesh.shape.get(PIPE_AXIS, 1) <= 1:
+        return model(local, dropout_seed=seed, remat=remat)
+    from ..parallel.pipeline import pipelined_lisa_forward
+
+    nm = microbatches(cfg, mesh, int(batch.input_ids.shape[0]))
+    return pipelined_lisa_forward(model, local, num_microbatches=nm,
+                                  dropout_seed=seed, remat=remat)
 
 
 class MeshSync:
@@ -232,9 +273,14 @@ class MeshSync:
             return grads
         buckets = {}
         for i, pl in enumerate(self.places):
-            tp = pl is not None and pl.tp_group is not None
+            own = set()  # the axes the parameter is cut over
+            if pl is not None:
+                own = {a for a, g in ((TENSOR_AXIS, pl.tp_group),
+                                      (EXPERT_AXIS, pl.ep_group),
+                                      (PIPE_AXIS, pl.pipe_group))
+                       if g is not None}
+            summed = tuple(a for a in AXES if a not in own)
             fsdp = pl is not None and pl.fsdp_group is not None
-            summed = tuple(a for a in AXES if not (tp and a == TENSOR_AXIS))
             group = tuple(a for a in summed if not (fsdp and a == FSDP_AXIS))
             buckets.setdefault((summed, group), []).append(i)
         out = list(grads)
@@ -326,9 +372,9 @@ def make_train_step(model: LisaModel, cfg: TrainConfig, mesh=None
         local, rows, ctx = _mesh_context(mesh, batch)
         sync = MeshSync(mesh, params, rows)
         with ctx:
-            out = with_moe_aux(model, model(
-                local, dropout_seed=fold_in(seed, state.step),
-                remat=cfg.remat))
+            out = with_moe_aux(model, _forward(
+                model, cfg, mesh, batch, local, fold_in(seed, state.step),
+                cfg.remat))
             out.loss.backward()
         if sync.active:
             grads = sync.grads([p.grad for p in params])
@@ -359,7 +405,8 @@ def make_eval_step(model: LisaModel, cfg: TrainConfig = None,
     def step(batch: TrainBatch) -> LisaOutputs:
         local, rows, ctx = _mesh_context(mesh, batch)
         with ctx:
-            out = with_moe_aux(model, model(local))
+            out = with_moe_aux(model, _forward(model, cfg, mesh, batch, local,
+                                               None, False))
         if rows is None or not rows.sharded:
             return out
         from ..parallel.collectives import all_gather

@@ -137,3 +137,14 @@ def test_collectives_take_jax_transposes(ranks):
                                       np.full(3, float((r - 1) % 4)))
         np.testing.assert_array_equal(out["ppermute_grad"].numpy(),
                                       np.ones(3))
+
+
+def test_broadcast_from_sends_the_holders_bytes(ranks):
+    """broadcast_from (the pipeline's last-stage output and stage-0
+    cotangent) gives every rank the source rank's tensor bit for bit, in
+    float32 and in the 2-byte dtypes gloo does not reduce."""
+    for out in ranks:
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            want = torch.arange(5.0).to(dt) / 3 + 2
+            got = out["broadcast"][str(dt)]
+            assert got.dtype == dt and torch.equal(got, want), dt

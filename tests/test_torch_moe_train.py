@@ -168,7 +168,8 @@ def test_train_cli_moe_micro_run(synth_data, tmp_path):  # noqa: F811
 
 @pytest.mark.parametrize("flags,match", [
     (("--ep", "2"), "--ep > 1 requires --moe_experts > 0"),
-    (("--moe_experts", "2", "--ep", "2"), "--ep 2: not ported yet"),
+    (("--moe_experts", "2", "--ep", "2"),
+     r"1 devices not divisible by pp\*fsdp\*ep\*sp\*tensor=2"),
     (("--pp", "2", "--moe_experts", "2"),
      "--pp cannot be combined with --moe_experts"),
 ])

@@ -273,8 +273,11 @@ def test_train_step_accumulates_before_applying(jax_grads):
 
 
 def test_unported_training_modes_raise(jax_grads):
+    """A pipe mesh needs the decoder cut into its stages first
+    (parallel.sharding.param_shardings); pipeline training itself runs
+    (tests/test_torch_pipeline_train.py)."""
     cfg, params, _, _, _ = jax_grads
     port = _port(params, cfg)
-    with pytest.raises(NotImplementedError, match="pipeline"):
+    with pytest.raises(ValueError, match="pipeline"):
         ttrainer.make_train_step(port, TrainConfig(),
                                  mesh=Mesh((1, 2, 1, 1, 1, 1)))

@@ -257,11 +257,12 @@ def test_train_cli_qlora_with_validation(synth_data, tmp_path, bits):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (("--pp", "2"), "--pp 2: not ported yet"),
+    (("--pp", "2"), r"1 devices not divisible by pp\*fsdp\*ep\*sp\*tensor=2"),
     (("--sp", "2"), r"1 devices not divisible by pp\*fsdp\*ep\*sp\*tensor=2"),
     (("--fsdp", "2"), r"1 devices not divisible by pp\*fsdp\*ep\*sp\*tensor=2"),
     (("--tensor", "2", "--data", "1"), "mesh 1x1x1x1x1x2 != 1 devices"),
-    (("--moe_experts", "4", "--ep", "2"), "--ep 2: not ported yet"),
+    (("--moe_experts", "4", "--ep", "2"),
+     r"1 devices not divisible by pp\*fsdp\*ep\*sp\*tensor=2"),
     (("--moe_experts", "4", "--moe_every", "0"), "--moe_every must be >= 1"),
     (("--pp", "2", "--sp", "2"), "--pp cannot be combined with --sp"),
     (("--ep", "2"), "--ep > 1 requires --moe_experts > 0"),

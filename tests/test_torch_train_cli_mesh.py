@@ -1,24 +1,30 @@
-"""The port's train CLI on a mesh (haff_tpu_torch/train/cli.py with
-`--tensor 2 --sp 2`) at the tiny preset on the CPU, in 4 gloo ranks (one
-spawn, tests/torch_mesh_workers.py `case_cli`), on the 2HANDS shards of
+"""The port's train CLI on a mesh (haff_tpu_torch/train/cli.py) at the
+tiny preset on the CPU, in 4 gloo ranks (one spawn,
+tests/torch_mesh_workers.py `case_cli`), on the 2HANDS shards of
 tests/test_torch_train_cli.py.
 
-* Two steps with a checkpoint, then a second run under the same
-  --exp_name that auto-resumes at step 2 and trains two more: each rank's
-  per-step losses and grad_norm equal the one-process CLI's over the same
-  two runs (float32, LoRA r8 with the default dropout 0.05; within 1e-5,
-  grad_norm 1e-4 relative); the parameters stay on the CPU as asked; rank
-  0 alone wrote the checkpoints, in the one-process layout.
-* What stays for slice 18 exits with `_NOT_PORTED` (--pp, --ep, MoE and
-  validation on a mesh, quantized bases under --fsdp/--tensor), and JAX's
-  combination errors are JAX's CLI's, word for word.
+* `--tensor 2 --sp 2`: two steps with a checkpoint, then a second run
+  under the same --exp_name that auto-resumes at step 2 and trains two
+  more: each rank's per-step losses and grad_norm equal the one-process
+  CLI's over the same two runs (float32, LoRA r8 with the default dropout
+  0.05; within 1e-5, grad_norm 1e-4 relative); the parameters stay on the
+  CPU as asked; rank 0 alone wrote the checkpoints, in the one-process
+  layout.
+* The flags the CLI refused on a mesh before pipeline and expert
+  parallelism were ported now run: MoE layers on a mesh (`--moe_experts
+  2` under tensor 2 x sp 2, and `--ep 2`), validation on a mesh
+  (`--eval_only` under tensor 2), `--pp 2 --tensor 2` with a validation,
+  and QLoRA bases under `--fsdp/--tensor` (`--tensor 2 --load_in_8bit`,
+  `--fsdp 2 --load_in_4bit`), a step and a validation each: losses
+  within 1e-5 and IoU / IoCM equal to the one-process runs'. On one process those flags exit asking for the
+  ranks; JAX's combination errors are JAX's CLI's, word for word.
 """
 
 import pytest
 import torch
 
 from haff_tpu_torch.train import checkpoints as C
-from haff_tpu_torch.train.cli import _NOT_PORTED, main
+from haff_tpu_torch.train.cli import main
 from test_torch_train_cli import synth_data  # noqa: F401 (a fixture)
 from torch_mesh_workers import run_ranks
 
@@ -36,29 +42,45 @@ def _argvs(shards, root, exp, *extra):
             common + ["--epochs", "2", "--steps_per_epoch", "2"]]
 
 
+# Each runs on the mesh with the flags in [0] and on one process with [1].
+SLICE_18 = {
+    "moe": (MESH + ["--moe_experts", "2"], ["--moe_experts", "2"]),
+    "eval_only": (["--tensor", "2", "--eval_only"], ["--eval_only"]),
+    "pp2_tensor2": (["--pp", "2", "--tensor", "2"], []),
+    "ep2": (["--moe_experts", "2", "--ep", "2"], ["--moe_experts", "2"]),
+    "tensor2_8bit": (["--tensor", "2", "--load_in_8bit"], ["--load_in_8bit"]),
+    "fsdp2_4bit": (["--fsdp", "2", "--load_in_4bit"], ["--load_in_4bit"]),
+}
+
+
+def _slice_18_argv(shards, bench, root, exp, flags):
+    base = [a for a in BASE if a != "--no_eval"]
+    return ["--dataset_dir", shards, "--log_base_dir", str(root),
+            "--exp_name", exp, *base, "--epochs", "1", "--steps_per_epoch",
+            "1", "--val_benchmark_dir", bench, *flags]
+
+
 @pytest.fixture(scope="module")
 def runs(synth_data, tmp_path_factory):  # noqa: F811
     shards, bench = synth_data
     root = tmp_path_factory.mktemp("runs")
-    exits = [
-        ["--dataset_dir", shards, "--log_base_dir", str(root / "x"), *BASE,
-         *MESH, "--moe_experts", "2"],
-        ["--dataset_dir", shards, "--log_base_dir", str(root / "x"), *BASE,
-         "--tensor", "2", "--val_benchmark_dir", bench, "--eval_only"],
-    ]
-    got = run_ranks("cli", dict(argvs=_argvs(shards, root, "mesh", *MESH),
-                                exits=exits),
-                    4, tmp_path_factory.mktemp("cli"), timeout=240)
+    more = [_slice_18_argv(shards, bench, root, "m_" + k, mesh)
+            for k, (mesh, _) in SLICE_18.items()]
+    got = run_ranks("cli", dict(argvs=_argvs(shards, root, "mesh", *MESH)
+                                + more),
+                    4, tmp_path_factory.mktemp("cli"), timeout=420)
     want = [main(argv) for argv in _argvs(shards, root, "one")]
-    return got, want, root
+    one = {k: main(_slice_18_argv(shards, bench, root, "o_" + k, flags))
+           for k, (_, flags) in SLICE_18.items()}
+    return got, want, root, one
 
 
 def test_mesh_cli_continues_the_one_process_losses(runs):
-    got, want, _ = runs
+    got, want, _, _ = runs
     want_steps = [s for run in want for s in run.steps]
     assert [s["step"] for s in want_steps] == [1, 2, 3, 4]
     for r, res in enumerate(got):
-        first, second = res["runs"]
+        first, second = res["runs"][:2]
         assert second["start_step"] == 2
         steps = first["steps"] + second["steps"]
         assert [s["step"] for s in steps] == [1, 2, 3, 4]
@@ -72,7 +94,7 @@ def test_mesh_cli_continues_the_one_process_losses(runs):
 
 
 def test_rank0_writes_the_one_process_checkpoint_layout(runs):
-    _, want, root = runs
+    _, want, root, _ = runs
     mesh = torch.load(root / "mesh" / "ckpt_model" / "4" / C.STATE,
                       weights_only=True)
     one = torch.load(root / "one" / "ckpt_model" / "4" / C.STATE,
@@ -86,13 +108,19 @@ def test_rank0_writes_the_one_process_checkpoint_layout(runs):
 
 
 def test_slice_18_flags_exit_on_a_mesh(runs):
-    got, _, _ = runs
-    for res in got:
-        moe, validation = res["exits"]
-        assert "--moe_experts on a mesh of 4 ranks" in moe
-        assert "validation on a mesh of 4 ranks" in validation
-        for msg in (moe, validation):
-            assert _NOT_PORTED in msg and "slice 18" in msg
+    """Run on a mesh now (the module docstring): each such run's losses
+    within 1e-5 and its validation's IoU and IoCM equal to the one-process
+    run's, on every rank."""
+    got, _, _, one = runs
+    for r, res in enumerate(got):
+        for k, run in zip(SLICE_18, res["runs"][2:]):
+            want = one[k]
+            assert len(run["steps"]) == len(want.steps), (k, r)
+            for have, ref in zip(run["steps"], want.steps):
+                assert abs(have["loss"] - ref["loss"]) <= 1e-5, (k, r)
+            (_, iou, iocm, _, _), = run["validations"]
+            (_, w_iou, w_iocm, _, _), = want.validations
+            assert (iou, iocm) == (w_iou, w_iocm), (k, r)
 
 
 @pytest.mark.parametrize("flags", [
@@ -102,10 +130,15 @@ def test_slice_18_flags_exit_on_a_mesh(runs):
     ("--fsdp", "2", "--load_in_4bit"),
 ], ids=" ".join)
 def test_unported_flags_exit_naming_slice_18(tmp_path, flags):
+    """Flags the port once refused on any mesh: on one process they
+    exit asking for more ranks (they run on a mesh: above), before any run
+    directory is made."""
     with pytest.raises(SystemExit) as e:
         main(["--dataset_dir", str(tmp_path), "--log_base_dir",
               str(tmp_path / "runs"), *BASE, *flags])
-    assert _NOT_PORTED in str(e.value) and "slice 18" in str(e.value)
+    assert "1 devices not divisible by pp*fsdp*ep*sp*tensor=2" in \
+        str(e.value)
+    assert "torchrun --nproc_per_node" in str(e.value)
     assert not (tmp_path / "runs").exists()
 
 

@@ -1,6 +1,9 @@
 """Rank processes for the port's mesh tests (tests/test_torch_mesh.py,
 test_torch_ring_attention.py, test_torch_sharded_llama.py,
-test_torch_sharded_train.py, test_torch_train_cli_mesh.py).
+test_torch_sharded_train.py, test_torch_train_cli_mesh.py, and the
+pipeline / expert / QLoRA / validation tests of test_torch_gpipe*.py,
+test_torch_moe_mesh.py, test_torch_qlora_mesh.py and
+test_torch_mesh_validate.py).
 
 `run_ranks(case, payload, world, workdir)` (or `Ranks(...)`, joined
 later, so the parent can compute its references meanwhile) starts `world`
@@ -105,7 +108,8 @@ def _mesh(**kw):
 
 def case_mesh(payload, rank, world):
     """build_mesh's coordinates and groups, shard_batch_tree's blocks, the
-    collectives' transposes, and maybe_initialize_distributed as a no-op."""
+    collectives' transposes, broadcast_from in float32, bf16 and fp16, and
+    maybe_initialize_distributed as a no-op."""
     from haff_tpu_torch.core import mesh as M
     from haff_tpu_torch.parallel import collectives as C
     from haff_tpu_torch.parallel.sharding import shard_batch_tree
@@ -142,6 +146,12 @@ def case_mesh(payload, rank, world):
     out["ppermute"] = C.ppermute(t.detach(), grp,
                                  mesh.group_ranks(M.BATCH_AXES))
     out["ppermute_grad"] = t.grad.clone()
+    # broadcast_from: rank 2's bytes in every dtype the pipeline sends
+    out["broadcast"] = {
+        str(dt): C.broadcast_from(torch.arange(5.0).to(dt) / 3 + rank, grp,
+                                  2) for dt in (torch.float32,
+                                                torch.bfloat16,
+                                                torch.float16)}
     return out
 
 
@@ -222,18 +232,29 @@ def case_llama(payload, rank, world):
     return results
 
 
-def _lisa(payload, llama):
+def _lisa(payload, run):
+    """The run's LisaModel (its "llama" fields, "decoder", "sd" or the
+    payload's weights), its trainable set (with "extra"), its frozen
+    LLaMA projections quantized with "bits" (group 16)."""
     import dataclasses
 
     from haff_tpu_torch.core.config import ModelConfig
     from haff_tpu_torch.model.lisa import LisaModel
+    from haff_tpu_torch.nn.quant import default_llm_predicate, quantize_model_
     from haff_tpu_torch.train import trainer as T
+    from haff_tpu_torch.train.cli import frozen_predicate
 
     base = ModelConfig.preset(payload["preset"])
-    cfg = base.replace(llama=dataclasses.replace(base.llama, **llama))
+    cfg = base.replace(decoder=run.get("decoder", "llama"),
+                       llama=dataclasses.replace(base.llama, **run["llama"]))
     model = LisaModel(cfg, torch.float32, device="cpu")
-    model.load_state_dict(payload["sd"])
-    trainable, _ = T.partition_params(model)
+    model.load_state_dict(run.get("sd", payload.get("sd")))
+    trainable, frozen = T.partition_params(model,
+                                           extra=tuple(run.get("extra", ())))
+    if run.get("bits"):
+        quantize_model_(model, frozen_predicate(set(frozen),
+                                                default_llm_predicate),
+                        bits=run["bits"], group=16)
     return cfg, model, trainable
 
 
@@ -257,7 +278,7 @@ def case_train(payload, rank, world):
         metrics, ckpt = [], None
         for part, (mesh_kw, steps) in enumerate(run["plan"]):
             mesh = _mesh(**dict(mesh_kw))
-            cfg, model, trainable = _lisa(payload, run["llama"])
+            cfg, model, trainable = _lisa(payload, run)
             param_shardings(model, mesh)
             tcfg = TrainConfig(model=cfg, **payload["tcfg"])
             state = T.init_train_state(tcfg, trainable)
@@ -287,7 +308,8 @@ def case_train(payload, rank, world):
             "taxonomy_ce_loss", "pred_masks_left", "pred_masks_right",
             "pred_taxonomies")}
         results.append(dict(metrics=metrics, trainable=full,
-                            grads=all_grads, eval=evaluated))
+                            grads=all_grads, eval=evaluated,
+                            ckpt=ckpt))
     return results
 
 
@@ -302,6 +324,7 @@ def case_cli(payload, rank, world):
         run = cli.main(argv)
         out.append(dict(steps=run.steps, start_step=run.start_step,
                         checkpoints=run.checkpoints,
+                        validations=run.validations,
                         devices=sorted({str(p.device) for p in
                                         run.model.parameters()})))
     exits = []
@@ -312,6 +335,171 @@ def case_cli(payload, rank, world):
         except SystemExit as e:
             exits.append(str(e))
     return dict(runs=out, exits=exits)
+
+
+def case_gpipe(payload, rank, world):
+    """A decoder (payload "kind": "llama" or "mpt", its config fields and
+    state dict) pipelined over each mesh: logits and hidden of
+    pipelined_llm_forward / pipelined_mpt_forward on the global
+    embeddings, and (with "grad") the gradients of mean(logits^2) in the
+    full layout of this rank's pipeline stage, and of the embeddings."""
+    from haff_tpu_torch.core.config import LlamaConfig
+    from haff_tpu_torch.core.mesh import use_mesh
+    from haff_tpu_torch.nn.llama import LlamaForCausalLM
+    from haff_tpu_torch.nn.mpt import MptConfig, MptForCausalLM
+    from haff_tpu_torch.parallel import pipeline as P
+    from haff_tpu_torch.parallel.sharding import (full_tensor,
+                                                  param_shardings, placement)
+
+    from haff_tpu_torch.kernels import _build
+
+    device = payload.get("device", "cpu")
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    results = []
+    for m in payload["meshes"]:
+        mesh = _mesh(**dict(m))
+        if payload["kind"] == "mpt":
+            model = MptForCausalLM(MptConfig(**payload["cfg"]))
+        else:
+            model = LlamaForCausalLM(LlamaConfig(**payload["cfg"]))
+        model.load_state_dict(payload["sd"])
+        model.to(device)
+        param_shardings(model, mesh)
+        emb = payload["embeds"].to(device).clone().requires_grad_(
+            payload["grad"])
+        seg = payload["seg"].to(device)
+        nm = payload["microbatches"]
+        _build.LAUNCHES.clear()
+        with use_mesh(mesh):
+            if payload["kind"] == "mpt":
+                logits, hidden = P.pipelined_mpt_forward(
+                    model, emb, seg, num_microbatches=nm)
+            else:
+                logits, hidden = P.pipelined_llm_forward(
+                    model, emb, payload["pos"].to(device), seg,
+                    num_microbatches=nm)
+            res = dict(logits=logits.detach().cpu(),
+                       hidden=hidden.detach().cpu(),
+                       stage=(model.pipe.lo, model.pipe.hi),
+                       device=str(logits.device))
+            if payload["grad"]:
+                logits.float().square().mean().backward()
+                res["d_embeds"] = emb.grad.cpu()
+                res["grads"] = {n: None if p.grad is None else
+                                full_tensor(p.grad, placement(p)).cpu()
+                                for n, p in model.named_parameters()
+                                if p.numel()}
+        res["launches"] = {k: n for k, n in _build.LAUNCHES.items() if n}
+        results.append(res)
+    return results
+
+
+def case_moe(payload, rank, world):
+    """An MoEMLP (payload "cfg" fields, "sd") sharded over each mesh with
+    shard_moe_, on this rank's (data, fsdp) rows of the global x (and
+    token mask) with the rows ambient: the global y (rows gathered), the
+    aux shares summed over the batch shards, and the gradients of
+    sum(y^2) + aux summed over the batch shards, in the full layout."""
+    from haff_tpu_torch.core.config import LlamaConfig
+    from haff_tpu_torch.core.mesh import BATCH_AXES, BatchRows, use_batch_rows
+    from haff_tpu_torch.nn.moe import MoEMLP
+    from haff_tpu_torch.parallel import collectives as C
+    from haff_tpu_torch.parallel.sharding import (full_tensor, placement,
+                                                  shard_moe_)
+
+    cfg = LlamaConfig(**payload["cfg"])
+    results = []
+    for m in payload["meshes"]:
+        mesh = _mesh(**dict(m))
+        mod = MoEMLP(cfg)
+        mod.load_state_dict(payload["sd"])
+        shard_moe_(mod, mesh)
+        group = mesh.group(BATCH_AXES)
+        x, mask = payload["x"], payload.get("mask")
+        n = mesh.axis_size(BATCH_AXES)
+        c = x.shape[0] // n
+        me = mesh.coord(BATCH_AXES)
+        xl = x[me * c:(me + 1) * c].clone().requires_grad_(True)
+        ml = None if mask is None else mask[me * c:(me + 1) * c]
+        with use_batch_rows(BatchRows(me * c, x.shape[0], n > 1, group)):
+            y, aux = mod(xl, ml)
+        (y.square().sum() + aux).backward()
+        grads = {name: full_tensor(C.all_reduce(p.grad, group), placement(p))
+                 for name, p in mod.named_parameters()}
+        results.append(dict(
+            y=C.all_gather(y.detach(), group, 0),
+            aux=C.all_reduce(aux.detach(), group),
+            dx=C.all_gather(xl.grad, group, 0), grads=grads))
+    return results
+
+
+def case_amax(payload, rank, world):
+    """The row-parallel W8A8 product over a tensor group of `world` ranks
+    (on payload "device", cuda:0 shared by the ranks or the CPU): each
+    rank's K slice of x and of the int8 weight, quantized with the global
+    amax and summed (reduce_from_tp), and quantized with its own slice's
+    amax; with the all-reduces and the kernel launches counted."""
+    from haff_tpu_torch.kernels import _build
+    from haff_tpu_torch.nn import quant
+    from haff_tpu_torch.parallel import collectives as C
+
+    device = payload.get("device", "cpu")
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    mesh = _mesh(data=1, tensor=world)
+    group = mesh.group("tensor")
+    x, q, scale = (payload[k].to(device) for k in ("x", "q", "scale"))
+    _build.LAUNCHES.clear()
+    k = x.shape[-1] // world
+    xs, qs = x[:, rank * k:(rank + 1) * k], q[:, rank * k:(rank + 1) * k]
+    before = quant.GLOBAL_AMAX["all_reduces"]
+    y = C.reduce_from_tp(quant.int8_matmul(xs, qs, scale, amax_group=group),
+                         group)
+    local = C.reduce_from_tp(quant.int8_matmul(xs, qs, scale), group)
+    launches = {k: n for k, n in _build.LAUNCHES.items() if n}
+    xq = quant.quantize_activation_rows(xs, group)
+    return dict(global_=y.cpu(), local=local.cpu(), xq=xq.values.cpu(),
+                sx=xq.scales.cpu(),
+                own=quant.quantize_activation(xs).values.cpu(),
+                reduces=quant.GLOBAL_AMAX["all_reduces"] - before,
+                launches=launches)
+
+
+def case_mesh_eval(payload, rank, world):
+    """A tiny LisaModel ("llama" fields, "decoder", "bits", "sd") sharded
+    over each mesh: mesh_evaluate_fn on the payload's evaluate inputs
+    (tokens, lengths, masks, taxonomy; none without "inputs"), then
+    validate_on_benchmark over
+    the benchmark folder through make_mesh_evaluate (IoU, IoCM, frames)."""
+    from haff_tpu_torch.data.aff_dataset import AffDatasetVal
+    from haff_tpu_torch.data.tokenizer import load_tokenizer
+    from haff_tpu_torch.infer.evaluate import (make_mesh_evaluate,
+                                               mesh_evaluate_fn,
+                                               validate_on_benchmark)
+    from haff_tpu_torch.parallel.sharding import param_shardings
+
+    results = []
+    for run in payload["runs"]:
+        mesh = _mesh(**dict(run["mesh"]))
+        _, model, _ = _lisa(payload, run)
+        param_shardings(model, mesh)
+        res = {}
+        if payload.get("inputs") is not None:
+            out = mesh_evaluate_fn(model, mesh, *payload["inputs"],
+                                   max_new_tokens=payload["new_tokens"],
+                                   eos_id=payload["eos"])
+            res = {k: getattr(out, k) for k in (
+                "output_ids", "gen_lengths", "pred_masks_left",
+                "pred_masks_right", "taxonomies")}
+        tok = load_tokenizer(None, model_max_length=448)
+        ev = make_mesh_evaluate(model, mesh, payload["new_tokens"],
+                                tok.eos_token_id)
+        res["validate"] = validate_on_benchmark(
+            model, tok, AffDatasetVal(payload["bench"]), evaluate=ev,
+            model_max_length=448, max_new_tokens=payload["new_tokens"])
+        results.append(res)
+    return results
 
 
 CASES = {n[5:]: f for n, f in globals().items() if n.startswith("case_")}
