@@ -22,10 +22,11 @@ Phases (any failure raises and exits non-zero):
    ALiBi column bias (2, 575, 32, 128), the decode kernel's ALiBi variant
    (per-head slopes) over the bf16 and int8 caches, and the w8a8 product
    at MPT-7B's shapes (Wqkv N = 12288, up N = 16384, down K = 16384; M =
-   2 and 1150) and at a speculative verify step's M = 16; every record but
-   the probe's times the kernel and its library yardstick once more as
-   CUDA graphs (`graph_ms`, `library_graph_ms`: device time without the
-   host's launch cost).
+   2 and 1150) and at a speculative verify step's M = 16; every record
+   times the kernel and its library yardstick once more as CUDA graphs
+   (`graph_ms`, `library_graph_ms`: device time without the host's launch
+   cost). The matmul probe (`path` wgmma) also logs its int8 / bf16 rate
+   ratio beside the library's.
 3b. backward: the SAM attention entries' gradients at ViT-H shapes against
    autograd through the plain version, the global entry's rel-pos tables
    exactly zero; then the ViT-H image encoder alone, forward and backward
@@ -678,6 +679,7 @@ def check_w8a8(gen):
     requires) + the rescale."""
     from haff_tpu_torch.kernels import _build
     from haff_tpu_torch.nn import quant
+    from haff_tpu_torch.tools import w8a8_ab
 
     dev, bf = "cuda", torch.bfloat16
     shapes = []
@@ -730,18 +732,7 @@ def check_w8a8(gen):
         run = lambda: quant.int8_matmul_kernel(xq, q, sx, sw, bf)  # noqa: E731
         kern, kern_graph = cuda_ms(run, iters), graph_ms(run, iters)
         plain = cuda_ms(lambda: quant.int8_matmul_plain(xq, q, sx, sw, bf), 3, 1)
-        mp, np_ = max(32, -(-m // 8) * 8), -(-n // 8) * 8
-        kp = -(-k // 8) * 8
-        xq_p = torch.zeros(mp, kp, dtype=torch.int8, device=dev)
-        xq_p[:m, :k] = xq
-        q_p = torch.zeros(np_, kp, dtype=torch.int8, device=dev)
-        q_p[:n, :k] = q
-        sx_p = torch.ones(mp, 1, device=dev)
-        sx_p[:m, 0] = sx
-        sw_p = torch.ones(np_, device=dev)
-        sw_p[:n] = sw
-        lib_fn = lambda: (torch._int_mm(xq_p, q_p.T).float() * sx_p  # noqa: E731
-                          * sw_p).to(bf)
+        lib_fn = w8a8_ab.library_fn(xq, q, sx, sw, bf)
         lib_err = float((lib_fn()[:m, :n].float() - out.float()).abs().max())
         lib, lib_graph = cuda_ms(lib_fn, iters), graph_ms(lib_fn, iters)
         b_ms, by = bound_ms(nbytes(xq, q, sx, sw, out), 2.0 * m * n * k,
@@ -753,7 +744,7 @@ def check_w8a8(gen):
                            library_graph_ms=lib_graph,
                            bound_share=b_ms / kern_graph,
                            library_max_abs_diff=lib_err))
-        del x, q, xq, out, xq_p, q_p
+        del x, q, xq, out, lib_fn
         torch.cuda.empty_cache()
     return record("w8a8_matmul", "haff_tpu_torch/kernels/csrc/w8a8_matmul.cu",
                   "haff_tpu/nn/quant.py:68", shapes)
@@ -1048,8 +1039,12 @@ def check_sam_entries(gen):
 
 
 def check_probe(gen):
-    """The bench tool's tiled matmul probe at its 2048^3 shape, int8
-    (exact) and bf16. Library: torch._int_mm / torch.matmul."""
+    """The bench tool's matmul probe at its 2048^3 shape on the tensor
+    cores (`path` wgmma: one structure for both types), int8 (exact) and
+    bf16 (float32 sums of exact products: summation order only, within
+    1e-4 sqrt(K)). Library: torch._int_mm / torch.matmul. Kernel and
+    library are also timed as CUDA graphs; the log line gives the int8 /
+    bf16 rate ratio of the probe and of the library, by graph."""
     from haff_tpu_torch.tools.bench_kernels import (matmul_probe,
                                                     matmul_probe_plain)
 
@@ -1070,19 +1065,30 @@ def check_probe(gen):
             if not torch.equal(out, ref):
                 raise AssertionError("matmul_probe int8: not the exact product")
             err = 0.0
-        else:  # float32 sums of 2048 exact products: summation order only
+        else:
             err = float((out - ref).abs().max())
             if not err <= 1e-4 * k ** 0.5:
                 raise AssertionError(f"matmul_probe bf16: max abs err {err}")
-        kern = cuda_ms(lambda: matmul_probe(a, b), 10)
+        run = lambda: matmul_probe(a, b)  # noqa: E731
+        kern, kern_graph = cuda_ms(run, 20), graph_ms(run, 20)
         plain = cuda_ms(lambda: matmul_probe_plain(a, b), 3, 1)
-        lib = cuda_ms(lib_fn, 10)
+        lib, lib_graph = cuda_ms(lib_fn, 20), graph_ms(lib_fn, 20)
         b_ms, by = bound_ms(nbytes(a, b, out), 2.0 * m * n * k, peak)
         shapes.append(dict(shape=f"a ({m}, {k}) @ b ({n}, {k})^T {kind}",
-                           max_abs_err=err, ms=kern, plain_ms=plain,
-                           bound_ms=b_ms, bound_by=by, library_ms=lib))
+                           path="wgmma", max_abs_err=err, ms=kern,
+                           plain_ms=plain, bound_ms=b_ms, bound_by=by,
+                           library_ms=lib, graph_ms=kern_graph,
+                           library_graph_ms=lib_graph,
+                           bound_share=b_ms / kern_graph))
+    i8, b16 = shapes
     log(f"matmul_probe: int8 / bf16 rate at equal structure "
-        f"{shapes[1]['ms'] / shapes[0]['ms']:.2f}x")
+        f"{b16['graph_ms'] / i8['graph_ms']:.2f}x by graph "
+        f"({b16['ms'] / i8['ms']:.2f}x by events); the library's "
+        f"{b16['library_graph_ms'] / i8['library_graph_ms']:.2f}x by graph "
+        f"({b16['library_ms'] / i8['library_ms']:.2f}x); graph ms int8 "
+        f"{i8['graph_ms']:.4f} (_int_mm {i8['library_graph_ms']:.4f}), bf16 "
+        f"{b16['graph_ms']:.4f} (matmul {b16['library_graph_ms']:.4f}) "
+        f"[{CARD}]")
     return record("matmul_probe",
                   "haff_tpu_torch/kernels/csrc/matmul_probe.cu",
                   "tools/bench_kernels.py:652", shapes)

@@ -10,8 +10,8 @@ tools/bench_kernels.py):
                                TPU variants compared was operand layout
     attnpath  [--batch B]      fused projection + fused entry against split
                                projection + split entry
-    int8probe [--shape M K N]  one tiled matmul structure, int8 (__dp4a)
-                               against bf16 (f32 FMA): the rate ratio
+    int8probe [--shape M K N]  one tensor-core matmul structure (wgmma +
+                               TMA), int8 against bf16: the rate ratio
     w8a8      [--shape M K N]  the w8a8 product, its plain version, the
                                torch._int_mm route, the bf16 matmul
     w4a16     [--shape M K N]  the w4a16 product, its plain version,
@@ -58,8 +58,8 @@ def matmul_probe_plain(a, b):
 
 
 def matmul_probe(a, b):
-    """The tiled probe product a (M, K) @ b (N, K)^T, both int8 (-> int32)
-    or both bfloat16 (-> float32). CUDA tensors launch
+    """The probe product a (M, K) @ b (N, K)^T, both int8 (-> int32) or
+    both bfloat16 (-> float32), on the tensor cores. CUDA tensors launch
     csrc/matmul_probe.cu, CPU tensors take the plain version."""
     if not a.is_cuda:
         return matmul_probe_plain(a, b)
@@ -69,9 +69,9 @@ def matmul_probe(a, b):
     (m, k), n = a.shape, b.shape[0]
     _build.check_operand(PROBE, "a", a, a.dtype, (m, k))
     _build.check_operand(PROBE, "b", b, a.dtype, (n, k))
-    if k % 32 or a.data_ptr() % 4 or b.data_ptr() % 4:
+    if k % 32 or a.data_ptr() % 16 or b.data_ptr() % 16:
         raise ValueError(f"{PROBE}: K = {k} must be a multiple of 32 and the "
-                         "operands 4-byte aligned (32-bit word loads)")
+                         "operands 16-byte aligned (TMA tensor maps)")
     fn = _build.library(PROBE).matmul_probe
     if fn.argtypes is None:
         vp, i32 = ctypes.c_void_p, ctypes.c_int
@@ -233,14 +233,16 @@ def cmd_int8probe(bench, shape=(2048, 2048, 2048)):
     torch.testing.assert_close(matmul_probe(a16, b16),
                                matmul_probe_plain(a16, b16), rtol=1e-4,
                                atol=1e-3 * k ** 0.5)
-    print(f"int8probe: ({m}, {k}) @ ({n}, {k})^T, one tiled structure")
+    print(f"int8probe: ({m}, {k}) @ ({n}, {k})^T, one tensor-core structure")
     ops = 2 * m * n * k
-    t16 = bench.row("probe bf16 (f32 FMA)", lambda: matmul_probe(a16, b16), ops)
-    t8 = bench.row("probe int8 (dp4a)", lambda: matmul_probe(a8, b8), ops)
-    bench.row("torch.matmul bf16", lambda: a16 @ b16.T, ops)
+    t16 = bench.row("probe bf16 (wgmma)", lambda: matmul_probe(a16, b16), ops)
+    t8 = bench.row("probe int8 (wgmma)", lambda: matmul_probe(a8, b8), ops)
+    l16 = bench.row("torch.matmul bf16", lambda: a16 @ b16.T, ops)
+    ratio = f"int8 / bf16 rate at equal structure: {t16 / t8:.2f}x"
     if bench.dev.type == "cuda":
-        bench.row("torch._int_mm", lambda: torch._int_mm(a8, b8.T), ops)
-    print(f"int8 / bf16 rate at equal structure: {t16 / t8:.2f}x")
+        l8 = bench.row("torch._int_mm", lambda: torch._int_mm(a8, b8.T), ops)
+        ratio += f"; the library's: {l16 / l8:.2f}x"
+    print(ratio)
     return bench.rows
 
 

@@ -35,8 +35,10 @@ GROUP = 64  # the 7b serving group (chip_smoke.py quantize_for)
 
 # (name, M, K, N, dtype): the LLaMA-7B decode step's products at a batch
 # of 2 (4096 x 4096, gate/up, down, lm_head), a 4096 x 4096 product at M =
-# 16, the widest layer at the largest M the kernel takes (256), and one
-# scalar-path case (float32 activations).
+# 16, the widest layer at the largest M the kernel takes (256), one
+# scalar-path case (float32 activations), a speculative verify step's
+# products at M = 16 (batch 2 x 8 drafts: gate/up, down, lm_head) and
+# MPT-7B's decode products (fused Wqkv, up, down at expansion 4).
 CASES = (
     ("decode", 2, 4096, 4096, "bfloat16"),
     ("decode gate/up", 2, 4096, 11008, "bfloat16"),
@@ -45,6 +47,12 @@ CASES = (
     ("decode M=16", 16, 4096, 4096, "bfloat16"),
     ("M=256", 256, 4096, 11008, "bfloat16"),
     ("float32", 2, 4096, 11008, "float32"),
+    ("verify M=16 gate/up", 16, 4096, 11008, "bfloat16"),
+    ("verify M=16 down", 16, 11008, 4096, "bfloat16"),
+    ("verify M=16 lm_head", 16, 4096, 32004, "bfloat16"),
+    ("MPT Wqkv decode", 2, 4096, 12288, "bfloat16"),
+    ("MPT up decode", 2, 4096, 16384, "bfloat16"),
+    ("MPT down decode", 2, 16384, 4096, "bfloat16"),
 )
 
 

@@ -807,8 +807,12 @@ def test_sam_encoder_backward_with_remat_on_the_card(dev):
         assert err <= 1e-3 * float(q.grad.abs().max()) + 1e-6, (name, err)
 
 
+# The probe's 2048^3, ragged shapes, the 128 x 256 tile's edges crossed
+# in M, N and K (129, 257, K past the last 128-byte box), and more tiles
+# than SMs (512 at 4096 x 4096), so the persistent blocks walk several.
 @pytest.mark.parametrize("m,k,n", [(2048, 2048, 2048), (70, 64, 130),
-                                   (1, 32, 1), (65, 96, 63)])
+                                   (1, 32, 1), (65, 96, 63), (129, 160, 257),
+                                   (256, 4096, 384), (4096, 1024, 4096)])
 def test_matmul_probe_matches_plain(dev, m, k, n):
     from haff_tpu_torch.tools.bench_kernels import (PROBE, matmul_probe,
                                                     matmul_probe_plain)
@@ -831,6 +835,32 @@ def test_matmul_probe_matches_plain(dev, m, k, n):
         matmul_probe(a8[:, :k - 1].contiguous(), b8[:, :k - 1].contiguous())
     with pytest.raises(TypeError):
         matmul_probe(a8, b16)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_matmul_probe_refuses_misaligned_bases(dev, dtype):
+    """TMA reads from 16-byte aligned bases: an operand 4 bytes off one
+    raises before any launch (no fallback to another kernel or to the
+    plain version), and the aligned operands still launch."""
+    from haff_tpu_torch.tools.bench_kernels import PROBE, matmul_probe
+
+    m, k, n = 64, 64, 48
+    item = torch.empty((), dtype=dtype).element_size()
+    buf = torch.zeros(m * k + 32, dtype=dtype, device=dev)
+    base = (-buf.data_ptr() % 16) // item  # the first 16-byte boundary
+    off = base + 4 // item
+    a_bad = buf[off:off + m * k].view(m, k)
+    assert a_bad.data_ptr() % 16 == 4
+    b = torch.ones(n, k, dtype=dtype, device=dev)
+    before = _build.LAUNCHES[PROBE]
+    for x, y in ((a_bad, b), (b[:, :k], a_bad)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            matmul_probe(x, y)
+    assert _build.LAUNCHES[PROBE] == before
+    a = buf[base:base + m * k].view(m, k)
+    matmul_probe(a, b)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[PROBE] == before + 1
 
 
 def test_stream_handle_is_the_current_stream(dev):

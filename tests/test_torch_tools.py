@@ -118,7 +118,10 @@ def test_w8a8_ab_arguments_and_cases():
                              ("decode gate/up", 2, 4096, 11008),
                              ("decode down", 2, 11008, 4096),
                              ("decode lm_head", 2, 4096, 32004),
-                             ("decode M=16", 16, 4096, 4096))
+                             ("decode M=16", 16, 4096, 4096),
+                             ("MPT Wqkv decode", 2, 4096, 12288),
+                             ("MPT up decode", 2, 4096, 16384),
+                             ("MPT down decode", 2, 16384, 4096))
     xq, q, sx, sw = w8a8_ab.operands(("small", 20, 48, 7),
                                      torch.Generator().manual_seed(0),
                                      device="cpu")
@@ -131,6 +134,23 @@ def test_w8a8_ab_arguments_and_cases():
                        exact)
     if not torch.cuda.is_available():
         assert w8a8_ab.main([]) == 2
+
+
+@pytest.mark.parametrize("m,k,n", [(2, 44, 7), (20, 48, 16), (40, 64, 9)])
+def test_w8a8_ab_library_is_the_exact_product(m, k, n):
+    """tools/w8a8_ab.py's library yardstick: torch._int_mm on operands it
+    pads (M to 32, N and K to multiples of 8) + the rescale; its (M, N)
+    corner equals the exact product in float32."""
+    from haff_tpu_torch.nn import quant
+    from haff_tpu_torch.tools import w8a8_ab
+
+    xq, q, sx, sw = w8a8_ab.operands(("small", m, k, n),
+                                     torch.Generator().manual_seed(m),
+                                     device="cpu")
+    out = w8a8_ab.library_fn(xq, q, sx, sw, torch.float32)()
+    assert out.shape == (max(32, -(-m // 8) * 8), -(-n // 8) * 8)
+    assert torch.equal(out[:m, :n],
+                       quant.int8_matmul_plain(xq, q, sx, sw, torch.float32))
 
 
 def test_w4a16_ab_arguments_and_cases():
@@ -151,7 +171,16 @@ def test_w4a16_ab_arguments_and_cases():
                               ("decode lm_head", 2, 4096, 32004, "bfloat16"),
                               ("decode M=16", 16, 4096, 4096, "bfloat16"),
                               ("M=256", 256, 4096, 11008, "bfloat16"),
-                              ("float32", 2, 4096, 11008, "float32"))
+                              ("float32", 2, 4096, 11008, "float32"),
+                              ("verify M=16 gate/up", 16, 4096, 11008,
+                               "bfloat16"),
+                              ("verify M=16 down", 16, 11008, 4096,
+                               "bfloat16"),
+                              ("verify M=16 lm_head", 16, 4096, 32004,
+                               "bfloat16"),
+                              ("MPT Wqkv decode", 2, 4096, 12288, "bfloat16"),
+                              ("MPT up decode", 2, 4096, 16384, "bfloat16"),
+                              ("MPT down decode", 2, 16384, 4096, "bfloat16"))
     for case in w4a16_ab.CASES:
         _, m, k, n, dtype = case
         x, p, s = (torch.empty(r, c, dtype=t, device="meta") for r, c, t in (
