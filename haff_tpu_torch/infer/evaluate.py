@@ -25,6 +25,12 @@ int4 at rest and are dequantized at use during the evaluator's calls
 `validate_on_benchmark` scores a benchmark folder with it (the train
 CLI's per-epoch validation).
 
+While a profiler collects, each stage is a span (utils/profiling.py) of
+the same name on the eager and the graphed path: `evaluate.inputs` (the
+copies to the device), `evaluate.prompt` (CLIP, embeddings, splice),
+`evaluate.prefill` (inside generate.prefill), `evaluate.decode` (the
+eager loop, or the graph's capture or replay) and `evaluate.finish`.
+
 On a mesh of ranks (core/mesh.py; the model sharded by
 parallel/sharding.py) `make_mesh_evaluate` is the evaluate: eager, with
 the mesh's collectives inside (a CUDA graph cannot capture gloo's
@@ -50,6 +56,7 @@ from ..kernels import _build
 from ..model.lisa import LisaModel
 from ..model.multimodal import find_image_position, splice_image_embeddings
 from ..nn.sam import postprocess_masks_padded
+from ..utils.profiling import span
 from .generate import (DecodeState, SpeculativeState, decode_loop,
                        greedy_generate, prefill, speculative_generate,
                        verify_step)
@@ -72,17 +79,19 @@ class EvaluateResult(NamedTuple):
 def _inputs(model, images_sam, images_clip, input_ids, attention_mask):
     """Tensors (or numpy arrays) -> tensors on the model's device."""
     as_t = lambda x: torch.as_tensor(x, device=model.device)  # noqa: E731
-    return (as_t(images_sam), as_t(images_clip), as_t(input_ids).long(),
-            as_t(attention_mask))
+    with span("evaluate.inputs"):
+        return (as_t(images_sam), as_t(images_clip), as_t(input_ids).long(),
+                as_t(attention_mask))
 
 
 def _prompt(model, images_clip, input_ids, attention_mask):
     """CLIP tower, token embeddings and the multimodal splice."""
-    clip_emb = model.encode_clip(images_clip)
-    tok = model.embed_tokens(input_ids)
-    return splice_image_embeddings(
-        tok, clip_emb, find_image_position(input_ids), input_ids, None,
-        attention_mask, seg_token_idx=model.cfg.seg_token_idx)
+    with span("evaluate.prompt"):
+        clip_emb = model.encode_clip(images_clip)
+        tok = model.embed_tokens(input_ids)
+        return splice_image_embeddings(
+            tok, clip_emb, find_image_position(input_ids), input_ids, None,
+            attention_mask, seg_token_idx=model.cfg.seg_token_idx)
 
 
 def _finish(model, gen, images_sam, max_new_tokens) -> EvaluateResult:
@@ -165,7 +174,8 @@ def evaluate_fn(model: LisaModel, images_sam, images_clip, input_ids,
                                    kv_cache_8bit=kv_cache_8bit)
     else:
         gen = greedy_generate(*args, kv_cache_8bit=kv_cache_8bit)
-    return _finish(model, gen, images_sam, max_new_tokens)
+    with span("evaluate.finish"):
+        return _finish(model, gen, images_sam, max_new_tokens)
 
 
 class GraphedEvaluate:
@@ -302,12 +312,14 @@ class GraphedEvaluate:
             state.reset_caches()
         prefill(state, model.llm_forward, sp.embeds, sp.positions,
                 sp.segment_ids, sp.segment_ids.sum(dim=1))
-        if bucket is None:
-            self._buckets[key] = (state, *self._capture(state))
-        else:
-            self._replay(bucket)
-        return _finish(model, state.result(), images_sam,
-                       self.max_new_tokens)
+        with span("evaluate.decode"):
+            if bucket is None:
+                self._buckets[key] = (state, *self._capture(state))
+            else:
+                self._replay(bucket)
+        with span("evaluate.finish"):
+            return _finish(model, state.result(), images_sam,
+                           self.max_new_tokens)
 
     def decode_launches(self):
         """{bucket key: the launches one replay of its graph adds}."""

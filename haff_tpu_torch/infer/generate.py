@@ -28,6 +28,7 @@ from typing import Callable, List, NamedTuple
 import torch
 
 from ..nn.quant import QuantArray
+from ..utils.profiling import span
 
 
 class GenerateResult(NamedTuple):
@@ -145,21 +146,22 @@ def prefill(state: _CacheState, llm_fn: Callable, prompt_embeds,
     output buffers and the counters too). Shared by the greedy and the
     speculative decode, as JAX's `_alloc_and_prefill`: the exactness
     contract between them starts from one prefill."""
-    b = prompt_embeds.shape[0]
-    dev = prompt_embeds.device
-    lengths = prompt_lengths.long()
-    logits, hidden, _ = llm_fn(
-        prompt_embeds, prompt_positions, prompt_segment_ids, state.caches,
-        torch.zeros((b,), dtype=torch.long, device=dev), None)
-    rows = torch.arange(b, device=dev)
-    last = (lengths - 1).clamp(min=0)
-    if state.last_logits is None:
-        state.last_logits = logits.new_empty((b, logits.shape[-1]))
-        state.last_hidden = hidden.new_empty((b, hidden.shape[-1]))
-        state._alloc_outputs(hidden)
-    state.last_logits.copy_(logits[rows, last])
-    state.last_hidden.copy_(hidden[rows, last])
-    state._start(lengths)
+    with span("evaluate.prefill"):
+        b = prompt_embeds.shape[0]
+        dev = prompt_embeds.device
+        lengths = prompt_lengths.long()
+        logits, hidden, _ = llm_fn(
+            prompt_embeds, prompt_positions, prompt_segment_ids, state.caches,
+            torch.zeros((b,), dtype=torch.long, device=dev), None)
+        rows = torch.arange(b, device=dev)
+        last = (lengths - 1).clamp(min=0)
+        if state.last_logits is None:
+            state.last_logits = logits.new_empty((b, logits.shape[-1]))
+            state.last_hidden = hidden.new_empty((b, hidden.shape[-1]))
+            state._alloc_outputs(hidden)
+        state.last_logits.copy_(logits[rows, last])
+        state.last_hidden.copy_(hidden[rows, last])
+        state._start(lengths)
 
 
 def decode_loop(state: DecodeState, embed_fn: Callable, llm_fn: Callable,
@@ -209,7 +211,8 @@ def greedy_generate(cfg, embed_fn: Callable, llm_fn: Callable,
                         cache_dtype, kv_cache_8bit)
     prefill(state, llm_fn, prompt_embeds, prompt_positions,
             prompt_segment_ids, prompt_lengths)
-    decode_loop(state, embed_fn, llm_fn, max_new_tokens, eos_id)
+    with span("evaluate.decode"):
+        decode_loop(state, embed_fn, llm_fn, max_new_tokens, eos_id)
     return state.result()
 
 
@@ -434,8 +437,9 @@ def speculative_generate(cfg, embed_fn: Callable, llm_fn: Callable,
         draft_len, eos_id, cache_dtype, kv_cache_8bit)
     prefill(state, llm_fn, prompt_embeds, prompt_positions,
             prompt_segment_ids, prompt_lengths)
-    for _ in range(max_new_tokens):
-        if not bool(state.live):
-            break
-        verify_step(state, embed_fn, llm_fn)
+    with span("evaluate.decode"):
+        for _ in range(max_new_tokens):
+            if not bool(state.live):
+                break
+            verify_step(state, embed_fn, llm_fn)
     return state.result()

@@ -18,6 +18,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 
 def _require_device(device) -> torch.device:
     device = torch.device(device)
@@ -122,37 +124,45 @@ class Predictor:
         """Lists of RGB uint8 frames and text prompts -> list of (answer,
         mask_left, mask_right, taxonomy), masks at each frame's original
         resolution. One evaluate per call: the micro-batching entry that
-        infer/server.py uses (a batch size is one graph bucket)."""
+        infer/server.py uses (a batch size is one graph bucket). Spans
+        (utils/profiling.py): `predictor.collate`, `.evaluate`, `.fetch`
+        (the copies to the host, which wait for the card) and `.post`."""
         from ..data.collate import Sample, collate_affordance
         from ..nn.sam import resize_to_original
 
-        samples = [
-            Sample(image=img,
-                   question=(p if "<image>" in p else ("<image>\n" + p)),
-                   answer=None)
-            for img, p in zip(images, prompts)]
-        batch = collate_affordance(
-            samples, self.tok, sam_image_size=self.cfg.sam_encoder.image_size,
-            clip_image_size=self.cfg.clip.image_size,
-            max_text_len=self.max_text_len, conv_type=self.conv_type,
-            use_mm_start_end=self.use_mm_start_end,
-            use_template=self.use_template, for_training=False)
-        res = self._eval(batch["images_sam"], batch["images_clip"],
-                         batch["input_ids"], batch["attention_mask"])
-        host = lambda t: t.float().cpu().numpy()  # noqa: E731
-        out_ids = res.output_ids.cpu().numpy()
-        gen_lengths = res.gen_lengths.cpu().numpy()
-        ml_all, mr_all = host(res.pred_masks_left), host(res.pred_masks_right)
-        tax_all = host(res.taxonomies)
+        with span("predictor.collate"):
+            samples = [
+                Sample(image=img,
+                       question=(p if "<image>" in p else ("<image>\n" + p)),
+                       answer=None)
+                for img, p in zip(images, prompts)]
+            batch = collate_affordance(
+                samples, self.tok,
+                sam_image_size=self.cfg.sam_encoder.image_size,
+                clip_image_size=self.cfg.clip.image_size,
+                max_text_len=self.max_text_len, conv_type=self.conv_type,
+                use_mm_start_end=self.use_mm_start_end,
+                use_template=self.use_template, for_training=False)
+        with span("predictor.evaluate"):
+            res = self._eval(batch["images_sam"], batch["images_clip"],
+                             batch["input_ids"], batch["attention_mask"])
+        with span("predictor.fetch"):
+            host = lambda t: t.float().cpu().numpy()  # noqa: E731
+            out_ids = res.output_ids.cpu().numpy()
+            gen_lengths = res.gen_lengths.cpu().numpy()
+            ml_all = host(res.pred_masks_left)
+            mr_all = host(res.pred_masks_right)
+            tax_all = host(res.taxonomies)
         results = []
-        for i, img in enumerate(images):
-            text = self.tok.decode(
-                [t for t in out_ids[i][:int(gen_lengths[i])] if t >= 0])
-            rh, rw = batch["resizes"][i]
-            orig = img.shape[:2]
-            ml = resize_to_original(ml_all[i:i + 1], (rh, rw), orig)[0]
-            mr = resize_to_original(mr_all[i:i + 1], (rh, rw), orig)[0]
-            results.append((text, ml, mr, tax_all[i]))
+        with span("predictor.post"):
+            for i, img in enumerate(images):
+                text = self.tok.decode(
+                    [t for t in out_ids[i][:int(gen_lengths[i])] if t >= 0])
+                rh, rw = batch["resizes"][i]
+                orig = img.shape[:2]
+                ml = resize_to_original(ml_all[i:i + 1], (rh, rw), orig)[0]
+                mr = resize_to_original(mr_all[i:i + 1], (rh, rw), orig)[0]
+                results.append((text, ml, mr, tax_all[i]))
         return results
 
     def __call__(self, image: np.ndarray, prompt: str

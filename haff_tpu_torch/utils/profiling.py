@@ -1,32 +1,39 @@
-"""Tracing and profiling (port of haff_tpu/utils/profiling.py).
+"""Tracing (port of haff_tpu/utils/profiling.py).
 
 The reference has no tracing beyond per-step second counters (SURVEY.md
 section 5.1). Here: `torch.profiler` traces of the host and the card to
-a Chrome-trace file, named scopes that show in those traces and, on the
-card, as NVTX ranges, and a per-step wall timer that synchronizes the
-card before it reads the clock.
+a Chrome-trace file (`trace`), and the program's spans (`span`), named
+ranges at its layer boundaries that show in those traces.
 
+A span is a `record_function` range while a profiler collects, and
+nothing otherwise. The trace is its only record: ranges nest, so a
+span's parent is the range that encloses it, and Kineto stamps host
+ranges and the card's activity on one clock, so a span can be set
+against what the card was doing. Under
+`torch.autograd.profiler.emit_nvtx()` every span is an NVTX range too.
 JAX's `start_profiler_server` (a live capture endpoint for TensorBoard)
-has no PyTorch counterpart and raises NotImplementedError.
+has no PyTorch counterpart.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 from typing import Iterator, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
 
 
-def start_profiler_server(port: int = 9999) -> None:
-    """Not available: torch has no live profiler server; capture a trace
-    with `trace` instead."""
-    raise NotImplementedError(
-        "start_profiler_server: PyTorch has no live profiler server to "
-        "connect TensorBoard to; capture a trace with "
-        "haff_tpu_torch.utils.profiling.trace(log_dir) instead")
+def span(name: str):
+    """A context manager naming the enclosed host work `name` in a
+    profiler's trace. With no profiler collecting it is one shared no-op
+    context: one flag read, no range opened."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager
@@ -50,43 +57,3 @@ def trace(log_dir: str, cuda: Optional[bool] = None
     with torch.profiler.profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Named scope visible in traces (`record_function`) and, on the card,
-    as an NVTX range."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
-
-
-class StepTimer:
-    """Per-step wall timing; `tick` synchronizes the card (when one is in
-    use) before reading the clock, since PyTorch returns before the device
-    finishes."""
-
-    def __init__(self):
-        self.t0 = time.perf_counter()
-        self.steps = 0
-        self.total = 0.0
-
-    def tick(self, sync: bool = True) -> float:
-        if sync and torch.cuda.is_available() and torch.cuda.is_initialized():
-            torch.cuda.synchronize()
-        now = time.perf_counter()
-        dt = now - self.t0
-        self.t0 = now
-        self.steps += 1
-        self.total += dt
-        return dt
-
-    @property
-    def mean(self) -> float:
-        return self.total / max(self.steps, 1)

@@ -924,6 +924,46 @@ def test_graphed_evaluate_equals_eager(dev, kv_cache_8bit):
     assert (graphed.captures, graphed.replays) == (1, 2)
 
 
+def test_graphed_evaluate_spans(dev):
+    """make_jitted_evaluate on the card opens evaluate_fn's stage spans
+    (test_torch_spans.py), once each and in order, and a replay under the
+    profiler serves the same tokens and masks as one without it."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from haff_tpu_torch.core.config import ModelConfig
+    from haff_tpu_torch.infer.evaluate import make_jitted_evaluate
+    from haff_tpu_torch.model.lisa import LisaModel
+    from test_torch_spans import EVALUATE_SPANS, ranges
+
+    cfg = ModelConfig.preset("tiny")
+    model = LisaModel(cfg, torch.float32, device=dev)
+    rng = np.random.RandomState(1)
+    S, C = cfg.sam_encoder.image_size, cfg.clip.image_size
+    ids = rng.randint(5, 400, (2, 12))
+    ids[:, 2] = -200
+    req = (rng.randn(2, S, S, 3).astype(np.float32),
+           rng.randn(2, C, C, 3).astype(np.float32), ids,
+           np.ones((2, 12), np.int64))
+    graphed = make_jitted_evaluate(model, 6, 2)
+    keys = ("output_ids", "gen_lengths", "pred_masks_left",
+            "pred_masks_right", "taxonomies")
+    graphed(*req)  # captures
+    res = graphed(*req)  # the tokens live in the graph's buffers: copied
+    plain = {k: getattr(res, k).clone() for k in keys}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced = graphed(*req)
+        torch.cuda.synchronize()
+    got = ranges(prof)
+    assert [r[0] for r in got] == list(EVALUATE_SPANS)
+    assert all(a[2] <= b[1] for a, b in zip(got, got[1:]))
+    assert (graphed.captures, graphed.replays) == (1, 2)
+    for key in keys:
+        assert torch.equal(plain[key], getattr(traced, key)), key
+
+
 # ----- speculative decode and the MPT decoder -----
 
 # MPT-7B's W8A8 products (K, N): the fused Wqkv, up and down at expansion 4.

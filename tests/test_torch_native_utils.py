@@ -179,18 +179,18 @@ def test_flops_of_the_tiny_sam_encoder_are_analytic():
 # ---------------------------------------------------------------------------
 
 def test_profiling_trace_annotate_and_timer(tmp_path):
+    """`trace` writes the Chrome trace of the enclosed block, and a `span`
+    inside it is a named range there; outside any profiler a span is the
+    one shared no-op context."""
     from haff_tpu_torch.utils import profiling as P
 
     with P.trace(str(tmp_path / "tr"), cuda=False) as prof:
-        with P.annotate("haff_step"):
+        with P.span("haff_step"):
             torch.randn(64, 64) @ torch.randn(64, 64)
     assert os.path.getsize(str(tmp_path / "tr" / "trace.json")) > 0
     assert "haff_step" in {e.key for e in prof.key_averages()}
-    t = P.StepTimer()
-    assert t.tick() >= 0 and t.tick() >= 0 and t.steps == 2
-    assert t.mean == t.total / 2
-    with pytest.raises(NotImplementedError, match="no live profiler"):
-        P.start_profiler_server()
+    assert "haff_step" in (tmp_path / "tr" / "trace.json").read_text()
+    assert P.span("haff_step") is P.span("other")
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,7 @@ from haff_tpu.infer.predictor import Predictor as JaxPredictor
 from haff_tpu_torch.infer.evaluate import evaluate_fn, make_jitted_evaluate
 from haff_tpu_torch.infer.predictor import Predictor
 from test_torch_bridge import write_npz
+from test_torch_spans import EVALUATE_SPANS, PREDICTOR_SPANS, ranges
 
 KW = dict(model_preset="tiny", precision="fp32", max_new_tokens=4,
           max_text_len=448)
@@ -65,6 +66,23 @@ def test_call_is_a_batch_of_one(port_pred, frames):
     assert text == ref[0]
     for a, b in zip((ml, mr, tax), ref[1:]):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_predict_batch_spans(port_pred, frames):
+    """Under a profiler one predict_batch opens each predictor span once,
+    in order, and each evaluate span once inside `predictor.evaluate`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        port_pred.predict_batch(frames, PROMPTS)
+    got = ranges(prof)
+    outer = [r for r in got if r[0].startswith("predictor.")]
+    inner = [r for r in got if r[0].startswith("evaluate.")]
+    assert [r[0] for r in outer] == list(PREDICTOR_SPANS)
+    assert all(a[2] <= b[1] for a, b in zip(outer, outer[1:]))
+    assert [r[0] for r in inner] == list(EVALUATE_SPANS)
+    _, e0, e1 = outer[1]
+    assert all(e0 <= t0 and t1 <= e1 for _, t0, t1 in inner)
 
 
 def test_jitted_evaluate_on_the_cpu_is_evaluate_fn(port_pred):
