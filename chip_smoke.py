@@ -280,6 +280,17 @@ H100_BYTES_PER_S = 3.35e12  # HBM3
 # A graphed evaluate, a served batch and a streamed chunk count the same.
 PER_EVALUATE = {"sam_window_relpos_attn": 28, "sam_global_relpos_attn": 4,
                 "flash_prefill_fwd": 32, "decode_attn": 480}
+
+
+def fused_mpt_launches(decode_attn, layers=32):
+    """The launches of MPT's fused decode step (nn/mpt.fused_decode_step:
+    a float or bf16 cache) in place of `decode_attn` unfused decode
+    attentions: one write variant a block, and two add-norms a block and
+    the final one a forward."""
+    return {"decode_attn/write": decode_attn,
+            "add_layer_norm": decode_attn // layers * (2 * layers + 1)}
+
+
 # Launches per train step at the 7b preset with remat: the frozen SAM
 # encoder's forward, each LLaMA layer's flash forward twice (the forward
 # and its recompute in the backward) and its two backward kernels once.
@@ -318,6 +329,11 @@ MESH_18_PATHS = ("train_cli_7b_pp4", "train_cli_small_pp2_tp2",
                  "train_cli_moe_7bw_ep4", "train_cli_7b_8bit_tp2_fsdp2",
                  "train_cli_mpt_tp2_fsdp2", "eval_only_small_pp2_tp2",
                  "train_cli_mpt_tp2_fsdp2_bf16", "train_cli_mpt_tp4_bf16")
+# The MPT paths whose decode runs the fused step (a float or bf16 cache):
+# the 7b evaluates, the tiny card-vs-CPU check, the train CLI's validation
+# and the float32 mesh run's eager validation.
+MPT_FUSED_PATHS = ("evaluate_mpt_bf16", "evaluate_mpt_w4a16", "mpt_tiny",
+                   "train_cli_mpt", "train_cli_mpt_tp2_fsdp2")
 EXPECTED_ON = {
     "sam_window_relpos_attn": ("evaluate_bf16", "evaluate_w8a8",
                                "evaluate_w4a16", "train", "encoder_backward",
@@ -352,14 +368,17 @@ EXPECTED_ON = {
     "flash_bwd_dkv": ("train", "train_cli", "train_cli_8bit", "train_moe",
                       "train_cli_moe_small") + MESH_PATHS
                      + MESH_18_PATHS[:4],
+    # MPT with a float or bf16 cache decodes on the fused step (the two
+    # entries below); with an int8 cache (evaluate_mpt_w8a8 and mpt_tiny's
+    # second cache) on decode_attn.
     "decode_attn": ("evaluate_w8a8", "evaluate_bf16", "evaluate_w4a16",
                     "serve_bf16", "stream", "train_cli", "train_cli_8bit",
-                    "evaluate_mpt_bf16", "evaluate_mpt_w8a8", "mpt_tiny",
+                    "evaluate_mpt_w8a8", "mpt_tiny",
                     "evaluate_moe_bf16", "moe_small", "train_cli_moe_small",
-                    "evaluate_mpt_w4a16", "random_w8a8_7b",
-                    "evaluate_scales_int8", "train_cli_mpt",
-                    "train_cli_7b_pp4", "train_cli_mpt_tp2_fsdp2",
-                    "eval_only_small_pp2_tp2"),
+                    "random_w8a8_7b", "evaluate_scales_int8",
+                    "train_cli_7b_pp4", "eval_only_small_pp2_tp2"),
+    "decode_attn_write": MPT_FUSED_PATHS,
+    "add_layer_norm": MPT_FUSED_PATHS,
     # train_cli_8bit: the QLoRA train step (tensor-core path, under grad)
     # and its validation's decode (skinny path); train_cli_tiny: the tiny
     # card-vs-CPU CLI runs (float32: w4a16 on its scalar kernel).
@@ -918,6 +937,123 @@ def check_decode(gen):
         raise AssertionError("decode_attn: a row without live slots is not 0")
     return record("decode_attn", "haff_tpu_torch/kernels/csrc/decode_attn.cu",
                   "haff_tpu/kernels/decode_attention.py:41", shapes)
+
+
+def check_add_layer_norm(gen):
+    """The MPT decode step's residual add + LayerNorm (csrc/add_layer_norm.cu)
+    at MPT-7B's width, bf16 rows and weight, batch 1 and 2, with a delta
+    and without (block 0's first norm): the new residual bit for bit
+    torch's add, the normalized row within one bf16 ulp (within_bf16) of
+    add_layer_norm_plain (the add, the casts and the float32 norm it
+    replaces, which `plain_ms` times). Library: torch's add and its bf16
+    LayerNorm (two kernels). Operations: 7 an element (add, two sums,
+    centre, square, scale, weight); bytes: x, delta, weight, the residual
+    and the row."""
+    from haff_tpu_torch.kernels import add_layer_norm as aln
+
+    d, eps, dev, bf = 4096, 1e-5, "cuda", torch.bfloat16
+    w = (1 + 0.2 * torch.randn(d, generator=gen, device=dev)).to(bf)
+    shapes = []
+    for b, with_delta in ((1, True), (2, True), (1, False)):
+        x = (3 * torch.randn(b, 1, d, generator=gen, device=dev)).to(bf)
+        delta = (torch.randn(b, 1, d, generator=gen, device=dev).to(bf)
+                 if with_delta else None)
+        res, y = aln.add_layer_norm_kernel(x, delta, w, eps)
+        ref_res, ref_y = aln.add_layer_norm_plain(x, delta, w, eps)
+        if not torch.equal(res, ref_res):
+            raise AssertionError(f"add_layer_norm {(b, d)}: the residual is "
+                                 "not torch's add, bit for bit")
+        err = within_bf16(f"add_layer_norm {(b, d)}", y, ref_y)
+        run = lambda: aln.add_layer_norm_kernel(x, delta, w, eps)  # noqa: E731
+
+        def library():
+            s = x if delta is None else x + delta
+            return s, torch.nn.functional.layer_norm(s, (d,), w, None, eps)
+
+        # Without a delta the residual is x itself: neither read twice nor
+        # written.
+        b_ms, by = bound_ms(nbytes(x, w, y) + (nbytes(delta, res) if with_delta
+                                               else 0), 7.0 * b * d)
+        shapes.append(dict(
+            shape=f"x {tuple(x.shape)} bf16, "
+                  f"{'a delta' if with_delta else 'no delta'}, weight bf16",
+            max_abs_err=err, ms=cuda_ms(run, 50), plain_ms=cuda_ms(
+                lambda: aln.add_layer_norm_plain(x, delta, w, eps), 50),
+            bound_ms=b_ms, bound_by=by, library_ms=cuda_ms(library, 50),
+            graph_ms=graph_ms(run, 50), library_graph_ms=graph_ms(library, 50)))
+    return record("add_layer_norm",
+                  "haff_tpu_torch/kernels/csrc/add_layer_norm.cu",
+                  "none: XLA fuses the add into the LayerNorm after it "
+                  "(haff_tpu/nn/mpt.py)", shapes)
+
+
+def check_decode_write(gen):
+    """The MPT decode step's attention (csrc/decode_attn.cu's write
+    variant) at MPT-7B's shapes: q and the new token's k and v by strides
+    from a (B, 12288) bf16 Wqkv output, bf16 caches of 607 slots of 32
+    heads of 128, ALiBi slopes, the rows' new tokens at slots 590 and 580
+    (batch 2; 590 at batch 1), live slots up to them. The written slots
+    byte for byte `write_kv_cache`'s; the output within one bf16 ulp
+    (within_bf16) of decode_write_attention_split, the plain version
+    (`plain_ms`), run on copies of the caches. Library: the ops it
+    replaces (`write_kv_cache`, the copy of q, decode_attn and its merge
+    pass). Bytes: the live slots' k and v, qkv, the written slots, the
+    mask, the slopes and the output."""
+    from haff_tpu_torch.kernels import decode_attention as da
+    from haff_tpu_torch.nn.llama import write_kv_cache
+    from haff_tpu_torch.nn.mpt import alibi_slopes
+
+    nh, hd, lmax, dev, bf = 32, 128, 607, "cuda", torch.bfloat16
+    slopes = alibi_slopes(nh, device=dev)
+    scale = hd ** -0.5
+    shapes = []
+    for b in (2, 1):
+        qkv = (0.5 * torch.randn(b, 3 * nh * hd, generator=gen,
+                                 device=dev)).to(bf)
+        kc, vc = ((0.5 * torch.randn(b, lmax, nh, hd, generator=gen,
+                                     device=dev)).to(bf) for _ in range(2))
+        index = torch.tensor((590, 580)[:b], device=dev)
+        mask = (torch.arange(lmax, device=dev)[None]
+                <= index[:, None]).to(torch.int32)
+        ref_k, ref_v = kc.clone(), vc.clone()
+        out = da.decode_write_attention_kernel(qkv, kc, vc, mask, index, nh,
+                                               scale, slopes=slopes)
+        q, k, v = qkv.reshape(b, 3 * nh, hd).split(nh, dim=1)
+        write_kv_cache((ref_k, ref_v), k[:, None], v[:, None], index)
+        if not (torch.equal(kc, ref_k) and torch.equal(vc, ref_v)):
+            raise AssertionError(f"decode_attn_write {(b, lmax)}: the cache "
+                                 "is not write_kv_cache's, byte for byte")
+        pk, pv = kc.clone(), vc.clone()
+        ref = da.decode_write_attention_split(qkv.float(), pk, pv, mask,
+                                              index, nh, scale, slopes=slopes)
+        err = within_bf16(f"decode_attn_write {(b, lmax)}", out, ref)
+        run = lambda: da.decode_write_attention_kernel(  # noqa: E731
+            qkv, kc, vc, mask, index, nh, scale, slopes=slopes)
+
+        def library():
+            qs, ks, vs = qkv.reshape(b, 1, 3 * nh, hd).split(nh, dim=2)
+            write_kv_cache((kc, vc), ks, vs, index)
+            return da.decode_attention_kernel(qs[:, 0].contiguous(), kc, vc,
+                                              mask, scale, slopes=slopes)
+
+        live = int(mask.sum())
+        b_ms, by = bound_ms(2 * live * nh * hd * 2 + 2 * b * nh * hd * 2
+                            + nbytes(qkv, mask, slopes, index, out),
+                            4.0 * hd * nh * live)
+        shapes.append(dict(
+            shape=f"qkv {tuple(qkv.shape)} bf16, bf16 cache "
+                  f"{(b, lmax, nh, hd)}, new slots {index.tolist()}, ALiBi "
+                  "slopes",
+            plan=list(da.decode_plan(b, nh, nh, lmax)), max_abs_err=err,
+            ms=cuda_ms(run, 50), plain_ms=cuda_ms(
+                lambda: da.decode_write_attention_split(
+                    qkv, pk, pv, mask, index, nh, scale, slopes=slopes), 10),
+            bound_ms=b_ms, bound_by=by, library_ms=cuda_ms(library, 50),
+            graph_ms=graph_ms(run, 50), library_graph_ms=graph_ms(library, 50)))
+    return record("decode_attn_write",
+                  "haff_tpu_torch/kernels/csrc/decode_attn.cu",
+                  "haff_tpu/kernels/decode_attention.py:41 with the cache "
+                  "write before it", shapes, counter="decode_attn/write")
 
 
 def sam_case(gen, scope, entry, b, hw, nh, d, iters):
@@ -1665,8 +1801,10 @@ def check_mpt_tiny(launches):
     """The MPT decoder at tiny in float32, card against CPU from the same
     weights, with a float and an int8 cache: evaluate_fn, and on the card
     also make_jitted_evaluate (a capture call and a replay): identical
-    tokens, masks and taxonomy within 1e-4; every decode step on the
-    decode kernel's ALiBi variant. Returns the card's launch counts."""
+    tokens, masks and taxonomy within 1e-4; every decode step of the
+    float cache on the fused step (the decode kernel's write variant, the
+    add-norm kernel), of the int8 cache on the decode kernel's ALiBi
+    variant. Returns the card's launch counts."""
     from haff_tpu_torch.core.config import ModelConfig
     from haff_tpu_torch.infer.evaluate import evaluate_fn, make_jitted_evaluate
     from haff_tpu_torch.model.lisa import LisaModel
@@ -1696,12 +1834,16 @@ def check_mpt_tiny(launches):
                 torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
                 worst = max(worst, float((g - r).abs().max()))
     counts = dict(launches)
-    # 3 calls x 2 caches x (T - 1) steps x 2 layers, every one with slopes.
-    want = 3 * 2 * (T - 1) * cfg.llama.num_layers
-    if counts.get("decode_attn") != want or counts.get(
-            "decode_attn/alibi") != want:
+    # 3 calls a cache x (T - 1) steps x 2 layers: the int8 cache's all
+    # with slopes, the float cache's fused, with 2 add-norms a layer and
+    # the final one.
+    want = 3 * (T - 1) * cfg.llama.num_layers
+    fused = fused_mpt_launches(want, cfg.llama.num_layers)
+    if (counts.get("decode_attn") != want
+            or counts.get("decode_attn/alibi") != want
+            or any(counts.get(k) != n for k, n in fused.items())):
         raise AssertionError(f"mpt tiny: launches {counts}, expected {want} "
-                             "decode_attn, all ALiBi")
+                             "decode_attn (all ALiBi) and decode_attn/write")
     log(f"mpt tiny: card (kernels, f32; eager, capture, replay) vs CPU, "
         f"float and int8 cache: tokens identical {ref.output_ids.tolist()}, "
         f"masks/taxonomy max abs err {worst:.3g}; launches {counts}")
@@ -1826,8 +1968,9 @@ def run_slice(launches, mode="bf16", decoder="llama", moe=False):
     """evaluate() at the full 7b preset in one serving mode: "bf16", "w8a8"
     (int8 weights + int8 KV cache) or "w4a16" (packed-int4 LLM), with the
     LLaMA decoder or (`decoder="mpt"`, MPT-7B at the preset's widths: its
-    decode steps on the decode kernel's ALiBi variant, counted under
-    `decode_attn/alibi` too) the MPT one; `moe` gives the LLaMA decoder
+    decode steps on the fused step, `decode_attn/write` and
+    `add_layer_norm`, or with w8a8's int8 cache on the decode kernel's
+    ALiBi variant, counted under `decode_attn/alibi` too) the MPT one; `moe` gives the LLaMA decoder
     MoE MLPs (MOE_7B: 16 MoE layers of 8 experts, ~21.9 B decoder
     parameters). MPT's w4a16 model is made by random_quantized_like (the
     float model never made; its build peak checked), the others built in
@@ -1877,6 +2020,10 @@ def run_slice(launches, mode="bf16", decoder="llama", moe=False):
     B, P, T, S = 2, 320, 16, cfg.sam_encoder.image_size
     expected = dict(PER_EVALUATE, w8a8_matmul=0, w4a16_matmul=0)
     expected["decode_attn/alibi"] = PER_EVALUATE["decode_attn"] if mpt else 0
+    if mpt and mode != "w8a8":  # a bf16 cache: the fused decode step
+        expected.update({"decode_attn": 0, "decode_attn/alibi": 0,
+                         **fused_mpt_launches(PER_EVALUATE["decode_attn"],
+                                              cfg.llama.num_layers)})
     if random:
         held = sum(t.numel() * t.element_size() for t in
                    list(model.parameters()) + list(model.buffers()))
@@ -3588,8 +3735,8 @@ def run_train_cli_mpt(launches):
     losses; the trainable set is JAX's for MPT (mask decoders and text_fc,
     counted from the names of a meta-device build); exact launches:
     PER_TRAIN_MPT_STEP a step, every flash forward with the ALiBi bias, no
-    flash backward, the validation's decode all on the ALiBi variant, none
-    on a scalar path. Prints step, validation and checkpoint times and
+    flash backward, the validation's decode all on the fused step (its
+    bf16 cache), none on a scalar path. Prints step, validation and checkpoint times and
     peak memory. Returns the run's launch counts."""
     import os
     import shutil
@@ -3644,7 +3791,8 @@ def run_train_cli_mpt(launches):
         want[name] += per * steps
     for name, per in PER_VALIDATE.items():
         want[name] += per
-    want["decode_attn/alibi"] = PER_VALIDATE["decode_attn"]
+    # The validation decodes into a bf16 cache: the fused decode step.
+    want.update(fused_mpt_launches(want.pop("decode_attn")))
     if got != dict(want):
         raise AssertionError(f"train cli mpt: launches {got}, expected "
                              f"{dict(want)}")
@@ -5256,7 +5404,8 @@ def main():
     gen = torch.Generator("cuda").manual_seed(0)
     kernels = []
     for check in (check_sam_entries, check_flash, check_flash_bwd,
-                  check_decode, check_w8a8, check_w4a16, check_probe):
+                  check_decode, check_decode_write, check_add_layer_norm,
+                  check_w8a8, check_w4a16, check_probe):
         recs = check(gen)
         for rec in recs if isinstance(recs, list) else [recs]:
             kernels.append(rec)

@@ -52,6 +52,24 @@
 // Operands the 16-byte copies cannot read (a row of hd * itemsize bytes
 // not a multiple of 16, or an unaligned cache base) are copied byte by
 // byte by the same kernel; any cache length, no padding.
+//
+// The write variant (`decode_attn_write`, template flag WRITE; the MPT
+// decode step, nn/mpt.py) is the same kernel with the step's two
+// neighbours taken in: it reads q and the new token's k and v straight
+// from the fused Wqkv output by strides (no copy of q), and the split
+// that holds row b's slot `index[b]` writes the new k/v into the f32 or
+// bf16 cache there (the first head block of that split, converted to the
+// cache's type as torch's copy rounds) and uses those fresh values for
+// that slot itself, so no block reads a slot another block is writing.
+// Each split counts itself done on a counter of its (batch row, head
+// block) after its partial state is visible; the last one merges the
+// splits' states exactly as decode_merge_kernel does (same order, same
+// reductions) and sets the counter back to 0 for the next launch. One
+// launch replaces the cache write's index kernels, the copy of q and the
+// separate merge pass. It is a plain launch: as a programmatic dependent
+// of the Wqkv product MPT-7B's graphed decode step ran 0.04-0.05 ms
+// slower on an H100, though the kernel alone ran 0.25-0.5 us faster by
+// graph.
 #include <stdint.h>
 
 #include "tc.cuh"
@@ -73,6 +91,10 @@ constexpr int HEADS_MAX = 8;    // query heads a block
 
 struct Args {
   const void* q;
+  const void* kn;  // WRITE: the new token's k and v, (B, nkv, hd) at q's row stride
+  const void* vn;
+  const long long* index;  // WRITE: (B,) the slot of row b's new k/v
+  unsigned* counters;      // WRITE with splits > 1: a zero a (b, head block), left zero
   const uint8_t* kc;
   const uint8_t* vc;
   const float* ks;
@@ -83,6 +105,7 @@ struct Args {
   float* part_acc;  // (B, nh, splits, hd)
   float* part_ml;   // (B, nh, splits, 2): m, l
   int lmax, nh, nkv, hd, chunk, splits, vec;
+  long q_row;  // elements from one batch row of q (and kn, vn) to the next
   float scale;
 };
 
@@ -112,9 +135,10 @@ __device__ __forceinline__ int elem(int sub, int i) {
 
 // Copy the live rows of one split (K or V) into shared memory, `pitch`
 // bytes a row: 16-byte cp.async where `vec`, else bytes (zero padded).
+// Row `skip` (the write variant's new token; -1 for none) is not read.
 __device__ __forceinline__ void copy_rows(uint8_t* dst, const uint8_t* src, long slot0,
                                           int nkv, int row_bytes, int pitch, int n,
-                                          const int* live, int vec) {
+                                          const int* live, int vec, int skip) {
   if (vec) {
     // A thread keeps one 16-byte column c of rows j0, j0 + step, ...: one
     // division a thread, not one a copy.
@@ -122,7 +146,7 @@ __device__ __forceinline__ void copy_rows(uint8_t* dst, const uint8_t* src, long
     const int j0 = threadIdx.x / cpr, c = threadIdx.x - j0 * cpr;
     if (j0 < step) {
       for (int j = j0; j < n; j += step) {
-        if (live[j])
+        if (live[j] && j != skip)
           tc::cp_async16(dst + j * pitch + 16 * c,
                          src + (slot0 + (long)j * nkv) * row_bytes + 16 * c, 16);
       }
@@ -130,16 +154,81 @@ __device__ __forceinline__ void copy_rows(uint8_t* dst, const uint8_t* src, long
   } else {
     for (int i = threadIdx.x; i < n * pitch; i += THREADS) {
       const int j = i / pitch, c = i - j * pitch;
-      if (live[j])
+      if (live[j] && j != skip)
         dst[i] = c < row_bytes ? src[(slot0 + (long)j * nkv) * row_bytes + c] : 0;
     }
   }
   tc::cp_async_commit();
 }
 
+// The write variant's end of a split: count this block done on the
+// counter of its (batch row, head block); the last of the `splits` blocks
+// merges the gn rows from row0 as decode_merge_kernel does (its thread
+// layout, reductions and order, so the output is the same to the bit)
+// and leaves the counter 0. The partials are read past L1 (__ldcg): other
+// blocks wrote them.
+template <typename TQ>
+__device__ __forceinline__ void merge_if_last(const Args& a, long row0, int gn) {
+  __shared__ int last_s;
+  __shared__ float red_s[WARPS];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  unsigned* counter = a.counters + (long)blockIdx.y * gridDim.x + blockIdx.x;
+  __threadfence();  // this block's partials are visible before its count
+  __syncthreads();
+  if (tid == 0) {
+    last_s = atomicAdd(counter, 1u) == (unsigned)a.splits - 1;
+    if (last_s) *counter = 0u;
+  }
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  for (int g = 0; g < gn; ++g) {
+    const long r = row0 + g;
+    const float* m = a.part_ml + r * a.splits * 2;
+    // This thread's first split's (m, l), read once (more splits than
+    // threads are read again below).
+    const bool own = tid < a.splits;
+    const float om = own ? __ldcg(m + 2 * tid) : -INFINITY;
+    const float ol = own ? __ldcg(m + 2 * tid + 1) : 0.f;
+    float mx = om;
+    for (int s = tid + THREADS; s < a.splits; s += THREADS) mx = fmaxf(mx, __ldcg(m + 2 * s));
+    mx = haff::warp_max(mx);
+    if (lane == 0) red_s[warp] = mx;
+    __syncthreads();
+    mx = fmaxf(fmaxf(red_s[0], red_s[1]), fmaxf(red_s[2], red_s[3]));
+    __syncthreads();  // red_s is reused
+    float den = 0.f;
+    for (int s = tid; s < a.splits; s += THREADS) {
+      const float ms = s == tid ? om : __ldcg(m + 2 * s);
+      const float ls = s == tid ? ol : __ldcg(m + 2 * s + 1);
+      const float w = ms == -INFINITY ? 0.f : expf(ms - mx);
+      den = fmaf(ls, w, den);
+    }
+    den = haff::warp_sum(den);
+    if (lane == 0) red_s[warp] = den;
+    __syncthreads();
+    den = red_s[0] + red_s[1] + red_s[2] + red_s[3];
+    if (tid < a.hd) {
+      const float* acc = a.part_acc + r * a.splits * a.hd + tid;
+      float num = 0.f;
+      // Both loads unconditional, so a group's are in flight together; an
+      // empty split's acc (never written) is loaded and not used.
+#pragma unroll 8
+      for (int s = 0; s < a.splits; ++s) {
+        const float ms = __ldcg(m + 2 * s);
+        const float as = __ldcg(acc + (long)s * a.hd);
+        const float w = ms == -INFINITY ? 0.f : expf(ms - mx);
+        if (w != 0.f) num = fmaf(as, w, num);
+      }
+      static_cast<TQ*>(a.out)[r * a.hd + tid] = haff::from_f<TQ>(den > 0.f ? num / den : 0.f);
+    }
+    __syncthreads();  // red_s is reused by the next row
+  }
+}
+
 // Six blocks an SM by registers (<= 85 a thread): LLaMA-7B's 640 blocks
 // at batch 2 run in one wave on 132 SMs.
-template <typename TQ, typename TKV, bool QUANT, bool ALIBI>
+template <typename TQ, typename TKV, bool QUANT, bool ALIBI, bool WRITE>
 __global__ void __launch_bounds__(THREADS, 6) decode_split_kernel(const Args a) {
   const int hblocks = (a.nh / a.nkv + HEADS_MAX - 1) / HEADS_MAX;
   const int kvh = blockIdx.x / hblocks, hb = blockIdx.x - kvh * hblocks;
@@ -169,8 +258,31 @@ __global__ void __launch_bounds__(THREADS, 6) decode_split_kernel(const Args a) 
   int live = 0;
   if (tid < n) live = a.mask[(long)b * a.lmax + j0 + tid] > 0;
   if (tid < CHUNK_MAX) live_s[tid] = live;
-  const long row0 = (long)b * a.nh + h0;  // (b, h0) as a row of q and out
-  if (!__syncthreads_or(live)) {          // no live slot: no cache read
+  const long row0 = (long)b * a.nh + h0;  // (b, h0) as a row of out
+  const long qrow0 = (long)b * a.q_row + (long)h0 * a.hd;  // and of q
+  // Slot j of this split is slot0 + j * nkv of the (B, Lmax, nkv) cache.
+  const long slot0 = ((long)b * a.lmax + j0) * a.nkv + kvh;
+  // The write variant: row jf of this split takes the new token (-1: no
+  // row does), written to the cache by the first head block.
+  int jf = -1;
+  const TQ* kn = nullptr;
+  const TQ* vn = nullptr;
+  if constexpr (WRITE) {
+    const long long p = a.index[b];
+    if (p >= j0 && p < j0 + n) jf = (int)(p - j0);
+    kn = static_cast<const TQ*>(a.kn) + (long)b * a.q_row + (long)kvh * a.hd;
+    vn = static_cast<const TQ*>(a.vn) + (long)b * a.q_row + (long)kvh * a.hd;
+    if (jf >= 0 && hb == 0) {
+      const long at = (slot0 + (long)jf * a.nkv) * row_bytes;
+      TKV* kd = reinterpret_cast<TKV*>(const_cast<uint8_t*>(a.kc) + at);
+      TKV* vd = reinterpret_cast<TKV*>(const_cast<uint8_t*>(a.vc) + at);
+      for (int e = tid; e < a.hd; e += THREADS) {
+        kd[e] = haff::from_f<TKV>(haff::to_f<TQ>(kn[e]));
+        vd[e] = haff::from_f<TKV>(haff::to_f<TQ>(vn[e]));
+      }
+    }
+  }
+  if (!__syncthreads_or(live)) {  // no live slot: no cache read
     if (a.splits > 1) {
       for (int g = tid; g < gn; g += THREADS) {
         float* ml = a.part_ml + ((row0 + g) * a.splits + split) * 2;
@@ -181,13 +293,25 @@ __global__ void __launch_bounds__(THREADS, 6) decode_split_kernel(const Args a) 
       TQ* out = static_cast<TQ*>(a.out);
       for (int i = tid; i < gn * a.hd; i += THREADS) out[row0 * a.hd + i] = haff::from_f<TQ>(0.f);
     }
+    if constexpr (WRITE) {
+      if (a.splits > 1) merge_if_last<TQ>(a, row0, gn);
+    }
     return;
   }
 
-  // Slot j of this split is slot0 + j * nkv of the (B, Lmax, nkv) cache.
-  const long slot0 = ((long)b * a.lmax + j0) * a.nkv + kvh;
-  copy_rows(Ks, a.kc, slot0, a.nkv, row_bytes, pitch, n, live_s, a.vec);
-  copy_rows(Vs, a.vc, slot0, a.nkv, row_bytes, pitch, n, live_s, a.vec);
+  copy_rows(Ks, a.kc, slot0, a.nkv, row_bytes, pitch, n, live_s, a.vec, jf);
+  copy_rows(Vs, a.vc, slot0, a.nkv, row_bytes, pitch, n, live_s, a.vec, jf);
+  if constexpr (WRITE) {
+    if (jf >= 0 && live_s[jf]) {
+      // The new token's row as the cache holds it, zero padded to the pitch.
+      TKV* kr = reinterpret_cast<TKV*>(Ks + jf * pitch);
+      TKV* vr = reinterpret_cast<TKV*>(Vs + jf * pitch);
+      for (int e = tid; e < pitch / (int)sizeof(TKV); e += THREADS) {
+        kr[e] = haff::from_f<TKV>(e < a.hd ? haff::to_f<TQ>(kn[e]) : 0.f);
+        vr[e] = haff::from_f<TKV>(e < a.hd ? haff::to_f<TQ>(vn[e]) : 0.f);
+      }
+    }
+  }
   if (QUANT) {
     for (int j = tid; j < n; j += THREADS) {
       ksc[j] = live_s[j] ? a.ks[slot0 + (long)j * a.nkv] : 0.f;
@@ -197,7 +321,7 @@ __global__ void __launch_bounds__(THREADS, 6) decode_split_kernel(const Args a) 
   const TQ* q = static_cast<const TQ*>(a.q);
   for (int i = tid; i < gn * HD_MAX; i += THREADS) {
     const int g = i / HD_MAX, e = i - g * HD_MAX;
-    q_s[g][e] = e < a.hd ? haff::to_f<TQ>(q[(row0 + g) * a.hd + e]) * a.scale : 0.f;
+    q_s[g][e] = e < a.hd ? haff::to_f<TQ>(q[qrow0 + (long)g * a.hd + e]) * a.scale : 0.f;
   }
   tc::cp_async_wait<1>();  // this thread's K copies have landed
   __syncthreads();         // and everyone's; q, scales, flags too
@@ -291,6 +415,9 @@ __global__ void __launch_bounds__(THREADS, 6) decode_split_kernel(const Args a) 
     }
     __syncthreads();  // red is reused by the next head
   }
+  if constexpr (WRITE) {
+    if (a.splits > 1) merge_if_last<TQ>(a, row0, gn);
+  }
 }
 
 // Merge the splits of one (b, h) row as the online softmax does; splits
@@ -345,17 +472,17 @@ decode_merge_kernel(const float* __restrict__ acc, const float* __restrict__ ml,
   out[r * hd + e] = haff::from_f<TQ>(den > 0.f ? num / den : 0.f);
 }
 
-template <typename TQ, typename TKV, bool QUANT, bool ALIBI>
+template <typename TQ, typename TKV, bool QUANT, bool ALIBI, bool WRITE>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   const int pitch = (a.hd * (int)sizeof(TKV) + 15) & ~15;
   const size_t smem = 2 * (size_t)a.chunk * pitch;
-  cudaError_t e = haff::allow_smem(decode_split_kernel<TQ, TKV, QUANT, ALIBI>, smem);
+  cudaError_t e = haff::allow_smem(decode_split_kernel<TQ, TKV, QUANT, ALIBI, WRITE>, smem);
   if (e != cudaSuccess) return e;
   const int hblocks = (a.nh / a.nkv + HEADS_MAX - 1) / HEADS_MAX;
   dim3 grid(a.nkv * hblocks, B, a.splits);
-  decode_split_kernel<TQ, TKV, QUANT, ALIBI><<<grid, THREADS, smem, stream>>>(a);
+  decode_split_kernel<TQ, TKV, QUANT, ALIBI, WRITE><<<grid, THREADS, smem, stream>>>(a);
   e = cudaGetLastError();
-  if (e != cudaSuccess || a.splits == 1) return e;
+  if (e != cudaSuccess || a.splits == 1 || WRITE) return e;  // WRITE merged in place
   const size_t wsmem = (size_t)a.splits * sizeof(float);
   e = haff::allow_smem(decode_merge_kernel<TQ>, wsmem);
   if (e != cudaSuccess) return e;
@@ -377,28 +504,64 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename TQ, bool ALIBI>
+template <typename TQ, bool ALIBI, bool WRITE>
 cudaError_t dispatch_kv(int kv_kind, Args& a, int B, cudaStream_t s) {
   switch (kv_kind) {
     case 0:
-      return launch<TQ, float, false, ALIBI>(a, B, s);
+      return launch<TQ, float, false, ALIBI, WRITE>(a, B, s);
     case 1:
-      return launch<TQ, __nv_bfloat16, false, ALIBI>(a, B, s);
+      return launch<TQ, __nv_bfloat16, false, ALIBI, WRITE>(a, B, s);
     case 2:
-      if (a.ks == nullptr || a.vs == nullptr) return cudaErrorInvalidValue;
-      return launch<TQ, int8_t, true, ALIBI>(a, B, s);
+      if constexpr (WRITE) {
+        return cudaErrorInvalidValue;  // the int8 cache is written by quantize_activation
+      } else {
+        if (a.ks == nullptr || a.vs == nullptr) return cudaErrorInvalidValue;
+        return launch<TQ, int8_t, true, ALIBI, false>(a, B, s);
+      }
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-template <typename TQ>
+template <typename TQ, bool WRITE>
 cudaError_t dispatch(int kv_kind, Args& a, int B, cudaStream_t s) {
   const int item = kv_kind == 1 ? 2 : kv_kind == 2 ? 1 : 4;
   a.vec = (a.hd * item) % 16 == 0 && reinterpret_cast<uintptr_t>(a.kc) % 16 == 0 &&
           reinterpret_cast<uintptr_t>(a.vc) % 16 == 0;
-  if (a.slopes != nullptr) return dispatch_kv<TQ, true>(kv_kind, a, B, s);
-  return dispatch_kv<TQ, false>(kv_kind, a, B, s);
+  if (a.slopes != nullptr) return dispatch_kv<TQ, true, WRITE>(kv_kind, a, B, s);
+  return dispatch_kv<TQ, false, WRITE>(kv_kind, a, B, s);
+}
+
+// The checks and the Args both entries share.
+bool valid(int lmax, int nh, int nkv, int hd, int splits, int chunk, const void* part) {
+  return !(hd > HD_MAX || hd <= 0 || nkv <= 0 || nh % nkv || chunk < 1 || chunk > CHUNK_MAX ||
+           splits < 1 || (long)splits * chunk < lmax ||
+           (splits > 1 && (long)(splits - 1) * chunk >= lmax) ||
+           (splits > 1 && part == nullptr));
+}
+
+Args make_args(const void* q, long q_row, const void* kc, const void* vc, const void* slopes,
+               const void* mask, void* out, void* part, int B, int lmax, int nh, int nkv,
+               int hd, float scale, int splits, int chunk) {
+  Args a = {};
+  a.q = q;
+  a.q_row = q_row;
+  a.kc = static_cast<const uint8_t*>(kc);
+  a.vc = static_cast<const uint8_t*>(vc);
+  a.slopes = static_cast<const float*>(slopes);
+  a.mask = static_cast<const int*>(mask);
+  a.out = out;
+  a.part_acc = static_cast<float*>(part);
+  a.part_ml = a.part_acc == nullptr ? nullptr : a.part_acc + (long)B * nh * splits * hd;
+  a.lmax = lmax;
+  a.nh = nh;
+  a.nkv = nkv;
+  a.hd = hd;
+  a.chunk = chunk;
+  a.splits = splits;
+  a.vec = 0;
+  a.scale = scale;
+  return a;
 }
 
 }  // namespace
@@ -413,31 +576,39 @@ extern "C" int decode_attn(const void* q, const void* kc, const void* vc, const 
                            void* part, int B,
                            int lmax, int nh, int nkv, int hd, float scale, int q_bf16,
                            int kv_kind, int splits, int chunk, void* stream) {
-  if (hd > HD_MAX || hd <= 0 || nkv <= 0 || nh % nkv || chunk < 1 || chunk > CHUNK_MAX ||
-      splits < 1 || (long)splits * chunk < lmax ||
-      (splits > 1 && (long)(splits - 1) * chunk >= lmax) ||
-      (splits > 1 && part == nullptr))
-    return (int)cudaErrorInvalidValue;
-  Args a;
-  a.q = q;
-  a.kc = static_cast<const uint8_t*>(kc);
-  a.vc = static_cast<const uint8_t*>(vc);
+  if (!valid(lmax, nh, nkv, hd, splits, chunk, part)) return (int)cudaErrorInvalidValue;
+  Args a = make_args(q, (long)nh * hd, kc, vc, slopes, mask, out, part, B, lmax, nh, nkv, hd,
+                     scale, splits, chunk);
   a.ks = static_cast<const float*>(ks);
   a.vs = static_cast<const float*>(vs);
-  a.slopes = static_cast<const float*>(slopes);
-  a.mask = static_cast<const int*>(mask);
-  a.out = out;
-  a.part_acc = static_cast<float*>(part);
-  a.part_ml = a.part_acc == nullptr ? nullptr : a.part_acc + (long)B * nh * splits * hd;
-  a.lmax = lmax;
-  a.nh = nh;
-  a.nkv = nkv;
-  a.hd = hd;
-  a.chunk = chunk;
-  a.splits = splits;
-  a.vec = 0;
-  a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_bf16) return (int)dispatch<__nv_bfloat16>(kv_kind, a, B, s);
-  return (int)dispatch<float>(kv_kind, a, B, s);
+  if (q_bf16) return (int)dispatch<__nv_bfloat16, false>(kv_kind, a, B, s);
+  return (int)dispatch<float, false>(kv_kind, a, B, s);
+}
+
+// The write variant. qkv: (B, nh * hd + 2 * nkv * hd) with rows q_row
+// elements apart, bf16 (q_bf16) or f32: q, then the new token's k, then
+// its v. kc, vc: f32 (kv_kind 0) or bf16 (1) caches, row b's new k/v
+// written at slot index[b] (int64; nothing is written where it lies
+// outside [0, lmax)). counters: with splits > 1, B * nkv * head blocks
+// unsigned zeros, left zero. Otherwise as decode_attn.
+extern "C" int decode_attn_write(const void* qkv, long q_row, void* kc, void* vc,
+                                 const void* slopes, const void* mask, const void* index,
+                                 void* out, void* part, void* counters, int B, int lmax, int nh,
+                                 int nkv, int hd, float scale, int q_bf16, int kv_kind,
+                                 int splits, int chunk, void* stream) {
+  if (!valid(lmax, nh, nkv, hd, splits, chunk, part) || index == nullptr ||
+      (splits > 1 && counters == nullptr) || (kv_kind != 0 && kv_kind != 1) ||
+      q_row < (long)(nh + 2 * nkv) * hd)
+    return (int)cudaErrorInvalidValue;
+  Args a = make_args(qkv, q_row, kc, vc, slopes, mask, out, part, B, lmax, nh, nkv, hd, scale,
+                     splits, chunk);
+  const long item = q_bf16 ? 2 : 4;
+  a.kn = static_cast<const uint8_t*>(qkv) + (long)nh * hd * item;
+  a.vn = static_cast<const uint8_t*>(a.kn) + (long)nkv * hd * item;
+  a.index = static_cast<const long long*>(index);
+  a.counters = static_cast<unsigned*>(counters);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_bf16) return (int)dispatch<__nv_bfloat16, true>(kv_kind, a, B, s);
+  return (int)dispatch<float, true>(kv_kind, a, B, s);
 }

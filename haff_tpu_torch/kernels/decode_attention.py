@@ -24,6 +24,16 @@ slot j's score gains slopes[h] * j, the column form of the bias, exact
 under softmax. On the card it is a template flag of the kernel; without
 slopes the kernel compiled is the one without the term.
 
+`decode_write_attention` is the MPT decode step's variant (another
+template flag, entry `decode_attn_write`): it takes q and the new token's
+k and v from the fused Wqkv output by strides, writes k and v into a
+float32 or bf16 cache at each row's `cache_index` as `write_kv_cache`
+would, attends with the fresh values at that slot, and merges the splits
+in the same launch (the last split of a row to finish merges). One launch
+where there were the cache write's index kernels, a copy of q, the split
+kernel and the merge kernel. `decode_write_attention_split` is its plain
+version. An int8 cache keeps `write_kv_cache` and `decode_attn`.
+
 `chunk_decode_attention` is the speculative verify step's attention: a
 chunk of D queries over the cache, each up to its own position. In the
 JAX package it is XLA, not a Pallas kernel, so here it is plain torch on
@@ -37,7 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -236,6 +246,138 @@ def flash_decode_attention(q, k_cache: Cache, v_cache: Cache, kv_mask,
         sm_scale = q.shape[-1] ** -0.5
     run = decode_attention_kernel if q.is_cuda else decode_attention_plain
     return run(q, k_cache, v_cache, kv_mask, sm_scale, slopes=slopes)
+
+
+def decode_write_attention_split(qkv, k_cache, v_cache, kv_mask, cache_index,
+                                 nh: int, sm_scale: float, plan=None,
+                                 slopes=None):
+    """The write variant in plain torch: qkv (B, nh*hd + 2*nkv*hd) holds
+    q, then the new token's k, then its v; each row's k/v go into the
+    (B, Lmax, nkv, hd) tensor caches, in place, at slot cache_index[b]
+    (rounded to the cache's dtype; a slot outside [0, Lmax) writes
+    nothing), then decode_attention_split over the caches with kv_mask.
+    Returns (B, nh, hd) float32."""
+    b = qkv.shape[0]
+    lmax, nkv, hd = k_cache.shape[1:]
+    q, k, v = qkv.reshape(b, -1).split((nh * hd, nkv * hd, nkv * hd), dim=-1)
+    slots = torch.arange(lmax, device=qkv.device)
+    at = (slots[None] == cache_index.long()[:, None])[..., None, None]
+    for cache, fresh in ((k_cache, k), (v_cache, v)):
+        fresh = fresh.reshape(b, 1, nkv, hd).to(cache.dtype)
+        cache.copy_(torch.where(at, fresh, cache))
+    return decode_attention_split(q.reshape(b, nh, hd), k_cache, v_cache,
+                                  kv_mask, sm_scale, plan=plan, slopes=slopes)
+
+
+# The write variant's split counters, device index -> int32 zeros: a
+# launch with more than one split counts each (batch row, head block)'s
+# finished splits there and leaves them zero, so the launches on a device
+# share one buffer and run one after another (the port decodes on one
+# stream at a time). The buffer is made and zeroed eagerly, never inside
+# a CUDA graph capture, where its zero fill would only be recorded in
+# that graph: a capture finds it made by the eager warm-up before it. An
+# outgrown buffer is kept, since a captured graph may still point at it.
+_COUNTERS: Dict[int, List[torch.Tensor]] = {}
+
+
+def _split_counters(device, n: int):
+    bufs = _COUNTERS.setdefault(device.index, [])
+    if not bufs or bufs[-1].numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"{_DECODE}/write: its split counters are made outside a "
+                "CUDA graph capture; run the step once eagerly first")
+        bufs.append(torch.zeros(max(n, 1024), dtype=torch.int32,
+                                device=device))
+    return bufs[-1]
+
+
+def _write_lib():
+    fn = _build.library(_DECODE).decode_attn_write
+    if fn.argtypes is None:
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, ctypes.c_long, vp, vp, vp, vp, vp, vp, vp, vp, i32,
+                       i32, i32, i32, i32, ctypes.c_float, i32, i32, i32, i32,
+                       vp]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def decode_write_attention_kernel(qkv, k_cache, v_cache, kv_mask, cache_index,
+                                  nh: int, sm_scale: float, slopes=None):
+    """Launch csrc/decode_attn.cu's write variant (counted under
+    `decode_attn/write`, not `decode_attn`). Forward only, as
+    decode_attention_kernel."""
+    name = _DECODE + "/write"
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (qkv, k_cache, v_cache)):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel is forward-only, and an input "
+            "requires grad; decode under torch.no_grad()")
+    if isinstance(k_cache, QuantArray) or isinstance(v_cache, QuantArray):
+        raise TypeError(f"{name}: an int8 cache is written by write_kv_cache")
+    b = qkv.shape[0]
+    lmax, nkv, hd = k_cache.shape[1:]
+    if hd > 128 or nkv == 0 or nh % nkv:
+        raise ValueError(f"{name}: nh={nh} nkv={nkv} hd={hd}; need "
+                         "hd <= 128 and nh % nkv == 0")
+    if qkv.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: qkv dtype {qkv.dtype}; need bfloat16 or "
+                        "float32")
+    if k_cache.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: cache dtype {k_cache.dtype}; need float32 "
+                        "or bfloat16 tensors")
+    check = _build.check_operand
+    check(name, "qkv", qkv, qkv.dtype, (b, (nh + 2 * nkv) * hd))
+    check(name, "k cache", k_cache, k_cache.dtype, (b, lmax, nkv, hd))
+    check(name, "v cache", v_cache, k_cache.dtype, (b, lmax, nkv, hd))
+    mask = kv_mask if kv_mask.dtype == torch.int32 else kv_mask.to(torch.int32)
+    mask = mask.contiguous()
+    check(name, "kv_mask", mask, torch.int32, (b, lmax))
+    index = cache_index.long().contiguous()
+    check(name, "cache_index", index, torch.int64, (b,))
+    if slopes is not None:
+        check(name, "slopes", slopes, torch.float32, (nh,))
+    out = qkv.new_empty((b, nh, hd))
+    if b and nh:
+        splits, chunk = decode_plan(b, nh, nkv, lmax)
+        part = counters = None
+        if splits > 1:
+            part = torch.empty(b * nh * splits * (hd + 2), dtype=torch.float32,
+                               device=qkv.device)
+            counters = _split_counters(
+                qkv.device, b * nkv * _cdiv(nh // nkv, HEADS_MAX))
+        ptr = _build.ptr
+        err = _write_lib()(
+            ptr(qkv), qkv.stride(0), ptr(k_cache), ptr(v_cache), ptr(slopes),
+            ptr(mask), ptr(index), ptr(out), ptr(part), ptr(counters), b, lmax,
+            nh, nkv, hd, float(sm_scale), int(qkv.dtype == torch.bfloat16),
+            _KV_CODES[k_cache.dtype], splits, chunk,
+            _build.stream_handle(qkv.device))
+        _build.LAUNCHES[name] += 1
+        _build.check(err, name)
+    return out
+
+
+def decode_write_attention(qkv, k_cache, v_cache, kv_mask, cache_index,
+                           nh: int, sm_scale: Optional[float] = None,
+                           slopes=None):
+    """One decode step's attention straight from the fused projection:
+    qkv (B, nh*hd + 2*nkv*hd), q then the new token's k and v; k/v_cache
+    (B, Lmax, nkv, hd) float32 or bf16 tensors, written in place at slot
+    cache_index[b] (B,); kv_mask (B, Lmax), 1 = live slot, the new slot
+    included; `slopes` (nh,) float32 the ALiBi slopes, or None. Returns
+    (B, nh, hd) in qkv's dtype."""
+    hd = k_cache.shape[-1]
+    if sm_scale is None:
+        sm_scale = hd ** -0.5
+    if qkv.is_cuda:
+        return decode_write_attention_kernel(qkv, k_cache, v_cache, kv_mask,
+                                             cache_index, nh, sm_scale,
+                                             slopes=slopes)
+    return decode_write_attention_split(qkv, k_cache, v_cache, kv_mask,
+                                        cache_index, nh, sm_scale,
+                                        slopes=slopes).to(qkv.dtype)
 
 
 def chunk_decode_attention(q, k_cache: Cache, v_cache: Cache, kv_mask,

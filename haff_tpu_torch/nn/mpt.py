@@ -15,6 +15,16 @@ a one-token decode step gives the decode kernel the per-head slopes
 (kernels/decode_attention.py), which adds slope_h * j to slot j's score.
 `attn_impl="torch"` and prefix-LM (a full (B, nh, L, L) bias) take the
 plain `mha_reference`, as in the JAX package.
+
+The fused decode step (`fused_decode_step`: CUDA tensors, one token, a
+float32 or bf16 tensor cache, no qk_ln or clip_qkv): each residual add
+and the LayerNorm after it are one kernel (kernels/add_layer_norm.py;
+MptForCausalLM carries each sub-block's output to the next norm, so a
+step has 2 a block and the final norm), and the attention writes the new
+k/v, attends and merges in one launch from the Wqkv output
+(kernels/decode_attention.decode_write_attention). The same functions
+as the unfused path, chosen from the inputs alone; the CPU, the prefill,
+training and an int8 cache keep the unfused path.
 """
 
 from __future__ import annotations
@@ -28,10 +38,13 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..kernels.decode_attention import alibi_columns, flash_decode_attention
+from ..kernels.add_layer_norm import add_layer_norm
+from ..kernels.decode_attention import (alibi_columns, decode_write_attention,
+                                        flash_decode_attention)
 from ..kernels.flash_attention import flash_attention, mha_reference
 from .layers import LayerNorm, QDense
 from .llama import Embed, write_kv_cache
+from .quant import QuantArray
 
 
 @dataclass(frozen=True)
@@ -94,6 +107,18 @@ def alibi_column_bias(n_heads: int, k_len: int, alibi_bias_max: int = 8,
     return alibi_columns(slopes, k_len, slopes.device)[None, :, None, :]
 
 
+def fused_decode_step(cfg: MptConfig, x, kv_cache, cache_index,
+                      cache_kv_segment_ids) -> bool:
+    """Whether a call takes the fused decode step: x (B, L, d) on CUDA
+    with L == 1, a cache pair of float32 or bf16 tensors, the cache index
+    and live-slot mask given, and neither qk_ln nor clip_qkv (both act
+    between the projection and the attention)."""
+    return (x.is_cuda and x.shape[1] == 1 and kv_cache is not None
+            and cache_index is not None and cache_kv_segment_ids is not None
+            and not isinstance(kv_cache[0], QuantArray)
+            and not cfg.qk_ln and not cfg.clip_qkv)
+
+
 class MptAttention(nn.Module):
     def __init__(self, cfg: MptConfig):
         super().__init__()
@@ -117,12 +142,19 @@ class MptAttention(nn.Module):
         in place at per-row offsets `cache_index`. One-token decode (L ==
         1, cache and cache_kv_segment_ids given, the mask including the
         slot just written): the decode kernel with the slopes over the
-        live slots. Returns (out, kv_cache)."""
+        live slots; with `fused_decode_step`, one launch writes the cache
+        and attends. Returns (out, kv_cache)."""
         cfg = self.cfg
         b, l, _ = x.shape
         nh, hd, d = cfg.n_heads, cfg.head_dim, cfg.d_model
         nkv = 1 if cfg.multiquery else nh
         fused = self.Wqkv(x)
+        if fused_decode_step(cfg, x, kv_cache, cache_index,
+                             cache_kv_segment_ids):
+            out = decode_write_attention(fused.reshape(b, -1), *kv_cache,
+                                         cache_kv_segment_ids, cache_index, nh,
+                                         slopes=slopes)
+            return self.out_proj(out.reshape(b, l, d)), kv_cache
         if cfg.clip_qkv:
             fused = fused.clamp(-cfg.clip_qkv, cfg.clip_qkv)
         q = fused[..., :d]
@@ -191,6 +223,18 @@ class MptBlock(nn.Module):
         h = F.gelu(self.up_proj(self.norm_2(x).to(x.dtype)))
         return x + self.down_proj(h), kv_cache
 
+    def decode_step(self, x, delta, slopes, kv_cache, cache_index,
+                    cache_kv_segment_ids):
+        """forward's fused decode step with the residual add deferred:
+        takes the previous block's MLP output `delta` (None for the first
+        block) and returns (x, this block's MLP output), so that each add
+        runs in the kernel of the norm after it."""
+        x, h = add_layer_norm(x, delta, self.norm_1.weight, self.norm_1.eps)
+        attn, _ = self.attn(h, slopes, None, kv_cache, cache_index,
+                            cache_kv_segment_ids)
+        x, h = add_layer_norm(x, attn, self.norm_2.weight, self.norm_2.eps)
+        return x, self.down_proj(F.gelu(self.up_proj(h)))
+
 
 class MptForCausalLM(nn.Module):
     """MPT with the word embedding tied as the LM head (reference
@@ -234,6 +278,27 @@ class MptForCausalLM(nn.Module):
         dtype = self.norm_f.weight.dtype
         x = inputs_embeds.to(dtype)
         slopes = self.slopes(x.device)
+        if kv_caches is not None and fused_decode_step(
+                self.cfg, x, kv_caches[0], cache_index, cache_kv_segment_ids):
+            delta = None
+            for block, cache in zip(self.blocks, kv_caches):
+                x, delta = block.decode_step(x, delta, slopes, cache,
+                                             cache_index, cache_kv_segment_ids)
+            _, x = add_layer_norm(x, delta, self.norm_f.weight,
+                                  self.norm_f.eps)
+            new_caches = list(kv_caches)
+        else:
+            x, new_caches = self._blocks(x, slopes, segment_ids, kv_caches,
+                                         cache_index, cache_kv_segment_ids,
+                                         prefix_mask, remat)
+            x = self.norm_f(x).to(dtype)
+        logits = F.linear(x, self.wte.weight.to(dtype))  # the tied head
+        out = (logits, x, (new_caches if kv_caches is not None else None))
+        return out + (None,) if with_aux else out
+
+    def _blocks(self, x, slopes, segment_ids, kv_caches, cache_index,
+                cache_kv_segment_ids, prefix_mask, remat):
+        """The unfused blocks: (x before the final norm, the caches)."""
         remat = remat and torch.is_grad_enabled() and (
             x.requires_grad or any(p.requires_grad for p in self.parameters()))
         new_caches = []
@@ -246,10 +311,7 @@ class MptForCausalLM(nn.Module):
             else:
                 x, cache = block(*args)
             new_caches.append(cache)
-        x = self.norm_f(x).to(dtype)
-        logits = F.linear(x, self.wte.weight.to(dtype))  # the tied head
-        out = (logits, x, (new_caches if kv_caches is not None else None))
-        return out + (None,) if with_aux else out
+        return x, new_caches
 
     def init_kv_caches(self, batch: int, max_len: int, dtype=torch.bfloat16,
                        device=None):
