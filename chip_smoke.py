@@ -334,6 +334,13 @@ MESH_18_PATHS = ("train_cli_7b_pp4", "train_cli_small_pp2_tp2",
 # and the float32 mesh run's eager validation.
 MPT_FUSED_PATHS = ("evaluate_mpt_bf16", "evaluate_mpt_w4a16", "mpt_tiny",
                    "train_cli_mpt", "train_cli_mpt_tp2_fsdp2")
+# The deepseek_v3 decoder's paths: tiny LISA and LISA at Moonlight-16B-A3B
+# (each eager, then graphed: a capture call and a replay).
+DEEPSEEK_PATHS = ("evaluate_moonlight_bf16", "deepseek_tiny")
+# The kernels and the CUDA sources of a `--only deepseek_v3` run (the
+# Moonlight evaluate also runs the SAM and flash kernels).
+DEEPSEEK_SOURCES = ("sam_window_attn", "sam_global_attn", "flash_prefill",
+                    "moe_decode", "mla_decode_attn")
 EXPECTED_ON = {
     "sam_window_relpos_attn": ("evaluate_bf16", "evaluate_w8a8",
                                "evaluate_w4a16", "train", "encoder_backward",
@@ -389,6 +396,8 @@ EXPECTED_ON = {
     "w4a16_matmul": ("evaluate_w4a16", "train_cli_tiny", "spec_small",
                      "moe_small", "evaluate_spec_w4a16",
                      "evaluate_mpt_w4a16", "eval_only_small_pp2_tp2"),
+    "moe_decode": DEEPSEEK_PATHS,
+    "mla_decode_attn_write": DEEPSEEK_PATHS,
 }
 
 # The MoE configuration at LLaMA-7B widths: Mixtral-8x7B's 8 experts and
@@ -1054,6 +1063,143 @@ def check_decode_write(gen):
                   "haff_tpu_torch/kernels/csrc/decode_attn.cu",
                   "haff_tpu/kernels/decode_attention.py:41 with the cache "
                   "write before it", shapes, counter="decode_attn/write")
+
+
+def check_moe_decode(gen):
+    """The Moonlight decode step's experts (csrc/moe_decode.cu) at
+    Moonlight-16B-A3B's widths: 64 experts of 1408 at 2048 in bf16, top-6
+    with float32 weights, the 2 shared experts (width 2816) in the same
+    launch; batch 1 (6 experts), 2 and 8 with every row taking experts 3
+    and 5 besides 4 of its own (rows sharing experts, each read once a
+    step). The output within one bf16 ulp (within_bf16) of
+    moe_decode_plain (float32 products from the bf16 weights, the k terms
+    in order; `plain_ms`). Library: cuBLAS over the same experts, each
+    chosen expert's gate, up and down `F.linear` over the rows that chose
+    it (their indices made on the host beforehand), scaled and added with
+    `index_add_`, then the shared experts' SwiGLU. Bytes: the distinct
+    chosen experts' and the shared experts' weights, x, the routing and
+    the output; operations 6 F d a (row, expert) pair and a shared part."""
+    from haff_tpu_torch.kernels import moe_decode as md
+
+    F = torch.nn.functional
+    e, f, d, k, dev, bf = 64, 1408, 2048, 6, "cuda", torch.bfloat16
+    gate, up = ((torch.randn(e, f, d, generator=gen, device=dev)
+                 / d ** 0.5).to(bf) for _ in range(2))
+    down = (torch.randn(e, d, f, generator=gen, device=dev) / f ** 0.5).to(bf)
+    shared = tuple((torch.randn(*s, generator=gen, device=dev)
+                    / s[1] ** 0.5).to(bf)
+                   for s in ((2 * f, d), (2 * f, d), (d, 2 * f)))
+    shapes = []
+    for b in (1, 2, 8):
+        x = torch.randn(b, d, generator=gen, device=dev).to(bf)
+        if b == 1:
+            idx = torch.randperm(e, generator=gen, device=dev)[:k][None]
+        else:
+            idx = torch.tensor([[3, 5, 10 + r, 20 + r, 30 + r, 40 + r]
+                                for r in range(b)], device=dev)
+        w = torch.rand(b, k, generator=gen, device=dev)
+        run = lambda: md.moe_decode(x, idx, w, gate, up, down,  # noqa: E731
+                                    shared)
+        out = run()
+        err = within_bf16(f"moe_decode {(b, k)}", out,
+                          md.moe_decode_plain(x, idx, w, gate, up, down,
+                                              shared))
+        chosen = sorted(set(idx.flatten().tolist()))
+        rows = {ex: (idx == ex).nonzero() for ex in chosen}  # (n, 2) a expert
+
+        def library():
+            y = torch.zeros(b, d, device=dev, dtype=torch.float32)
+            for ex, rk in rows.items():
+                xr = x[rk[:, 0]]
+                h = F.silu(F.linear(xr, gate[ex])) * F.linear(xr, up[ex])
+                y.index_add_(0, rk[:, 0], w[rk[:, 0], rk[:, 1], None]
+                             * F.linear(h, down[ex]).float())
+            sg, su, sd = shared
+            return (y + F.linear(F.silu(F.linear(x, sg)) * F.linear(x, su),
+                                 sd).float()).to(bf)
+
+        experts = len(chosen) + 2
+        b_ms, by = bound_ms(experts * 3 * f * d * 2
+                            + nbytes(x, idx, w, out),
+                            6.0 * f * d * (b * k + 2 * b))
+        shapes.append(dict(
+            shape=f"x {tuple(x.shape)} bf16, top-{k} of {e} experts of {f} "
+                  f"at {d} ({len(chosen)} distinct), 2 shared experts",
+            max_abs_err=err, ms=cuda_ms(run, 50),
+            plain_ms=cuda_ms(lambda: md.moe_decode_plain(
+                x, idx, w, gate, up, down, shared), 5),
+            bound_ms=b_ms, bound_by=by, library_ms=cuda_ms(library, 50),
+            graph_ms=graph_ms(run, 50), library_graph_ms=graph_ms(library, 50)))
+    return record("moe_decode", "haff_tpu_torch/kernels/csrc/moe_decode.cu",
+                  "none: the JAX package's MoE is a one-hot einsum over every "
+                  "expert (haff_tpu/nn/moe.py)", shapes)
+
+
+def check_mla_decode_write(gen):
+    """The Moonlight decode step's latent attention
+    (csrc/mla_decode_attn.cu: the new latent row written and attended in
+    one launch) at its widths: 16 heads, a 512 + 64 latent, 607 slots,
+    bf16; batch 1 (the new row at slot 590), 2 and 8 with ragged rows
+    (new slots from 590 down). The written cache byte for byte the plain
+    version's; the output within one bf16 ulp (within_bf16) of
+    mla_decode_write_attention_plain (`plain_ms`), run on a copy of the
+    cache. Library: the write as an index_put, then torch's SDPA over
+    the latent cache with the 16 heads sharing it. Bytes: the live slots'
+    latent rows, q, the new rows, the mask and the output; operations
+    2 (576 + 512) a head and live slot."""
+    from haff_tpu_torch.kernels import mla_decode_attention as mla
+
+    F = torch.nn.functional
+    nh, r, p, lmax, dev, bf = 16, 512, 64, 607, "cuda", torch.bfloat16
+    scale = 192 ** -0.5
+    shapes = []
+    for b in (1, 2, 8):
+        q = torch.randn(b, nh, r + p, generator=gen, device=dev).to(bf)
+        new = torch.randn(b, r + p, generator=gen, device=dev).to(bf)
+        cache = torch.randn(b, lmax, r + p, generator=gen, device=dev).to(bf)
+        index = torch.tensor([590 - 37 * i for i in range(b)], device=dev)
+        mask = (torch.arange(lmax, device=dev)[None]
+                <= index[:, None]).to(torch.int32)
+        ref_cache = cache.clone()
+        ref = mla.mla_decode_write_attention_plain(q, new, ref_cache, mask,
+                                                   index, r, scale)
+        out = mla.mla_decode_write_attention(q, new, cache, mask, index, r,
+                                             scale)
+        if not torch.equal(cache, ref_cache):
+            raise AssertionError(f"mla_decode_attn_write {(b, lmax)}: the "
+                                 "cache is not the plain version's, byte for "
+                                 "byte")
+        err = within_bf16(f"mla_decode_attn_write {(b, lmax)}", out, ref)
+        run = lambda: mla.mla_decode_write_attention(  # noqa: E731
+            q, new, cache, mask, index, r, scale)
+        rows = torch.arange(b, device=dev)
+        live_mask = mask.bool()[:, None, None]
+
+        def library():
+            cache[rows, index] = new
+            kv = cache[:, None]
+            return F.scaled_dot_product_attention(
+                q[:, :, None], kv.expand(b, nh, lmax, r + p),
+                kv[..., :r].expand(b, nh, lmax, r), attn_mask=live_mask,
+                scale=scale)[:, :, 0]
+
+        live = int(mask.sum())
+        b_ms, by = bound_ms(live * (r + p) * 2 + nbytes(q, new, mask, index)
+                            + b * (r + p) * 2 + b * nh * r * 2,
+                            2.0 * (r + p + r) * nh * live)
+        shapes.append(dict(
+            shape=f"q {tuple(q.shape)} bf16, latent cache {(b, lmax, r + p)}"
+                  f" bf16, new slots {index.tolist()}",
+            plan=list(mla.mla_plan(b, nh, lmax)), max_abs_err=err,
+            ms=cuda_ms(run, 50), plain_ms=cuda_ms(
+                lambda: mla.mla_decode_write_attention_plain(
+                    q, new, ref_cache, mask, index, r, scale), 10),
+            bound_ms=b_ms, bound_by=by, library_ms=cuda_ms(library, 50),
+            graph_ms=graph_ms(run, 50), library_graph_ms=graph_ms(library, 50)))
+    return record("mla_decode_attn_write",
+                  "haff_tpu_torch/kernels/csrc/mla_decode_attn.cu",
+                  "none: latent attention has no TPU counterpart", shapes,
+                  counter="mla_decode_attn/write")
 
 
 def sam_case(gen, scope, entry, b, hw, nh, d, iters):
@@ -1941,6 +2087,102 @@ def check_moe_small(launches):
             f"experts float; launches {dict(+ran)}")
         del models
     return dict(launches)
+
+
+def check_deepseek_graphed(name, model, cfg, req, new_tokens, launches):
+    """The deepseek_v3 decoder's LISA on the card: evaluate_fn, then
+    make_jitted_evaluate (a capture call and a replay) on the same
+    requests; the graphed calls' tokens equal to the eager call's, their
+    masks and taxonomy within one bf16 ulp (within_bf16); each call's
+    decode forwards on the two new kernels only (one moe_decode a MoE
+    layer, one mla_decode_attn/write a layer; no decode_attn). Logs the latencies (host clock, synchronized). Returns
+    the three calls' launch counts."""
+    from haff_tpu_torch.infer.evaluate import evaluate_fn, make_jitted_evaluate
+
+    launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = evaluate_fn(model, *req, new_tokens, 2)
+    torch.cuda.synchronize()
+    ms = [(time.perf_counter() - t0) * 1e3]
+    graphed = make_jitted_evaluate(model, new_tokens, 2)
+    identical = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        got = graphed(*req)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if not (torch.equal(got.output_ids, ref.output_ids)
+                and torch.equal(got.gen_lengths, ref.gen_lengths)):
+            raise AssertionError(f"{name}: graphed tokens "
+                                 f"{got.output_ids.tolist()} vs eager "
+                                 f"{ref.output_ids.tolist()}")
+        same = True
+        for key in ("pred_masks_left", "pred_masks_right", "taxonomies"):
+            within_bf16(f"{name} {key}", getattr(got, key), getattr(ref, key))
+            same &= torch.equal(getattr(got, key), getattr(ref, key))
+        identical.append(same)
+    if (graphed.captures, graphed.replays) != (1, 1):
+        raise AssertionError(f"{name}: {graphed.captures} captures, "
+                             f"{graphed.replays} replays")
+    counts = dict(launches)
+    b = req[2].shape[0]
+    forwards = 3 * (new_tokens - 1)
+    want = {"moe_decode": forwards * cfg.llama.num_moe_layers,
+            "mla_decode_attn/write": forwards * cfg.llama.num_layers}
+    if (any(counts.get(k) != n for k, n in want.items())
+            or counts.get("decode_attn") or counts.get("decode_attn/write")):
+        raise AssertionError(f"{name}: launches {counts}, expected {want} "
+                             "and no decode_attn")
+    log(f"{name}: batch {b}, {new_tokens} new tokens; graphed tokens equal "
+        f"to eager in 2 calls (1 capture, 1 replay), masks/taxonomy "
+        f"bit-identical {identical}; tokens {ref.output_ids.tolist()}; decode "
+        f"graph {graphed.decode_launches()} a replay; launches {counts} | "
+        f"latency eager, capture, replay {[round(t, 1) for t in ms]} ms | "
+        f"{CARD}")
+    return counts
+
+
+def check_deepseek_tiny(launches):
+    """The deepseek_v3 decoder at tiny in bf16 (the kernels take bf16):
+    tiny LISA with seeded weights, 2 rows (one padded), 8 new tokens,
+    through check_deepseek_graphed. Returns its launch counts."""
+    from haff_tpu_torch.model.lisa import LisaModel
+    from haff_tpu_torch.nn import deepseek_v3
+
+    cfg = deepseek_v3.model_config("tiny")
+    model = LisaModel(cfg, torch.bfloat16, device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(1))
+    req = make_requests(cfg, 2, 24, seed=3)
+    req[3][1, 20:] = 0
+    with torch.inference_mode():
+        return check_deepseek_graphed("deepseek tiny", model, cfg, req, 8,
+                                      launches)
+
+
+def run_moonlight(launches):
+    """LISA with the Moonlight-16B-A3B decoder at its full widths and
+    depth (27 layers, 64 experts, vocabulary 163840; bf16, seeded random
+    weights, CLIP-L and SAM-H) at the benchmark cell's shape: batch 1, a
+    320-token prompt (575 positions spliced), 32 new tokens, through
+    check_deepseek_graphed. Returns its launch counts."""
+    from haff_tpu_torch.model.lisa import LisaModel
+    from haff_tpu_torch.nn import deepseek_v3
+
+    cfg = deepseek_v3.model_config("moonlight", seg_token_idx=260)
+    model = LisaModel(cfg, torch.bfloat16, device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(2))
+    log(f"moonlight: {sum(p.numel() for p in model.parameters()) / 1e9:.2f} "
+        f"B parameters; {memory_line()}")
+    req = make_requests(cfg, 1, 320, seed=4)
+    with torch.inference_mode():
+        counts = check_deepseek_graphed("evaluate_moonlight_bf16", model, cfg,
+                                        req, 32, launches)
+    log(f"moonlight after the calls: {memory_line()}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 def product_launches(model, mode, new_tokens):
@@ -5391,8 +5633,12 @@ def main():
         walls.append((name, time.perf_counter()))
         log(f"{name}: {walls[-1][1] - walls[-2][1]:.1f} s wall")
 
+    # `--only deepseek_v3`: the deepseek_v3 decoder's kernel records and
+    # paths alone, with their kernels line.
+    deepseek_only = sys.argv[1:3] == ["--only", "deepseek_v3"]
     t0 = time.perf_counter()
-    info = _build.build_all()
+    info = _build.build_all(DEEPSEEK_SOURCES if deepseek_only
+                            else _build.SOURCES)
     log(f"build: {time.perf_counter() - t0:.1f} s wall for "
         f"{len(info)} kernels")
     for name, rec in info.items():
@@ -5403,9 +5649,12 @@ def main():
 
     gen = torch.Generator("cuda").manual_seed(0)
     kernels = []
-    for check in (check_sam_entries, check_flash, check_flash_bwd,
+    checks = (check_moe_decode, check_mla_decode_write)
+    if not deepseek_only:
+        checks = (check_sam_entries, check_flash, check_flash_bwd,
                   check_decode, check_decode_write, check_add_layer_norm,
-                  check_w8a8, check_w4a16, check_probe):
+                  check_w8a8, check_w4a16, check_probe) + checks
+    for check in checks:
         recs = check(gen)
         for rec in recs if isinstance(recs, list) else [recs]:
             kernels.append(rec)
@@ -5420,10 +5669,17 @@ def main():
                     f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
                     f"{graph}")
         torch.cuda.empty_cache()
+    lap("build and kernel checks")
+    if deepseek_only:
+        paths = {"deepseek_tiny": check_deepseek_tiny(_build.LAUNCHES)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths["evaluate_moonlight_bf16"] = run_moonlight(_build.LAUNCHES)
+        lap("deepseek_tiny, evaluate_moonlight_bf16")
+        return report(kernels, paths, start, card)
     log("SAM kernel ms at PR 4, for comparison (copied from PERF.md, "
         "events, not measured in this run): " + "; ".join(
             f"{name} {ms}" for name, ms in PR4_SAM_MS))
-    lap("build and kernel checks")
     if sys.argv[1:3] == ["--only", "mesh"]:
         # A development run of the mesh phases and the 7b CLI runs they are
         # held to; it prints no result line.
@@ -5500,6 +5756,9 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         lap("slice " + ", ".join(new))
+    paths["deepseek_tiny"] = check_deepseek_tiny(_build.LAUNCHES)
+    paths["evaluate_moonlight_bf16"] = run_moonlight(_build.LAUNCHES)
+    lap("deepseek_tiny, evaluate_moonlight_bf16")
     paths["random_w8a8_7b"] = run_random_w8a8(_build.LAUNCHES)
     lap("random_w8a8_7b")
     paths["serve_bf16"], paths["stream"] = run_serve(_build.LAUNCHES)
@@ -5536,13 +5795,20 @@ def main():
               "ring_7b", "train_cli_7b_tp2_sp2", *SLICE_16_PATHS,
               "train_cli_7b_pp4", "train_cli_moe_7bw_ep4",
               "train_cli_7b_8bit_tp2_fsdp2", "train_cli_mpt_tp2_fsdp2_bf16",
-              "train_cli_mpt_tp4_bf16"):
+              "train_cli_mpt_tp4_bf16", "evaluate_moonlight_bf16"):
         scalar = {k: n for k, n in paths[p].items() if k.endswith("/scalar") and n}
         if scalar:
             raise AssertionError(f"{p}: launches on the scalar path {scalar}")
     log("scalar SAM, flash_prefill_fwd, flash_bwd_dq, flash_bwd_dkv, "
         "w8a8_matmul and w4a16_matmul launches on the bf16 full-width "
         "paths: none")
+    return report(kernels, paths, start, card)
+
+
+def report(kernels, paths, start, card):
+    """Each kernel record's launches on the paths it is expected on (an
+    error where one is 0), then the kernels line, the card and the
+    device line. Returns main's exit code."""
     log("launches by path: " + json.dumps(
         {p: {k: n for k, n in sorted(c.items()) if n}
          for p, c in paths.items()}))

@@ -56,7 +56,10 @@ def main(argv=None):
     p.add_argument("--benchmark_dir", required=True)
     p.add_argument("--vis_save_path", default="./vis_output")
     p.add_argument("--model_preset", default="7b")
-    p.add_argument("--decoder", default="llama", choices=["llama", "mpt"])
+    p.add_argument("--decoder", default="llama",
+                   choices=["llama", "mpt", "deepseek_v3"],
+                   help="deepseek_v3: the DeepSeek-V3 decoder "
+                        "(--model_preset moonlight is Moonlight-16B-A3B)")
     p.add_argument("--checkpoint", default=None,
                    help="export_params .npz or a ckpt_model directory of the "
                         "train CLI (seeded random init if absent)")
@@ -103,9 +106,16 @@ def main(argv=None):
     device = _require_device(args.device)
     tok = load_tokenizer(args.tokenizer,
                          model_max_length=args.max_text_len)
-    cfg = ModelConfig.preset(args.model_preset).replace(
-        seg_token_idx=seg_token_idx(tok), decoder=args.decoder,
-        dtype="bfloat16" if args.precision == "bf16" else "float32")
+    dtype = "bfloat16" if args.precision == "bf16" else "float32"
+    if args.decoder == "deepseek_v3":
+        from ..nn.deepseek_v3 import model_config
+
+        cfg = model_config(args.model_preset, seg_token_idx=seg_token_idx(tok),
+                           dtype=dtype)
+    else:
+        cfg = ModelConfig.preset(args.model_preset).replace(
+            seg_token_idx=seg_token_idx(tok), decoder=args.decoder,
+            dtype=dtype)
 
     ds = AffDatasetVal(args.benchmark_dir, require_masks=False,
                        style="inference")
@@ -117,7 +127,7 @@ def main(argv=None):
                        args.load_in_8bit, args.load_in_4bit)
     corpus = lens = None
     if args.speculative:
-        if args.decoder == "mpt":
+        if args.decoder != "llama":
             raise SystemExit(
                 "--speculative requires the llama decoder (the MPT "
                 "attention has no chunked cache-verify mode)")

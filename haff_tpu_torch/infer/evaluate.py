@@ -2,7 +2,9 @@
 affordance masks, taxonomy) (port of haff_tpu/infer/evaluate.py
 `evaluate_fn`, `make_jitted_evaluate` and `validate_on_benchmark`):
 greedy decode, or with a draft corpus prompt-lookup speculative decode
-(the same tokens in fewer decode forwards; LLaMA decoder only).
+(the same tokens in fewer decode forwards; LLaMA decoder only). The
+deepseek_v3 decoder (nn/deepseek_v3.py) decodes greedily over its latent
+cache, with the experts it chose in `GenerateResult.expert_ids`.
 
 Generate with hidden-state capture, gather the first emitted [SEG]'s
 hidden state, project it, prompt both SAM mask decoders with it, and
@@ -63,6 +65,17 @@ from .generate import (DecodeState, SpeculativeState, decode_loop,
 
 _MPT_SPECULATIVE = ("speculative decoding is wired for the llama decoder "
                     "only (MPT attention has no chunked cache-verify mode)")
+_DEEPSEEK = ("the deepseek_v3 decoder serves greedily on one process, over "
+             "its bfloat16 latent cache: no speculative decoding, no int8 "
+             "cache, no mesh")
+
+
+def _check_decoder(model, speculative: bool, kv_cache_8bit: bool) -> None:
+    """Raise ValueError for a path the model's decoder does not have."""
+    if model.cfg.decoder == "deepseek_v3" and (speculative or kv_cache_8bit):
+        raise ValueError(_DEEPSEEK)
+    if speculative and model.cfg.decoder == "mpt":
+        raise ValueError(_MPT_SPECULATIVE)
 
 
 class EvaluateResult(NamedTuple):
@@ -122,10 +135,10 @@ def draft_operands(model, draft_corpus, corpus_lengths, batch: int):
     """The draft corpus as (B, C) and its live lengths as (B,) (or None)
     long tensors on the model's device, with JAX's broadcasting: a 1-D
     corpus is one row, a one-row corpus is shared by the batch, one
-    length is shared. Raises ValueError for the MPT decoder, and for a
-    count of lengths that is neither 1 nor the batch."""
-    if model.cfg.decoder == "mpt":
-        raise ValueError(_MPT_SPECULATIVE)
+    length is shared. Raises ValueError for the MPT and deepseek_v3
+    decoders, and for a count of lengths that is neither 1 nor the
+    batch."""
+    _check_decoder(model, True, False)
     corpus = torch.as_tensor(draft_corpus, device=model.device).long()
     if corpus.dim() == 1:
         corpus = corpus[None]
@@ -161,6 +174,7 @@ def evaluate_fn(model: LisaModel, images_sam, images_clip, input_ids,
     prompt-lookup speculative decoding (generate.speculative_generate,
     `draft_len` tokens a verify step): the same tokens in fewer decode
     forwards, counted in `decode_steps`. LLaMA decoder only."""
+    _check_decoder(model, draft_corpus is not None, kv_cache_8bit)
     images_sam, images_clip, input_ids, attention_mask = _inputs(
         model, images_sam, images_clip, input_ids, attention_mask)
     sp = _prompt(model, images_clip, input_ids, attention_mask)
@@ -206,9 +220,8 @@ class GraphedEvaluate:
                  kv_cache_8bit: bool = False, draft_corpus=None,
                  corpus_lengths=None, draft_len: int = 8,
                  dequant=contextlib.nullcontext()):
+        _check_decoder(model, draft_corpus is not None, kv_cache_8bit)
         if draft_corpus is not None:
-            if model.cfg.decoder == "mpt":
-                raise ValueError(_MPT_SPECULATIVE)
             if draft_len < 2:
                 raise ValueError("draft_len must be >= 2 (1 == plain greedy)")
         self.model = model
@@ -351,8 +364,7 @@ def make_jitted_evaluate(model: LisaModel, max_new_tokens: int, eos_id: int,
         return GraphedEvaluate(model, max_new_tokens, eos_id, kv_cache_8bit,
                                draft_corpus, corpus_lengths, draft_len,
                                dequant)
-    if draft_corpus is not None and model.cfg.decoder == "mpt":
-        raise ValueError(_MPT_SPECULATIVE)
+    _check_decoder(model, draft_corpus is not None, kv_cache_8bit)
 
     def evaluate(images_sam, images_clip, input_ids, attention_mask):
         with dequant:
@@ -378,6 +390,8 @@ def mesh_evaluate_fn(model: LisaModel, mesh, images_sam, images_clip,
     from ..core.mesh import use_mesh
     from .generate import DecodeState
 
+    if model.cfg.decoder == "deepseek_v3":
+        raise ValueError(_DEEPSEEK)
     images_sam, images_clip, input_ids, attention_mask = _inputs(
         model, images_sam, images_clip, input_ids, attention_mask)
     llm = model.llm

@@ -6,9 +6,14 @@ Decode steps on a ragged per-row KV cache: each step yields the emitted
 token and the post-final-norm hidden state that emitted it, which is what
 the [SEG] gather needs. Right-padded prompts are supported; each row
 writes its cache at its own length, and a row that has emitted EOS keeps
-emitting EOS and stops growing. Either decoder drives it: the caches take
+emitting EOS and stops growing. Each decoder drives it: the caches take
 the LLaMA config's kv heads, or MPT's (1 with multi-query attention, else
-every head); MPT ignores the positions (ALiBi).
+every head; MPT ignores the positions, ALiBi); the deepseek_v3 decoder's
+MLA keeps a latent cache instead, one (B, L, kv_lora_rank + rope) tensor
+a layer, and the greedy state records the experts its MoE layers chose
+at every prompt position and decode step (`GenerateResult.expert_ids`):
+the decoder returns them as the fourth item of a forward asked
+`with_aux`, and the prefill and each step copy them into static buffers.
 
 The work is split so that the decode can be captured in a CUDA graph
 (infer/evaluate.py make_jitted_evaluate): a state object allocates every
@@ -38,12 +43,30 @@ class GenerateResult(NamedTuple):
     # decode forwards taken (a scalar; speculative_generate only: tokens
     # emitted / steps is the speculation's speed-up)
     steps: torch.Tensor = None
+    # The deepseek_v3 decoder's routing, greedy only (else None): the
+    # experts each MoE layer chose, int16, (prompt (B, L, layers, k),
+    # decode (B, T, layers, k)); decode step t is the forward that fed
+    # token t, and the last step, which feeds nothing, reads -1.
+    expert_ids: tuple = None
+    # The deepseek_v3 decoder's latent caches as the decode left them
+    # (one tensor a layer, greedy only, else None): a caller may read what each
+    # layer cached for every prompt position and fed token.
+    latent_caches: list = None
+
+
+def latent_cache_dim(cfg):
+    """Values a token a layer of a latent (MLA) cache, or None for a
+    decoder with (k, v) caches."""
+    return getattr(cfg, "latent_dim", None)
 
 
 def cache_geometry(cfg):
     """(layers, kv heads, head dim) of the caches of a decoder config:
     a LlamaConfig, or an nn/mpt.MptConfig (1 kv head with multi-query
-    attention, else one a head)."""
+    attention, else one a head); for a latent cache (deepseek_v3),
+    (layers, 1, latent values)."""
+    if latent_cache_dim(cfg) is not None:
+        return cfg.num_layers, 1, cfg.latent_dim
     if hasattr(cfg, "n_layers"):
         return cfg.n_layers, 1 if cfg.multiquery else cfg.n_heads, cfg.head_dim
     return cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
@@ -53,8 +76,16 @@ def alloc_caches(cfg, batch: int, max_len: int, device,
                  cache_dtype=torch.bfloat16, kv_cache_8bit: bool = False):
     """One (k, v) pair a layer of zeroed (B, max_len, nkv, hd) caches:
     tensors of `cache_dtype`, or int8 QuantArrays with unit float32
-    scales (B, max_len, nkv, 1)."""
+    scales (B, max_len, nkv, 1). A latent-cache decoder (deepseek_v3)
+    gets one zeroed (B, max_len, latent) tensor a layer; it has no int8
+    cache (ValueError)."""
     layers, nkv, hd = cache_geometry(cfg)
+    if latent_cache_dim(cfg) is not None:
+        if kv_cache_8bit:
+            raise ValueError("the deepseek_v3 decoder's latent cache has no "
+                             "int8 form")
+        return [torch.zeros((batch, max_len, hd), dtype=cache_dtype,
+                            device=device) for _ in range(layers)]
     shape = (batch, max_len, nkv, hd)
 
     def one_cache():
@@ -78,11 +109,15 @@ class _CacheState:
         self.caches: List = alloc_caches(cfg, batch, max_len, device,
                                          cache_dtype, kv_cache_8bit)
         self.last_logits = self.last_hidden = None
+        # The experts each MoE layer chose (deepseek_v3, greedy only):
+        # static buffers the forwards' routing is copied into, inside the
+        # decode graph too.
+        self.prompt_experts = self.decode_experts = None
 
     def reset_caches(self) -> None:
         """Zero the caches (unit scales), as a freshly allocated state."""
         for pair in self.caches:
-            for c in pair:
+            for c in (pair if isinstance(pair, tuple) else (pair,)):
                 if isinstance(c, QuantArray):
                     c.values.zero_()
                     c.scales.fill_(1.0)
@@ -121,6 +156,10 @@ class DecodeState(_CacheState):
         self.tokens = new(b, t, dtype=torch.long)
         self.was_done = new(b, t, dtype=torch.bool)
         self.slots = torch.arange(self.max_len, device=device)[None, :]
+        if latent_cache_dim(cfg) is not None:
+            n, k = cfg.num_moe_layers, cfg.num_experts_per_tok
+            self.prompt_experts = new(b, prompt_len, n, k, dtype=torch.int16)
+            self.decode_experts = new(b, t, n, k, dtype=torch.int16)
 
     def _alloc_outputs(self, hidden) -> None:
         b, t = self.tokens.shape
@@ -130,11 +169,29 @@ class DecodeState(_CacheState):
         self.lengths.copy_(lengths)
         self.kv_seg.copy_(self.slots < lengths[:, None])
         self.done.zero_()
+        if self.decode_experts is not None:
+            self.decode_experts.fill_(-1)
 
     def result(self) -> GenerateResult:
+        experts = (None if self.prompt_experts is None
+                   else (self.prompt_experts, self.decode_experts))
         return GenerateResult(
             tokens=self.tokens.to(torch.int32), hiddens=self.hiddens,
-            lengths=(~self.was_done).sum(dim=1).to(torch.int32))
+            lengths=(~self.was_done).sum(dim=1).to(torch.int32),
+            expert_ids=experts,
+            latent_caches=None if experts is None else self.caches)
+
+
+def _forward(llm_fn: Callable, record, *args):
+    """llm_fn(*args)'s logits and hidden state; given a `record` buffer
+    (B, L, MoE layers, k), the forward is asked `with_aux` and the experts
+    it returns as its fourth item are copied into the buffer."""
+    if record is None:
+        logits, hidden, _ = llm_fn(*args)
+    else:
+        logits, hidden, _, chosen = llm_fn(*args, with_aux=True)
+        record.copy_(chosen)
+    return logits, hidden
 
 
 def prefill(state: _CacheState, llm_fn: Callable, prompt_embeds,
@@ -150,8 +207,9 @@ def prefill(state: _CacheState, llm_fn: Callable, prompt_embeds,
         b = prompt_embeds.shape[0]
         dev = prompt_embeds.device
         lengths = prompt_lengths.long()
-        logits, hidden, _ = llm_fn(
-            prompt_embeds, prompt_positions, prompt_segment_ids, state.caches,
+        logits, hidden = _forward(
+            llm_fn, state.prompt_experts, prompt_embeds, prompt_positions,
+            prompt_segment_ids, state.caches,
             torch.zeros((b,), dtype=torch.long, device=dev), None)
         rows = torch.arange(b, device=dev)
         last = (lengths - 1).clamp(min=0)
@@ -183,9 +241,11 @@ def decode_loop(state: DecodeState, embed_fn: Callable, llm_fn: Callable,
             break  # the last step's forward would feed no later token
         lengths = state.lengths
         state.kv_seg.masked_fill_(state.slots == lengths[:, None], 1)
-        logits, hidden, _ = llm_fn(
-            embed_fn(token[:, None]), lengths[:, None], None, state.caches,
-            lengths, state.kv_seg)
+        record = (None if state.decode_experts is None
+                  else state.decode_experts[:, step:step + 1])
+        logits, hidden = _forward(
+            llm_fn, record, embed_fn(token[:, None]), lengths[:, None], None,
+            state.caches, lengths, state.kv_seg)
         lengths.copy_(torch.where(new_done, lengths, lengths + 1))
         state.last_logits.copy_(logits[:, 0])
         state.last_hidden.copy_(hidden[:, 0])

@@ -88,14 +88,29 @@ class Predictor:
         """Weights and quantization as `load_model` says; `device` is the
         card unless the caller asks for the CPU. `speculative` decodes by
         prompt lookup over the ANSWER_LIST templates, `draft_len` tokens a
-        verify step (LLaMA decoder only: MPT raises ValueError)."""
+        verify step (LLaMA decoder only: MPT raises ValueError).
+        `decoder="deepseek_v3"` serves the DeepSeek-V3 decoder
+        (nn/deepseek_v3.py): `model_preset` "moonlight" is
+        Moonlight-16B-A3B with CLIP ViT-L/14 and SAM ViT-H, "tiny" the
+        test size; no speculation, int8 cache or 8/4-bit loading."""
         from ..core.config import ModelConfig
         from ..data.tokenizer import load_tokenizer, seg_token_idx
         from .evaluate import make_jitted_evaluate
 
         self.tok = load_tokenizer(tokenizer, model_max_length=max_text_len)
-        self.cfg = ModelConfig.preset(model_preset).replace(
-            seg_token_idx=seg_token_idx(self.tok), decoder=decoder)
+        if decoder == "deepseek_v3":
+            from ..nn.deepseek_v3 import model_config
+
+            if speculative or kv_cache_8bit or load_in_8bit or load_in_4bit:
+                raise ValueError(
+                    "the deepseek_v3 decoder serves in bf16 or fp32 over its "
+                    "latent cache: no speculative decoding, int8 cache or "
+                    "8/4-bit loading")
+            self.cfg = model_config(model_preset,
+                                    seg_token_idx=seg_token_idx(self.tok))
+        else:
+            self.cfg = ModelConfig.preset(model_preset).replace(
+                seg_token_idx=seg_token_idx(self.tok), decoder=decoder)
         self.max_text_len = max_text_len
         self.conv_type = conv_type
         self.use_mm_start_end = use_mm_start_end

@@ -36,7 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Sources in csrc/ that are kernels (each one its own library).
 SOURCES = ("sam_window_attn", "sam_global_attn", "flash_prefill", "flash_bwd",
            "decode_attn", "w8a8_matmul", "w4a16_matmul", "matmul_probe",
-           "add_layer_norm")
+           "add_layer_norm", "moe_decode", "mla_decode_attn")
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
 

@@ -1,8 +1,10 @@
 """The composite 2Haff model (port of haff_tpu/model/lisa.py): CLIP ViT
 tower + mm_projector, LLaMA decoder emitting [SEG] (or, with
 `cfg.decoder == "mpt"`, the MPT decoder of nn/mpt.py at the LLaMA
-config's widths), the [SEG] projection MLP, and SAM with the dual mask
-decoders and the taxonomy head.
+config's widths; with `cfg.decoder == "deepseek_v3"`, the DeepSeek-V3
+decoder of nn/deepseek_v3.py, whose DeepseekV3Config `cfg.llama` then
+holds: serving only), the [SEG] projection MLP, and SAM with the dual
+mask decoders and the taxonomy head.
 
 The model is built on the `meta` device, then materialised on `device`
 (default "cuda": the card, unless the caller asks for the CPU) in
@@ -30,6 +32,7 @@ from torch import nn
 from ..core.config import ModelConfig
 from ..core.dtypes import resolve, set_reference_precision
 from ..core.mesh import batch_total
+from ..nn import deepseek_v3
 from ..nn.clip_vit import ClipVisionTower
 from ..nn.layers import LayerNorm, QDense
 from ..nn.llama import LlamaForCausalLM, RMSNorm
@@ -93,9 +96,18 @@ class LisaModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         # The LLaMA decoder's MoE layers (the MPT decoder has none).
-        self.moe_layers = () if cfg.decoder == "mpt" else moe_layers(cfg.llama)
+        self.moe_layers = (moe_layers(cfg.llama) if cfg.decoder == "llama"
+                           else ())
+        if cfg.decoder == "deepseek_v3" and mesh is not None:
+            raise ValueError("the deepseek_v3 decoder has no mesh path")
         with torch.device("meta"):
-            if cfg.decoder == "mpt":
+            if cfg.decoder == "deepseek_v3":
+                if not isinstance(cfg.llama, deepseek_v3.DeepseekV3Config):
+                    raise ValueError(
+                        "decoder='deepseek_v3' takes a DeepseekV3Config as "
+                        "cfg.llama (nn/deepseek_v3.model_config)")
+                self.llm = deepseek_v3.DeepseekV3ForCausalLM(cfg.llama)
+            elif cfg.decoder == "mpt":
                 # The alternative MPT backend (reference llava_mpt.py) at
                 # the LLaMA config's widths: the same (logits, hidden,
                 # caches) interface; ALiBi ignores the positions.
@@ -147,9 +159,9 @@ class LisaModel(nn.Module):
 
     def llm_forward(self, inputs_embeds, positions, segment_ids=None,
                     kv_caches=None, cache_index=None,
-                    cache_kv_segment_ids=None):
+                    cache_kv_segment_ids=None, **kw):
         return self.llm(inputs_embeds, positions, segment_ids, kv_caches,
-                        cache_index, cache_kv_segment_ids)
+                        cache_index, cache_kv_segment_ids, **kw)
 
     def embed_tokens(self, input_ids):
         # IMAGE_TOKEN_INDEX (-200) reads row 0; the splice overwrites it.
@@ -192,6 +204,8 @@ class LisaModel(nn.Module):
         logits, hidden, _, aux = self.llm(
             sp.embeds, sp.positions, sp.segment_ids,
             dropout_seed=dropout_seed, remat=remat, with_aux=True)
+        if self.cfg.decoder == "deepseek_v3":
+            aux = None  # its fourth item is the routing, not a loss
         out = self.finish_outputs(batch, sam_emb, sp, logits, hidden)
         return out._replace(moe_aux=aux)
 
@@ -269,7 +283,9 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> None:
             p.copy_(t if rows is None else t.narrow(0, rows[0], p.shape[0]))
 
     for mod in _init_order(model):
-        if isinstance(mod, LoraDense):
+        if deepseek_v3.init_random_(mod, normal_):
+            pass
+        elif isinstance(mod, LoraDense):
             if mod.rank:
                 mod.reset_lora_(generator)
         elif isinstance(mod, (LayerNorm, RMSNorm)):
